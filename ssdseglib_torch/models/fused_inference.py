@@ -1,0 +1,325 @@
+"""BN-folded serving forward for MobileNetV2 (PyTorch), counterpart of
+ssdseglib_tpu/models/fused_inference.py.
+
+Every ConvBN is folded to conv + bias on the host (NumPy, f32, the same
+arithmetic as the JAX package), then cast to the compute dtype.  The stem
+absorbs the [0, 255] -> [-1, 1] input rescale (`fold_stem_rescale`), the
+stem and the stride-2 / first blocks run as cuDNN convs, and each stride-1
+residual repeat runs as one fused Hopper kernel (`ops/fused_mbconv.py`).
+The heads run folded and without concats (`heads_forward_folded`).
+
+Activations are NCHW in the channels-last memory format, so the NHWC view
+the fused kernel takes is a permute, not a copy.  The public forward takes
+NHWC images and returns NHWC outputs, like the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ssdseglib_torch.config import ModelConfig
+from ssdseglib_torch.models.blocks import bilinear_resize, conv2d_same
+from ssdseglib_torch.models.mobilenetv2 import _SEQUENCES
+from ssdseglib_torch.ops.fused_mbconv import fold_conv_bn, fused_mbconv
+
+EXTRA_BLOCKS = ("backbone-block17", "backbone-block18")
+
+
+def _numpy_state(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {
+        k: v.detach().cpu().float().numpy()
+        for k, v in state_dict.items()
+        if not k.endswith("num_batches_tracked")
+    }
+
+
+def _fold_convbn(s: Dict[str, np.ndarray], prefix: str):
+    return fold_conv_bn(
+        s[f"{prefix}.conv.weight"], s[f"{prefix}.batchnorm.weight"],
+        s[f"{prefix}.batchnorm.bias"], s[f"{prefix}.batchnorm.running_mean"],
+        s[f"{prefix}.batchnorm.running_var"],
+    )
+
+
+def _fold_sepconv(s: Dict[str, np.ndarray], prefix: str):
+    """SepConvBN: BN sits after the pointwise conv only -- fold it into the
+    pointwise kernel; the depthwise kernel passes through untouched."""
+    pw, bias = fold_conv_bn(
+        s[f"{prefix}.pointwise.weight"], s[f"{prefix}.batchnorm.weight"],
+        s[f"{prefix}.batchnorm.bias"], s[f"{prefix}.batchnorm.running_mean"],
+        s[f"{prefix}.batchnorm.running_var"],
+    )
+    return s[f"{prefix}.depthwise.weight"], pw, bias
+
+
+def fold_mobilenetv2(state_dict) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """Fold every backbone ConvBN into (OIHW kernel, bias), keyed by block
+    name."""
+    s = _numpy_state(state_dict)
+    names = dict.fromkeys(
+        k.split(".")[1] for k in s if k.startswith("backbone.")
+    )
+    return {name: _fold_convbn(s, f"backbone.{name}") for name in names}
+
+
+def fold_heads(state_dict, cfg: ModelConfig) -> Dict[str, tuple]:
+    """Fold every head-side ConvBN / SepConvBN into conv + bias, keyed by
+    '/'-joined module path, like the JAX package's ``fold_heads``."""
+    s = _numpy_state(state_dict)
+    out = {}
+
+    def convbn(path):
+        out[path] = _fold_convbn(s, path.replace("/", "."))
+
+    def sepconv(path):
+        out[path] = _fold_sepconv(s, path.replace("/", "."))
+
+    for name in EXTRA_BLOCKS:
+        sepconv(name)
+    convbn("mask-encoder/aspp-pointwise")
+    for i in range(len(cfg.segmentation_dilation_rates)):
+        sepconv(f"mask-encoder/aspp-atrous{i + 1}")
+    convbn("mask-encoder/pooling")
+    convbn("mask-encoder/output")
+    convbn("mask-decoder/backbone-reduce")
+    convbn("mask-decoder/conv")
+    sepconv("mask-decoder/sepconv")
+    out["mask-decoder/output-conv"] = (s["mask-decoder.output-conv.weight"],)
+    for i in range(4):
+        sepconv(f"heads/labels{i + 1}/sepconv")
+        sepconv(f"heads/boxes{i + 1}/sepconv")
+    return out
+
+
+def fold_stem_rescale(kernel, bias, input_hw):
+    """Fold the [0,255] -> [-1,1] input rescale into the (BN-folded) stem
+    conv, whose kernel is OIHW.
+
+    conv_SAME(x/127.5 - 1, k) + b == conv_SAME(x, k/127.5) + (b - ones(x)*k)
+    where the correction term `conv_SAME(ones, k)` varies only near the
+    borders (SAME zero-padding of the RESCALED image means gray padding of
+    the raw one); it is precomputed here as a (1, C, H/2, W/2) bias map.
+    The same NumPy arithmetic as the JAX package, on the HWIO kernel."""
+    k = np.ascontiguousarray(np.asarray(kernel, np.float32).transpose(2, 3, 1, 0))
+    h, w = int(input_hw[0]), int(input_hw[1])
+    kh, kw = k.shape[:2]
+    stride = 2
+    hout, wout = -(-h // stride), -(-w // stride)
+    pad_t = max((hout - 1) * stride + kh - h, 0) // 2
+    pad_l = max((wout - 1) * stride + kw - w, 0) // 2
+    # corr[ho, wo, o] = sum over in-bounds taps of k summed over in-channels
+    ksum = k.sum(axis=2)  # (kh, kw, C_out)
+    hi = np.arange(hout) * stride - pad_t
+    wi = np.arange(wout) * stride - pad_l
+    corr = np.zeros((hout, wout, k.shape[3]), np.float32)
+    for dh in range(kh):
+        vh = ((hi + dh >= 0) & (hi + dh < h)).astype(np.float32)
+        for dw in range(kw):
+            vw = ((wi + dw >= 0) & (wi + dw < w)).astype(np.float32)
+            corr += ksum[dh, dw] * (vh[:, None] * vw[None, :])[..., None]
+    bias_map = np.asarray(bias, np.float32) - corr[None]
+    return (np.asarray(kernel, np.float32) / 127.5,
+            np.ascontiguousarray(bias_map.transpose(0, 3, 1, 2)))
+
+
+def _conv(x, kernel, bias=None, stride: int = 1, depthwise: bool = False,
+          relu6: bool = False, dilation: int = 1):
+    """Folded conv + bias (+ relu6), SAME padding.  A bias of more than one
+    dimension is the stem's (1, C, H, W) border bias map."""
+    groups = x.shape[1] if depthwise else 1
+    vector_bias = bias if bias is not None and bias.dim() == 1 else None
+    y = conv2d_same(x, kernel, vector_bias, stride, dilation, groups)
+    if bias is not None and vector_bias is None:
+        y = y + bias
+    if relu6:
+        y = y.clamp(0.0, 6.0)
+    return y
+
+
+def _act(x, relu_max):
+    """None = no activation, 0.0 = uncapped ReLU, > 0 = capped ReLU."""
+    if relu_max is None:
+        return x
+    return x.clamp(0.0, relu_max) if relu_max > 0.0 else F.relu(x)
+
+
+def _block_convs(folded, block: int):
+    """The folded (kernel, bias) of a block's expand, depthwise, project."""
+    return tuple(
+        folded[f"backbone-block{block}-{stage}"]
+        for stage in ("expand", "depthwise", "project")
+    )
+
+
+def _mbconv_args(folded, block: int):
+    """Kernel-layout arguments of one stride-1 block from its OIHW folded
+    convs: (Cin, E), (E,), (9, E), (E,), (E, Cout), (Cout,)."""
+    (we, be), (wd, bd), (wp, bp) = _block_convs(folded, block)
+    e = we.shape[0]
+    return (
+        we.reshape(e, -1).t().contiguous(), be,
+        wd.reshape(e, 9).t().contiguous(), bd,
+        wp.reshape(wp.shape[0], e).t().contiguous(), bp,
+    )
+
+
+def mobilenetv2_features_fused(folded, x: torch.Tensor):
+    """Backbone forward; returns the three head taps (fm1 os16, fm2 os32,
+    skip os4), NCHW.  ``folded`` holds the device tensors of every folded
+    conv and, under ``backbone-block{N}-mbconv``, the kernel arguments of
+    each stride-1 residual repeat."""
+
+    (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 0)
+    x = _conv(x, we, be, stride=2, relu6=True)
+    x = _conv(x, wd, bd, depthwise=True, relu6=True)
+    x = _conv(x, wp, bp)
+
+    taps = {}
+    block = 0
+    for _, _, n_repeat, stride in _SEQUENCES:
+        for n in range(n_repeat):
+            block += 1
+            if n == 0:
+                # stride-s first block, no residual: cuDNN convs; expose the
+                # expand activation (head taps live on first blocks)
+                (we, be), (wd, bd), (wp, bp) = _block_convs(folded, block)
+                e = _conv(x, we, be, relu6=True)
+                taps[f"block{block}-expand"] = e
+                d = _conv(e, wd, bd, stride=stride, depthwise=True, relu6=True)
+                x = _conv(d, wp, bp)
+            else:
+                # stride-1 residual repeat: one fused kernel launch on the
+                # NHWC view of the channels-last activation
+                nhwc = x.permute(0, 2, 3, 1).contiguous()
+                y = fused_mbconv(nhwc, *folded[f"backbone-block{block}-mbconv"],
+                                 residual=True)
+                x = y.permute(0, 3, 1, 2)
+        taps[f"block{block}-out"] = x
+
+    return taps["block13-expand"], taps["block16-out"], taps["block3-expand"]
+
+
+def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip):
+    """BN-folded, concat-free forward of the task heads (NCHW in, NHWC
+    out).  Each ``concat -> conv`` pair (the ASPP merge and the decoder skip
+    merge) runs as a sum of per-branch convs over kernel slices, so the
+    concatenation is never materialised; the pooled ASPP branch is
+    spatially constant and enters as a bias."""
+    relu_max = 6.0  # mobilenetv2 head cap
+
+    def sep(x, name, stride=1, dilation=1, rm=relu_max):
+        dw, pw, b = folded[name]
+        y = _conv(x, dw, None, stride=stride, depthwise=True, dilation=dilation)
+        return _act(_conv(y, pw, b), rm)
+
+    fm3 = sep(fm2, EXTRA_BLOCKS[0], stride=2)
+    fm4 = sep(fm3, EXTRA_BLOCKS[1], stride=2)
+
+    # -- ASPP encoder
+    pw_out = _act(_conv(fm1, *folded["mask-encoder/aspp-pointwise"]), relu_max)
+    atrous = [
+        sep(fm1, f"mask-encoder/aspp-atrous{i + 1}", dilation=rate)
+        for i, rate in enumerate(cfg.segmentation_dilation_rates)
+    ]
+    pooled = fm1.mean(dim=(2, 3), keepdim=True)
+    pooled = _act(_conv(pooled, *folded["mask-encoder/pooling"]), relu_max)
+    ko, bo = folded["mask-encoder/output"]  # (F, 5F, 1, 1)
+    f = ko.shape[0]
+    enc = _conv(pw_out, ko[:, :f])
+    for i, branch in enumerate(atrous):
+        enc = enc + _conv(branch, ko[:, (i + 1) * f:(i + 2) * f])
+    enc = enc + _conv(pooled, ko[:, (len(atrous) + 1) * f:], bo)
+    enc = _act(enc, relu_max)
+
+    # -- DeepLabV3+ decoder: the 3x3 conv over concat([upsampled encoder,
+    # reduced skip]) runs as two sliced convs
+    enc_up = bilinear_resize(enc, skip.shape[2], skip.shape[3])
+    red = _act(_conv(skip, *folded["mask-decoder/backbone-reduce"]), relu_max)
+    kc, bc = folded["mask-decoder/conv"]  # (F, F + 48, 3, 3)
+    x = _act(_conv(enc_up, kc[:, :f]) + _conv(red, kc[:, f:], bc), relu_max)
+    x = sep(x, "mask-decoder/sepconv", rm=relu_max)
+    (k_out,) = folded["mask-decoder/output-conv"]
+    x = _conv(x, k_out)
+    x = bilinear_resize(x, cfg.input_image_shape[0], cfg.input_image_shape[1])
+    mask = torch.softmax(x, dim=1).permute(0, 2, 3, 1)
+
+    # -- SSDLite branches (incl. the 4 / num_classes channel-swap quirk)
+    head_rm = (
+        cfg.detection_head_relu_max
+        if cfg.detection_head_relu_max is not None
+        else relu_max
+    )
+    fms = [fm1, fm2, fm3, fm4]
+    b = fm1.shape[0]
+
+    def branch(kind, channels):
+        return torch.cat(
+            [
+                sep(fm, f"heads/{kind}{i + 1}/sepconv", rm=head_rm)
+                .permute(0, 2, 3, 1).reshape(b, -1, channels)
+                for i, fm in enumerate(fms)
+            ],
+            dim=1,
+        )
+
+    labels = torch.softmax(branch("labels", 4), dim=-1)
+    boxes = branch("boxes", cfg.number_of_classes)
+    return {"output-mask": mask, "output-labels": labels, "output-boxes": boxes}
+
+
+def _to_device(folded, dtype, device):
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+        return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
+
+    return {name: tuple(put(a) for a in arrays) for name, arrays in folded.items()}
+
+
+def make_fused_forward(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
+                       device="cpu") -> Callable[[torch.Tensor], dict]:
+    """Build the BN-folded serving forward with the outputs of
+    ``SsdSegModel`` in eval mode: a function of NHWC images (any real or
+    uint8 dtype, on ``device``) returning the dict of NHWC outputs.
+
+    The rescale is folded into the stem for images of
+    ``cfg.input_image_shape``; any other spatial shape takes the
+    standalone rescale (the border bias map is shape-specific).  Folding
+    runs in f32; the folded weights are then cast to ``compute_dtype``."""
+    if cfg.backbone != "mobilenetv2":
+        raise ValueError("fused inference currently supports mobilenetv2 only")
+    device = torch.device(device)
+    folded_f32 = fold_mobilenetv2(state_dict)
+    folded = _to_device(folded_f32, compute_dtype, device)
+    stem_folded = dict(folded)
+    stem_folded["backbone-block0-expand"] = _to_device(
+        {"stem": fold_stem_rescale(*folded_f32["backbone-block0-expand"],
+                                   cfg.input_image_shape[:2])},
+        compute_dtype, device,
+    )["stem"]
+    block = 0
+    for _, _, n_repeat, _ in _SEQUENCES:
+        for n in range(n_repeat):
+            block += 1
+            if n > 0:
+                args = _mbconv_args(folded, block)
+                folded[f"backbone-block{block}-mbconv"] = args
+                stem_folded[f"backbone-block{block}-mbconv"] = args
+    heads = _to_device(fold_heads(state_dict, cfg), compute_dtype, device)
+    expected_hw = tuple(cfg.input_image_shape[:2])
+
+    @torch.inference_mode()
+    def forward(images: torch.Tensor) -> dict:
+        x = images.to(compute_dtype).permute(0, 3, 1, 2)  # NHWC -> channels-last NCHW
+        if tuple(images.shape[1:3]) == expected_hw:
+            backbone = stem_folded  # raw-input path: rescale folded into the stem
+        else:
+            x = x / 127.5 - 1.0
+            backbone = folded
+        fm1, fm2, skip = mobilenetv2_features_fused(backbone, x)
+        return heads_forward_folded(cfg, heads, fm1, fm2, skip)
+
+    return forward

@@ -1,0 +1,177 @@
+"""Fused stride-1 inverted-residual (MBConv) inference block.
+
+Counterpart of ``ssdseglib_tpu/ops/fused_mbconv.py``.  A whole stride-1
+block -- expand 1x1 -> relu6 -> depthwise 3x3 -> relu6 -> project 1x1
+(-> + residual) -- runs as one hand-written Hopper kernel
+(``csrc/fused_mbconv.cu``) that keeps the E-wide expanded tensor on chip,
+so per pixel only Cin + Cout channels cross device memory instead of
+Cin + 2E + Cout.
+
+BatchNorm is folded into conv weight + bias beforehand (`fold_conv_bn`).
+
+``fused_mbconv`` launches the kernel on a CUDA tensor and runs the plain
+twin ``fused_mbconv_reference`` on a CPU tensor; a CUDA call the kernel
+cannot take raises.  ``fused_mbconv.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ssdseglib_torch.models.blocks import BN_EPSILON
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fold_conv_bn(kernel, gamma, beta, mean, var, eps: float = BN_EPSILON):
+    """Fold BatchNorm(scale, bias, mean, var) into (kernel', bias').
+
+    ``kernel`` is a PyTorch conv weight, output channels first
+    (O, I, kh, kw).  conv -> BN == conv with kernel * (gamma / sqrt(var +
+    eps)) per output channel and bias (beta - mean * gamma / sqrt(var +
+    eps)).  NumPy in f32, the same arithmetic as the JAX package's fold.
+    """
+    scale = np.asarray(gamma) / np.sqrt(np.asarray(var) + eps)
+    kernel = np.asarray(kernel) * scale.reshape((-1,) + (1,) * (np.ndim(kernel) - 1))
+    bias = np.asarray(beta) - np.asarray(mean) * scale
+    return kernel.astype(np.float32), bias.astype(np.float32)
+
+
+def _check(x, w1, b1, wd, b2, w3, b3, residual):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, Cin), got shape {tuple(x.shape)}")
+    cin = x.shape[-1]
+    e = w1.shape[-1]
+    cout = w3.shape[-1]
+    shapes = {
+        "w_expand": (w1, (cin, e)), "b_expand": (b1, (e,)),
+        "w_depthwise": (wd, (9, e)), "b_depthwise": (b2, (e,)),
+        "w_project": (w3, (e, cout)), "b_project": (b3, (cout,)),
+    }
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(
+                f"{name} is {t.dtype} on {t.device}; x is {x.dtype} on {x.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError("x must be a contiguous (B, H, W, Cin) tensor")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"dtype {x.dtype} is not supported (float32, bfloat16)")
+    if residual and cin != cout:
+        raise ValueError("residual requires Cin == Cout")
+
+
+def _as_kernel_args(x, w_expand, w_depthwise, w_project):
+    cin = x.shape[-1]
+    w1 = w_expand.reshape(cin, -1)
+    e = w1.shape[1]
+    return w1, w_depthwise.reshape(9, e), w_project.reshape(e, -1)
+
+
+def fused_mbconv(
+    x: torch.Tensor,
+    w_expand: torch.Tensor,
+    b_expand: torch.Tensor,
+    w_depthwise: torch.Tensor,
+    b_depthwise: torch.Tensor,
+    w_project: torch.Tensor,
+    b_project: torch.Tensor,
+    residual: bool = True,
+) -> torch.Tensor:
+    """Fused stride-1 inverted-residual block.
+
+    Args:
+        x: (B, H, W, Cin) NHWC, contiguous, float32 or bfloat16
+        w_expand: (Cin, E) or (1, 1, Cin, E) folded expand weight
+        b_expand: (E,)
+        w_depthwise: (9, E) or (3, 3, 1, E) folded depthwise taps
+        b_depthwise: (E,)
+        w_project: (E, Cout) or (1, 1, E, Cout)
+        b_project: (Cout,)
+        residual: add the input (requires Cin == Cout)
+    Every weight and bias is in x's dtype and on x's device.
+    Returns:
+        (B, H, W, Cout) in x's dtype.
+    """
+    w1, wd, w3 = _as_kernel_args(x, w_expand, w_depthwise, w_project)
+    _check(x, w1, b_expand, wd, b_depthwise, w3, b_project, residual)
+    if x.device.type == "cpu":
+        return fused_mbconv_reference(
+            x, w1, b_expand, wd, b_depthwise, w3, b_project, residual
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mbconv runs on cuda or cpu, not {x.device}")
+
+    from ssdseglib_torch.ops._cuda_build import load_library
+
+    lib = load_library()
+    batch, h, w, cin = x.shape
+    e, cout = w1.shape[1], w3.shape[1]
+    out = torch.empty((batch, h, w, cout), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_mbconv_launch(
+            _DTYPE_CODES[x.dtype],
+            *(t.data_ptr() for t in (x, w1, b_expand, wd, b_depthwise, w3,
+                                     b_project, out)),
+            batch, h, w, cin, e, cout, int(residual), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused_mbconv kernel launch failed with cudaError {err} "
+            f"(B={batch}, H={h}, W={w}, Cin={cin}, E={e}, Cout={cout}, "
+            f"{x.dtype})"
+        )
+    fused_mbconv.launches += 1
+    return out
+
+
+fused_mbconv.launches = 0
+
+
+def kernel_tile(dtype: torch.dtype, cin: int, expanded: int):
+    """(th, tw) spatial tile the kernel uses for these widths on the
+    current card."""
+    from ssdseglib_torch.ops._cuda_build import load_library
+
+    th, tw = ctypes.c_int(0), ctypes.c_int(0)
+    err = load_library().fused_mbconv_tile(
+        _DTYPE_CODES[dtype], cin, expanded, ctypes.byref(th), ctypes.byref(tw)
+    )
+    if err != 0:
+        raise RuntimeError(f"no tile for Cin={cin}, E={expanded}, {dtype}: cudaError {err}")
+    return th.value, tw.value
+
+
+def fused_mbconv_reference(
+    x, w_expand, b_expand, w_depthwise, b_depthwise, w_project, b_project,
+    residual: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel, with the same rounding points:
+    f32 accumulation, rounding to x's dtype after expand + bias, after
+    depthwise + bias and after project + bias, then the residual added in
+    x's dtype.  Same arguments as `fused_mbconv`."""
+    w1, wd, w3 = _as_kernel_args(x, w_expand, w_depthwise, w_project)
+    dt, f32 = x.dtype, torch.float32
+    batch, h, w, cin = x.shape
+    e = w1.shape[1]
+    expanded = (x.reshape(-1, cin).to(f32) @ w1.to(f32) + b_expand.to(f32))
+    expanded = expanded.to(dt).clamp(0.0, 6.0).reshape(batch, h, w, e)
+    padded = F.pad(expanded, (0, 0, 1, 1, 1, 1))  # zero halo of the expanded tensor
+    taps = wd.to(f32)
+    d = torch.zeros((batch, h, w, e), dtype=f32, device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            d = d + padded[:, dy:dy + h, dx:dx + w, :].to(f32) * taps[dy * 3 + dx]
+    d = (d + b_depthwise.to(f32)).to(dt).clamp(0.0, 6.0)
+    out = (d.reshape(-1, e).to(f32) @ w3.to(f32) + b_project.to(f32)).to(dt)
+    out = out.reshape(batch, h, w, -1)
+    return out + x if residual else out

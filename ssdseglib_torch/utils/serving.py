@@ -1,0 +1,84 @@
+"""Shared NumPy-out serving conventions (from ssdseglib_tpu/utils/serving.py).
+
+- `format_outputs`: the mask-dtype coercion + optional background-box
+  filter (reference layers.py:165-166) applied to every NumPy-out predict.
+- `predict_batched_chunks`: the any-N chunk / repeat-pad / slice loop that
+  serves an arbitrary number of images through one batch size.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+
+def _to_numpy(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        if a.dtype in (torch.bfloat16, torch.float16):
+            a = a.float()  # numpy has no bfloat16
+        return a.cpu().numpy()
+    return np.asarray(a)
+
+
+def format_outputs(
+    mask, det, suppress_background: bool
+) -> Tuple[np.ndarray, np.ndarray]:
+    """NumPy-out conventions shared by every predict surface: bf16 masks
+    come back as float32 (numpy has no bfloat16), 'class_map' uint8 passes
+    through, and the optional host-side background-box filter (reference
+    layers.py:165-166) drops label-0 rows."""
+    mask, det = _to_numpy(mask), _to_numpy(det)
+    if mask.dtype != np.uint8 and mask.dtype != np.float32:
+        mask = mask.astype(np.float32)
+    if suppress_background:
+        det = det[det[..., 0] > 0.0]
+    return mask, det
+
+
+def predict_batched_chunks(
+    images,
+    batch: int,
+    run_chunk: Callable[[np.ndarray], Tuple[object, object]],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Serve an arbitrary number of images at one batch size.
+
+    Chunks the input into `batch`-size pieces and pads the ragged tail BY
+    REPEATING ITS LAST IMAGE, then slices outputs back to the real rows.
+    Repeat-padding (not zero-padding) is what keeps the real rows exact
+    under the reference's batch-global segmentation suppression (reference
+    layers.py:207): a duplicate image adds no new classes to the batch
+    presence set, while a zero/blank pad image could.  As with Keras
+    `predict` over a batched dataset (reference nb 03 cell 25), the
+    batch-global quirk applies per served chunk.
+
+    `run_chunk(chunk)` executes one full `(batch, H, W, C)` chunk and
+    returns `(mask, det)` (device tensors or host arrays).  Output-convention
+    formatting (`format_outputs`) is the caller's job — padded rows must
+    be sliced by position BEFORE any background filter drops real rows.
+    """
+    images = np.asarray(images)
+    if images.ndim != 4:
+        raise ValueError(
+            f"predict_batched expects (N, H, W, C) images, got "
+            f"shape {images.shape}"
+        )
+    if not isinstance(batch, int) or isinstance(batch, bool) or batch < 1:
+        raise ValueError(f"batch must be a positive int, got {batch!r}")
+    if images.shape[0] == 0:
+        raise ValueError("predict_batched got an empty image stack")
+
+    masks, dets = [], []
+    for start in range(0, images.shape[0], batch):
+        chunk = images[start : start + batch]
+        k = chunk.shape[0]
+        if k < batch:
+            pad = np.repeat(chunk[-1:], batch - k, axis=0)
+            chunk = np.concatenate([chunk, pad], axis=0)
+        mask, det = run_chunk(chunk)
+        # slice BEFORE any host-side filter: padded rows are dropped by
+        # position, real rows (later) by the background filter
+        masks.append(_to_numpy(mask)[:k])
+        dets.append(_to_numpy(det)[:k])
+    return np.concatenate(masks, 0), np.concatenate(dets, 0)
