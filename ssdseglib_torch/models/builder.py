@@ -1,8 +1,9 @@
 """Model assembly and serving (PyTorch), counterpart of
 ssdseglib_tpu/models/builder.py.
 
-`SsdSegModel` is the joint SSDLite + DeepLabV3+ network on MobileNetV2 in
-eval mode; `InferenceModel` is the serving path: forward -> decode ->
+`SsdSegModel` is the joint SSDLite + DeepLabV3+ network on MobileNetV2 (built
+in eval mode; ``.train()`` reaches every BatchNorm for the trainer);
+`InferenceModel` is the serving path: forward -> decode ->
 segmentation gating -> exact NMS, on one device, with the NMS thresholds
 held as 0-d device tensors so an operating point changes without any host
 synchronisation.  `MobileNetV2SsdSegBuilder` mirrors the reference builder
@@ -45,7 +46,7 @@ def _backbone_head_config(cfg: ModelConfig):
 
 
 class SsdSegModel(nn.ModuleDict):
-    """Backbone + DeepLabV3+ mask head + SSDLite detection heads, eval mode.
+    """Backbone + DeepLabV3+ mask head + SSDLite detection heads.
 
     ``forward(images)`` takes NHWC images in [0, 255] and returns a dict
     keyed like the reference model's named outputs: 'output-mask'
@@ -147,7 +148,7 @@ class InferenceModel:
         compute_dtype: str = "float32",
         fused_backbone: bool = False,
         mask_output: str = "float32",
-        device="cpu",
+        device="cuda",
     ) -> None:
         """compute_dtype: 'bfloat16' is the serving fast path (weights and
         convs in bf16); decode, gating and NMS always run in f32.
@@ -318,10 +319,11 @@ class _BuilderBase:
         object_detection_architecture: str = "ssdlite",
         segmentation_dilation_rates: Tuple[int, int, int] = (6, 12, 18),
         generator: Optional[torch.Generator] = None,
-        device="cpu",
+        device="cuda",
     ) -> SsdSegModel:
         """The network with fresh weights drawn from ``generator`` (a
-        ``torch.Generator`` seeded 0 when None), on ``device``."""
+        ``torch.Generator`` seeded 0 when None), on ``device``: the card
+        unless the caller asks for the CPU."""
         if segmentation_architecture != "deeplabv3plus":
             raise ValueError("only 'deeplabv3plus' segmentation is available")
         if object_detection_architecture != "ssdlite":
@@ -346,20 +348,21 @@ class _BuilderBase:
         compute_dtype: str = "float32",
         fused_backbone: bool = False,
         mask_output: str = "float32",
-        device="cpu",
+        device="cuda",
     ) -> InferenceModel:
         """Args:
             model_trained: the trained `SsdSegModel`, or its state_dict.
             compute_dtype: 'bfloat16' for the serving fast path.
             fused_backbone: BN-folded forward through the fused MBConv kernel.
             mask_output: 'float32' | 'bfloat16' | 'class_map'.
-            device: where the model serves.
+            device: where the model serves; the card unless the caller
+                asks for the CPU.
         """
         if isinstance(model_trained, SsdSegModel):
             module = model_trained
         else:
             if self._model_cfg is None:
-                self.get_model_for_training()
+                self.get_model_for_training(device="cpu")  # sets the config only
             module = SsdSegModel(self._model_cfg, torch.Generator().manual_seed(0))
             module.load_state_dict(model_trained)
 

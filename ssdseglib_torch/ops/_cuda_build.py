@@ -3,8 +3,9 @@ plain C interface, loaded with ctypes.
 
 The library is built at first use into ``ssdseglib_torch/build/`` (listed
 in ``.gitignore``), named by a hash of the sources and flags, so a fresh
-checkout builds it once and an edited source builds anew.  Nothing here
-runs at import time.
+checkout builds it once and an edited source builds anew.  Every source is
+compiled by an nvcc of its own, all started together, and the objects are
+linked into one library.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -19,12 +20,16 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "fused_mbconv.cu",)
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+_CSRC = _PKG / "csrc"
+SOURCES = (
+    _CSRC / "fused_mbconv.cu",
+    _CSRC / "depthwise_backward.cu",
+    _CSRC / "fused_chain_backward.cu",
 )
+HEADERS = (_CSRC / "common.cuh",)
+BUILD_DIR = _PKG / "build"
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class BuildInfo:
@@ -52,14 +57,15 @@ def find_nvcc() -> str:
     if found is None:
         raise RuntimeError(
             "nvcc not found (set CUDA_HOME or put nvcc on PATH): the "
-            "fused MBConv kernel is built from source at first use"
+            "kernel library (ssdseglib_torch/csrc/*.cu) is built from source "
+            "at first use"
         )
     return found
 
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
@@ -67,17 +73,39 @@ def _digest() -> str:
 
 def _build(target: Path) -> BuildInfo:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = find_nvcc()
+    tag = f"{target.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
-    return BuildInfo(target, seconds, proc.stderr)
+    try:
+        compiles = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(SOURCES, objects))
+        ]
+        # wait for every compiler before raising, so none is left running
+        results = [(cmd, proc.communicate(), proc.returncode)
+                   for cmd, proc in compiles]
+        link = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objects)]
+        ptxas = ""
+        for cmd, (_, stderr), returncode in results:
+            if returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({returncode}): {' '.join(cmd)}\n{stderr}"
+                )
+            ptxas += stderr
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}"
+            )
+        os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
+    return BuildInfo(target, time.perf_counter() - t0, ptxas)
 
 
 def load_library() -> ctypes.CDLL:
@@ -97,5 +125,22 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int)
     ] * 2
     lib.fused_mbconv_tile.restype = ctypes.c_int
+    lib.dw_bwd_partial_rows.argtypes = [ctypes.c_int] * 4
+    lib.dw_bwd_partial_rows.restype = ctypes.c_int
+    # (dtype, x, dy, k, dx, partials, dk, B, H, W, C, stream)
+    lib.depthwise_backward_launch.argtypes = (
+        [ctypes.c_int] + [ptr] * 6 + [ctypes.c_int] * 4 + [ptr]
+    )
+    lib.depthwise_backward_launch.restype = ctypes.c_int
+    # (dtype, u, dy, coef, partials, sums, B, H, W, C, stream)
+    lib.chain_bn_sums_launch.argtypes = (
+        [ctypes.c_int] + [ptr] * 5 + [ctypes.c_int] * 4 + [ptr]
+    )
+    lib.chain_bn_sums_launch.restype = ctypes.c_int
+    # (dtype, x, u, dy, k, coef, dx, partials, dk, B, H, W, C, stream)
+    lib.chain_backward_launch.argtypes = (
+        [ctypes.c_int] + [ptr] * 8 + [ctypes.c_int] * 4 + [ptr]
+    )
+    lib.chain_backward_launch.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -13,6 +13,11 @@ plus a transpose:
 
 Both directions take and give NumPy values; ``num_batches_tracked`` (which
 Flax has no counterpart for) is 0 on the way in and dropped on the way out.
+
+Any mapping keyed like the parameters crosses the same way: a dict of
+gradients, or Adam's moments (`moments_to_flax` / `moments_from_flax`, the
+shape of ``optax``'s ``mu`` and ``nu`` trees), so a training comparison can
+hold every tensor of a step against the JAX package's.
 """
 
 from __future__ import annotations
@@ -68,7 +73,10 @@ def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]
         *modules, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
-        value = tensor.detach().cpu().numpy()
+        value = tensor.detach().cpu()
+        if value.dtype == torch.bfloat16:  # NumPy has no bfloat16
+            value = value.float()
+        value = value.numpy()
         if leaf == "weight" and value.ndim == 4:
             collection, flax_leaf = "params", "kernel"
             value = value.transpose(2, 3, 1, 0)
@@ -85,5 +93,18 @@ def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]
         node = tree[collection]
         for name in modules:
             node = node.setdefault(name, {})
-        node[flax_leaf] = np.ascontiguousarray(value)
+        node[flax_leaf] = np.array(value)  # a copy: never a view of live state
     return tree
+
+
+def moments_to_flax(moments: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """Per-parameter tensors keyed by ``state_dict`` names (gradients, Adam's
+    ``mu`` or ``nu``) -> a tree shaped like Flax's ``params`` (and like the
+    ``mu`` / ``nu`` of ``optax.adam``'s state).  bfloat16 comes out as f32."""
+    return to_flax_variables(moments)["params"]
+
+
+def moments_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """A ``params``-shaped tree (``optax``'s ``mu`` / ``nu``, or gradients)
+    -> tensors keyed by ``state_dict`` names."""
+    return from_flax_variables({"params": tree})

@@ -19,12 +19,18 @@ SLICE_MODULES = (
     "ssdseglib_torch.boxes",
     "ssdseglib_torch.weights",
     "ssdseglib_torch.layers",
+    "ssdseglib_torch.losses",
+    "ssdseglib_torch.metrics",
+    "ssdseglib_torch.train",
+    "ssdseglib_torch.data.synthetic",
     "ssdseglib_torch.models.blocks",
     "ssdseglib_torch.models.mobilenetv2",
     "ssdseglib_torch.models.heads",
     "ssdseglib_torch.models.builder",
     "ssdseglib_torch.models.fused_inference",
     "ssdseglib_torch.ops.fused_mbconv",
+    "ssdseglib_torch.ops.depthwise_backward",
+    "ssdseglib_torch.ops.fused_chain_backward",
     "ssdseglib_torch.ops._cuda_build",
     "ssdseglib_torch.ops.encoding",
     "ssdseglib_torch.ops.nms",
@@ -38,8 +44,8 @@ def test_port_imports_no_jax_flax_tensorflow_triton():
         f"for name in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tensorflow',\n"
-        "                                    'triton', 'ssdseglib_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                                    'tensorflow', 'triton', 'ssdseglib_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -82,3 +88,39 @@ def test_warehouse_anchors_equal_jax_package():
         a, b = getattr(ours, field), getattr(theirs, field)
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+def test_every_module_of_the_port_is_listed():
+    """A module added to the port is added to SLICE_MODULES, so the import
+    check above covers it."""
+    package = os.path.join(ROOT, "ssdseglib_torch")
+    found = set()
+    for directory, _, files in os.walk(package):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(directory, name), ROOT)[:-3]
+            module = rel.replace(os.sep, ".")
+            if module.endswith(".__init__"):
+                module = module[: -len(".__init__")]
+            found.add(module)
+    subpackages = {"ssdseglib_torch.models", "ssdseglib_torch.ops",
+                   "ssdseglib_torch.utils", "ssdseglib_torch.data"}
+    assert found - subpackages == set(SLICE_MODULES)
+
+
+def test_kernel_sources_and_build_name_the_library():
+    """The three CUDA sources and the shared header exist where the builder
+    looks for them, and the missing-compiler message names the library."""
+    import pytest
+
+    from ssdseglib_torch.ops import _cuda_build
+
+    names = sorted(p.name for p in _cuda_build.SOURCES)
+    assert names == ["depthwise_backward.cu", "fused_chain_backward.cu", "fused_mbconv.cu"]
+    for path in _cuda_build.SOURCES + _cuda_build.HEADERS:
+        assert path.is_file(), path
+    if _cuda_build.shutil.which("nvcc") is None and not os.path.exists(
+            "/usr/local/cuda/bin/nvcc") and not os.environ.get("CUDA_HOME"):
+        with pytest.raises(RuntimeError, match="kernel library"):
+            _cuda_build.find_nvcc()

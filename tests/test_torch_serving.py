@@ -46,12 +46,14 @@ def serving():
     jax_model = jax_builder.get_model_for_inference(model_trained=variables, **NMS)
 
     port_builder = PortBuilder(**_builder_args())
-    model = port_builder.get_model_for_training(segmentation_dilation_rates=(3, 6, 12))
+    model = port_builder.get_model_for_training(
+        segmentation_dilation_rates=(3, 6, 12), device="cpu"
+    )
     model.load_state_dict(from_flax_variables(variables))
 
     def port(**kwargs):
         return port_builder.get_model_for_inference(
-            model_trained=model, **{**NMS, **kwargs}
+            model_trained=model, device="cpu", **{**NMS, **kwargs}
         )
 
     x = images(1, (16, 96, 128, 3))
