@@ -11,6 +11,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. fused MBConv kernel vs plain twin at the five MBConv widths of the 480x640
    serving path, batch 16, in bf16 (2 ulps) and f32 (1e-5, TF32 off), with
    the median of 20 CUDA-event timings of each;
+   3b. the NMS scan kernel vs its plain version: (16, 4, 256) candidates
+   from the decoded boxes of the flagship model, plus synthetic (2, 2, 100),
+   (1, 1, 1) and (3, 4, 1024); Python-float and 0-d-tensor thresholds; the
+   keep masks must be equal; median of 20 CUDA-event timings of each at
+   (16, 4, 256);
+   3c. the fused stem + block 1 kernel vs its plain version at
+   (16, 480, 640, 3) and the ragged (3, 36, 52, 3), in bf16 (2 ulps) and f32
+   (1e-5, TF32 off); timings at (16, 480, 640, 3) in bf16 of the kernel, the
+   plain version and, as information, the six cuDNN convs (with their bias
+   and clamp passes) that the default path runs for the same function;
 4. the two backward kernels (depthwise 3x3 backward, dw + BN + ReLU6 chain
    backward) vs their plain versions, in bf16 and f32, at the training
    path's shape (16, 240, 320, 32) and at two shapes outside the model's
@@ -35,28 +45,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    loss (1e-5) and every gradient of one step under the three backward
    routes (ATen, chain kernel, depthwise kernel) agree: per tensor, the
    norm of the difference stays below 5e-2 of the tensor's norm (floored at
-   1e-4 of the largest), the f32 noise of this network's backward.  (b) bf16, batch 16: steps on one batch under
-   each route; every loss finite, the last below the first, exactly one
-   launch per step of the kernel the route names and none of the other.
+   1e-4 of the largest), the f32 noise of this network's backward.  (b) bf16,
+   batch 16: steps on one batch under each route; every loss finite, the
+   last below the first, exactly one launch per step of the kernel the route
+   names and none of the other.
    (c) the median step time of each route, fenced by fetching the loss, and
    the peak memory.
+8. the option path, full width: `make_fused_forward(..., s2d_stem="cuda")`
+   -> suppression -> decode -> `combined_nms(..., method="topk")` on the
+   flagship configuration.  (a) f32, batch 2: the three outputs against the
+   default path's (`s2d_stem=False`) within 2e-3, and ``method="topk"``
+   against ``method="exact"`` at an operating point where the script has
+   counted at most 256 candidates per class: labels equal, scores and boxes
+   2e-3, at least one valid row.  (b) bf16, batch 16: one call launches the
+   stem kernel once, the scan kernel once and the MBConv kernel 10 times;
+   outputs finite, (16, 480, 640, 4) and (16, 10, 6).  (c) images/s of this
+   path under phase 6's protocol, and the post-processing alone (suppression
+   + decode + NMS, CUDA events) under ``exact`` and under ``topk`` at batch
+   16 and batch 1.
 
 ``python3 chip_smoke.py --profile-train [aten|chain|depthwise ...]`` instead
 builds the library and prints where the time of a bf16 b16 train step goes
-(torch.profiler, kernel time by name) under the named routes; it prints no
+(torch.profiler, kernel time by name) under the named routes, and
+``python3 chip_smoke.py --profile-serve`` where the device time of a bf16 b16
+serving step goes on the default path and on the option path; neither prints
 result lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
 lines are the kernels' JSON report and ``{"ok": true, "device": {...}}``.
 In the report, ``launches`` counts the kernel's launches over its main path
-(phase 6 for the MBConv kernel, the route's steps of phase 7b for the other
-two), ``max_abs_err`` is the largest kernel-vs-plain difference of its phase
-over every shape, dtype and output, and ``ms``, ``plain_ms``, ``library_ms``
+(phase 6 for the MBConv kernel, the route's steps of phase 7b for the two
+backward kernels, phase 8b-c for the scan and stem kernels), ``max_abs_err``
+is the largest kernel-vs-plain difference of its phase over every shape,
+dtype and output, and ``ms``, ``plain_ms``, ``library_ms``
 and ``bound_ms`` are at the main path's shapes in bf16 at batch 16 (the ten
 launches of one forward for the MBConv kernel).  ``bound_ms`` is the larger
 of bytes / 3.35 TB/s (every input read once, every output written once) and
-operations / the card's peak for the type (989 TFLOP/s bf16, 67 TFLOP/s f32).
+operations / the card's peak for the type (989 TFLOP/s bf16 for matrix
+products, 67 TFLOP/s f32 for stencils and compares).  The scan's bound
+ignores the latency of its dependent steps.
 """
 
 from __future__ import annotations
@@ -83,6 +111,8 @@ SUM_TOLERANCE = 1e-4  # f32 sums of up to 1.2 M terms, relative to the largest
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TRAIN_STEPS = 8
+# an operating point that keeps rows valid under random weights
+IOU_THRESHOLD, SCORE_THRESHOLD = 0.5, 0.3
 # Routes' f32 gradients, per tensor: |difference| / max(|reference|, 1e-4 of the
 # largest tensor norm).  The backward of ~60 stacked train-mode BatchNorms
 # cancels heavily, so f32 gradients carry noise of this order whatever the
@@ -116,10 +146,12 @@ def cuda_median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float, flops_per_s: float):
+def bound_ms(nbytes: float, *work):
     """(least time in ms, what bounds it) for work that moves ``nbytes``
-    through device memory and does ``flops`` operations."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
+    through device memory and does ``work``: (operations, peak rate) pairs,
+    one per type of operation."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = sum(flops / rate for flops, rate in work) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -204,7 +236,7 @@ def phase_kernel_vs_twin():
                 report["flops"] += repeats * 2 * pixels * e * (cin + 9 + cin)
     # the 1x1s are matrix products: the peak is the tensor cores' bf16 rate
     report["bound_ms"], report["bound_by"] = bound_ms(
-        report.pop("bytes"), report.pop("flops"), PEAK_FLOPS[torch.bfloat16])
+        report.pop("bytes"), (report.pop("flops"), PEAK_FLOPS[torch.bfloat16]))
     return report
 
 
@@ -224,6 +256,132 @@ def _check_close(name, got, want, tol, scale_by_max=False):
             f"{float(err.max()):.3g}, max |reference| {float(want.abs().max()):.3g})"
         )
     return float(err.max())
+
+
+def phase_scan_kernel_vs_plain():
+    """Phase 3b.  Returns the scan kernel's report at (16, 4, 256)."""
+    from ssdseglib_torch.ops.nms import _pairwise_iou_yx, _top_candidates
+    from ssdseglib_torch.ops.nms_scan import greedy_select, greedy_select_reference
+
+    builder, model, nms = _builder()
+    infer = builder.get_model_for_inference(
+        model_trained=model, compute_dtype="bfloat16", fused_backbone=True, device="cuda",
+        **nms)
+    _, labels, boxes_yx = infer.raw_outputs(_uint8_images(3, BATCH))
+    # the top-K prefilter of combined_nms(method="topk"), as it feeds the scan
+    scores, boxes = _top_candidates(boxes_yx, labels.transpose(1, 2), 256)
+    flagship = (_pairwise_iou_yx(boxes), scores > SCORE_THRESHOLD, IOU_THRESHOLD, 4)
+    cases = [("flagship (16, 4, 256)", *flagship)]
+    gen = torch.Generator().manual_seed(2)
+    for shape, iou_thr, max_keep in (((2, 2, 100), 0.4, 4), ((1, 1, 1), 0.5, 4),
+                                     ((3, 4, 1024), 0.1, 1100)):
+        def draw(low, high):
+            return (torch.rand(*shape, generator=gen) * (high - low) + low).to("cuda")
+
+        cy, cx, h, w = draw(0, 200), draw(0, 200), draw(5, 60), draw(5, 60)
+        boxes = torch.stack([cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], dim=-1)
+        cases.append((f"synthetic {shape}", _pairwise_iou_yx(boxes), draw(0, 1) > 0.3,
+                      iou_thr, max_keep))
+    mismatches = 0
+    for name, iou, valid, iou_thr, max_keep in cases:
+        want = greedy_select_reference(iou, valid, iou_thr, max_keep)
+        for threshold in (iou_thr, torch.tensor(iou_thr, device="cuda")):
+            got = greedy_select(iou, valid, threshold, max_keep)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            mismatches += bad
+            kind = "0-d tensor" if isinstance(threshold, torch.Tensor) else "float"
+            log(f"[scan] {name} iou > {iou_thr} ({kind}) max_keep {max_keep}: "
+                f"{int(valid.sum())} valid, {int(want.sum())} kept, {bad} mismatches")
+            if bad:
+                raise AssertionError(f"scan kernel disagrees with its plain version: {name}")
+    iou, valid, iou_thr, max_keep = flagship
+    ms = cuda_median_ms(lambda: greedy_select(iou, valid, iou_thr, max_keep))
+    device_thr = torch.tensor(iou_thr, device="cuda")  # as the serving path holds it
+    tensor_ms = cuda_median_ms(lambda: greedy_select(iou, valid, device_thr, max_keep))
+    plain_ms = cuda_median_ms(lambda: greedy_select_reference(iou, valid, iou_thr, max_keep))
+    # every IoU read once and compared once; the walk's dependent steps are
+    # latency the bound ignores
+    least, by = bound_ms(iou.numel() * 4 + 2 * valid.numel(),
+                         (iou.numel(), PEAK_FLOPS[torch.float32]))
+    log(f"[scan] (16, 4, 256): kernel {ms:.4f} ms with a float threshold (one fill launch "
+        f"more), {tensor_ms:.4f} ms with a 0-d tensor | plain {plain_ms:.4f} ms | bound "
+        f"{least:.4f} ms ({by})")
+    return dict(max_abs_err=float(mismatches), ms=ms, plain_ms=plain_ms, bound_ms=least,
+                bound_by=by, library_ms=None)
+
+
+# OIHW shapes of the six folded convs of the stem and block 1
+STEM_CONVS = (("backbone-block0-expand", (32, 3, 3, 3)),
+              ("backbone-block0-depthwise", (32, 1, 3, 3)),
+              ("backbone-block0-project", (16, 32, 1, 1)),
+              ("backbone-block1-expand", (96, 16, 1, 1)),
+              ("backbone-block1-depthwise", (96, 1, 3, 3)),
+              ("backbone-block1-project", (24, 96, 1, 1)))
+
+
+def phase_stem_kernel_vs_plain():
+    """Phase 3c.  Returns the stem kernel's report at (16, 480, 640, 3) bf16."""
+    from ssdseglib_torch.models.fused_inference import _block_convs, _conv
+    from ssdseglib_torch.ops.s2d_stem import (
+        fused_stem_block1,
+        fused_stem_block1_reference,
+        stem_block1_args,
+    )
+
+    def six_convs(folded, x):
+        """Stem and block 1 as the default path runs them: six cuDNN convs
+        with their bias and clamp passes, on a channels-last NCHW view."""
+        (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 0)
+        x = _conv(x.permute(0, 3, 1, 2), we, be, stride=2, relu6=True)
+        x = _conv(_conv(x, wd, bd, depthwise=True, relu6=True), wp, bp)
+        (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 1)
+        d = _conv(_conv(x, we, be, relu6=True), wd, bd, stride=2, depthwise=True, relu6=True)
+        return _conv(d, wp, bp).permute(0, 2, 3, 1)
+
+    gen = torch.Generator().manual_seed(3)
+    report = {"max_abs_err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        folded = {}
+        for name, shape in STEM_CONVS:
+            fan_in = shape[1] * shape[2] * shape[3]
+            kernel = (torch.randn(*shape, generator=gen) * 2.0 * fan_in ** -0.5).to("cuda", dtype)
+            folded[name] = (kernel.contiguous(memory_format=torch.channels_last),
+                            (torch.randn(shape[0], generator=gen) * 0.1).to("cuda", dtype))
+        args = stem_block1_args(folded)
+        for shape in ((BATCH, 480, 640, 3), (3, 36, 52, 3)):
+            x = (torch.rand(*shape, generator=gen) * 2.0 - 1.0).to("cuda", dtype)
+            got = fused_stem_block1(x, args)
+            torch.cuda.synchronize()
+            want = fused_stem_block1_reference(x, args)
+            tag = f"{str(dtype)[6:]:8s} {shape}"
+            err = _check_close(f"stem + block 1 {tag}", got, want, TOLERANCE[dtype])
+            report["max_abs_err"] = max(report["max_abs_err"], err)
+            convs = six_convs(folded, x)
+            log(f"[stem] {tag} -> {tuple(got.shape)} max_abs_err {err:.3g} (max |output| "
+                f"{float(want.float().abs().max()):.3g}); six-conv route differs by at most "
+                f"{float((convs.float() - want.float()).abs().max()):.3g}")
+            del want, convs
+            if dtype != torch.bfloat16 or shape[0] != BATCH:
+                continue
+            ms = cuda_median_ms(lambda: fused_stem_block1(x, args))
+            plain_ms = cuda_median_ms(lambda: fused_stem_block1_reference(x, args))
+            convs_ms = cuda_median_ms(lambda: six_convs(folded, x))
+            b, h, w, _ = shape
+            half, quarter = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
+            products = 2 * (half * (27 * 32 + 32 * 16 + 16 * 96) + quarter * 96 * 24)
+            stencils = 2 * 9 * (half * 32 + quarter * 96)
+            nbytes = 2 * (x.numel() + got.numel() + sum(a.numel() for a in args))
+            least, by = bound_ms(nbytes, (products, PEAK_FLOPS[torch.bfloat16]),
+                                 (stencils, PEAK_FLOPS[torch.float32]))
+            log(f"[stem] {tag}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | six cuDNN "
+                f"convs with bias and clamp passes (information) {convs_ms:.4f} ms | bound "
+                f"{least:.4f} ms ({by}; {(products + stencils) / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB)")
+            report.update(ms=ms, plain_ms=plain_ms, bound_ms=least, bound_by=by,
+                          library_ms=None)
+        torch.cuda.empty_cache()
+    return report
 
 
 def phase_backward_kernels_vs_plain():
@@ -268,7 +426,8 @@ def phase_backward_kernels_vs_plain():
             library_ms = cuda_median_ms(lambda: torch.ops.aten.convolution_backward(
                 dy_nchw, x_nchw, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], c,
                 [True, True, False]))
-            least, by = bound_ms(3 * n * elem + 2 * 9 * c * 4, 36 * n, PEAK_FLOPS[torch.float32])
+            least, by = bound_ms(3 * n * elem + 2 * 9 * c * 4,
+                                   (36 * n, PEAK_FLOPS[torch.float32]))
             log(f"[dw-bwd] {tag} max_abs_err dx {errs[0]:.3g} dk {errs[1]:.3g} | kernel "
                 f"{ms:.4f} ms | plain {plain_ms:.4f} ms | aten.convolution_backward "
                 f"{library_ms:.4f} ms | bound {least:.4f} ms ({by})")
@@ -306,7 +465,8 @@ def phase_backward_kernels_vs_plain():
                     f"chain forward differs from the ATen route by {fwd_diff} at {tag}")
             aten_ms = cuda_median_ms(lambda: torch.autograd.grad(
                 y_aten, leaves, dy_nchw, retain_graph=True))
-            least, by = bound_ms(4 * n * elem + 2 * 9 * c * 4, 56 * n, PEAK_FLOPS[torch.float32])
+            least, by = bound_ms(4 * n * elem + 2 * 9 * c * 4,
+                                   (56 * n, PEAK_FLOPS[torch.float32]))
             log(f"[chain-bwd] {tag} max_abs_err dx {errs[0]:.3g} dk {errs[1]:.3g} dgamma "
                 f"{errs[2]:.3g} dbeta {errs[3]:.3g} | kernel {ms:.4f} ms | plain "
                 f"{plain_ms:.4f} ms | ATen autograd route {aten_ms:.4f} ms | bound "
@@ -372,10 +532,9 @@ def phase_whole_path_parity() -> None:
     kwargs = dict(model_trained=model, compute_dtype="float32", device="cuda", **nms)
     fused = builder.get_model_for_inference(fused_backbone=True, **kwargs)
     plain = builder.get_model_for_inference(fused_backbone=False, **kwargs)
-    # an operating point that keeps rows valid under random weights
     for m in (fused, plain):
-        m.set_nms_operating_point(boxes_iou_threshold=0.5,
-                                  labels_probability_threshold=0.3)
+        m.set_nms_operating_point(boxes_iou_threshold=IOU_THRESHOLD,
+                                  labels_probability_threshold=SCORE_THRESHOLD)
     x = _uint8_images(1, 2)
     raw_f = [t.cpu().numpy() for t in fused.raw_outputs(x)]
     raw_p = [t.cpu().numpy() for t in plain.raw_outputs(x)]
@@ -389,6 +548,23 @@ def phase_whole_path_parity() -> None:
     assert n_valid > 0, "no valid detection rows to compare"
     np.testing.assert_array_equal(det_f[..., 0], det_p[..., 0])
     np.testing.assert_allclose(det_f[..., 1:], det_p[..., 1:], rtol=2e-3, atol=2e-3)
+
+
+SERVE_STEPS, SERVE_ROUNDS = 16, 3
+
+
+def _images_per_second(serve, inputs):
+    """bench.py's protocol: per round, SERVE_STEPS pipelined calls of
+    ``serve`` (returning (mask, detections)) over the distinct batches in
+    ``inputs``, fenced by fetching the last step's detections.  Returns the
+    images/s of each round."""
+    rates = []
+    for _ in range(SERVE_ROUNDS):
+        t0 = time.perf_counter()
+        outs = [serve(inputs[i % len(inputs)]) for i in range(SERVE_STEPS)]
+        outs[-1][1].cpu()  # the fence
+        rates.append(SERVE_STEPS * BATCH / (time.perf_counter() - t0))
+    return rates
 
 
 def phase_serving(card: str):
@@ -421,13 +597,8 @@ def phase_serving(card: str):
         f"{tuple(det_host.shape)}, |sum(mask) - 1| <= {sum_err:.3g}, "
         f"{int((det_host[..., 1] > 0).sum())} valid rows")
 
-    steps, rates = 16, []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        outs = [infer(inputs[i % len(inputs)]) for i in range(steps)]
-        outs[-1][1].cpu()  # fence: fetch the last step's detections
-        rates.append(steps * BATCH / (time.perf_counter() - t0))
-        calls += steps
+    rates = _images_per_second(infer, inputs)
+    calls += SERVE_ROUNDS * SERVE_STEPS
     latencies = []
     for _ in range(20):
         t0 = time.perf_counter()
@@ -441,7 +612,7 @@ def phase_serving(card: str):
         f"images/s | b1 latency {statistics.median(latencies):.3f} ms (median of 20, "
         f"fetch-fenced) | {card} | peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, statistics.median(rates)
 
 
 def _train_batch(batch: int):
@@ -566,6 +737,186 @@ def phase_training(card: str):
         _set_route("aten")
 
 
+def _option_path_parts():
+    """The pieces of the option path as a caller writes it, on the flagship
+    configuration: (make_forward(dtype, s2d_stem), gate_and_decode(out),
+    postprocess(out, method), the score threshold as a 0-d device tensor,
+    K = max_candidates_per_class)."""
+    from ssdseglib_torch.boxes import Anchors
+    from ssdseglib_torch.config import reference_warehouse_config
+    from ssdseglib_torch.layers import SegmentationSuppression
+    from ssdseglib_torch.models.fused_inference import make_fused_forward
+    from ssdseglib_torch.ops.encoding import decode_predictions_to_corners_yx
+    from ssdseglib_torch.ops.nms import combined_nms
+
+    anchors_cfg, enc_cfg, model_cfg, nms_cfg, _ = reference_warehouse_config()
+    anchors = torch.from_numpy(
+        Anchors.from_config(anchors_cfg, enc_cfg.image_shape).centroids).to("cuda")
+    state = _builder()[1].state_dict()
+    suppression = SegmentationSuppression(4)
+    thr_iou = torch.tensor(IOU_THRESHOLD, device="cuda")
+    thr_score = torch.tensor(SCORE_THRESHOLD, device="cuda")
+
+    def make_forward(dtype, s2d_stem):
+        return make_fused_forward(model_cfg, state, compute_dtype=dtype, device="cuda",
+                                  s2d_stem=s2d_stem)
+
+    @torch.inference_mode()
+    def gate_and_decode(out):
+        labels = suppression(out["output-mask"], out["output-labels"].float())
+        boxes = decode_predictions_to_corners_yx(
+            out["output-boxes"].float(), anchors, enc_cfg.standard_deviations)
+        return boxes, labels
+
+    @torch.inference_mode()
+    def postprocess(out, method):
+        """(B, T, 6) rows [label, probability, ymin, xmin, ymax, xmax]."""
+        det = combined_nms(*gate_and_decode(out), nms_cfg, method=method,
+                           iou_threshold=thr_iou, score_threshold=thr_score)
+        return torch.cat([det["classes"][..., None], det["scores"][..., None], det["boxes"]],
+                         dim=-1)
+
+    return make_forward, gate_and_decode, postprocess, thr_score, nms_cfg.max_candidates_per_class
+
+
+def _serving_inputs():
+    """Eight distinct uint8 batches of 16 and one single image, on the card."""
+    base = np.random.default_rng(0).uniform(0, 255, (BATCH, 480, 640, 3))
+    inputs = [torch.from_numpy(((base + float(i)) % 256.0).astype(np.uint8)).to("cuda")
+              for i in range(8)]
+    return inputs, torch.from_numpy(_uint8_images(2, 1)).to("cuda")
+
+
+def phase_option_path(card: str, default_rate: float):
+    """Phase 8.  Returns {"stem": launches, "scan": launches} counted over
+    the bf16 b16 calls of the option path."""
+    from ssdseglib_torch.models import fused_inference
+    from ssdseglib_torch.ops.fused_mbconv import fused_mbconv
+    from ssdseglib_torch.ops.nms_scan import greedy_select
+    from ssdseglib_torch.ops.s2d_stem import fused_stem_block1
+
+    make_forward, gate_and_decode, postprocess, thr_score, k = _option_path_parts()
+
+    # (a) f32, batch 2: the option path against the default path
+    option, default = (make_forward(torch.float32, s2d) for s2d in ("cuda", False))
+    x = torch.from_numpy(_uint8_images(1, 2)).to("cuda")
+    out, out_default = option(x), default(x)
+    for name in ("output-mask", "output-labels", "output-boxes"):
+        a, b = out[name].cpu().numpy(), out_default[name].cpu().numpy()
+        log(f"[option] f32 b2 {name} {a.shape}: max |s2d_stem='cuda' - default| / "
+            f"(1 + |default|) = {float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))):.3g}")
+        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-3, err_msg=name)
+    # top-K equals exact only while at most K candidates of a class clear the
+    # score threshold: raise the threshold to the (K + 1)-th score if need be
+    labels = gate_and_decode(out)[1]
+    kth = labels.sort(dim=1, descending=True).values[:, k].max()
+    thr_score.copy_(torch.maximum(thr_score, kth))
+    most = int((labels > thr_score).sum(dim=1).max())
+    assert most <= k, (most, k)
+    det_topk, det_exact = postprocess(out, "topk").cpu(), postprocess(out, "exact").cpu()
+    n_valid = int((det_exact[..., 1] > 0).sum())
+    log(f"[option] f32 b2 topk vs exact at iou > {IOU_THRESHOLD}, score > "
+        f"{float(thr_score):.4f}: at most {most} candidates per class (K = {k}), "
+        f"{n_valid} valid rows")
+    assert n_valid > 0, "no valid detection rows to compare"
+    np.testing.assert_array_equal(det_topk[..., 0].numpy(), det_exact[..., 0].numpy())
+    np.testing.assert_allclose(det_topk[..., 1:].numpy(), det_exact[..., 1:].numpy(),
+                               rtol=2e-3, atol=2e-3)
+    del option, default, out, out_default
+    thr_score.fill_(SCORE_THRESHOLD)
+
+    # (b) bf16, batch 16: one call through the three kernels
+    option = make_forward(torch.bfloat16, "cuda")
+
+    def serve(images):
+        out = option(images)
+        return out["output-mask"], postprocess(out, "topk")
+
+    inputs, single = _serving_inputs()
+    serve(inputs[0])  # warm-up
+    serve(single)
+    torch.cuda.synchronize()
+    counters = {"stem": fused_stem_block1, "scan": greedy_select, "mbconv": fused_mbconv}
+    for counter in counters.values():
+        counter.launches = 0  # the option path starts here
+    fused_inference.mobilenetv2_features_fused.copies = 0
+    mask, det = serve(inputs[0])
+    det_host = det.cpu()
+    counts = {name: counter.launches for name, counter in counters.items()}
+    assert counts == {"stem": 1, "scan": 1, "mbconv": 10}, counts
+    assert tuple(mask.shape) == (BATCH, 480, 640, 4) and mask.dtype == torch.bfloat16
+    assert tuple(det_host.shape) == (BATCH, 10, 6) and det_host.dtype == torch.float32
+    assert bool(torch.isfinite(mask).all()) and bool(torch.isfinite(det_host).all())
+    log(f"[option] bf16 b16 one call: kernel launches {counts}, mask {tuple(mask.shape)}, "
+        f"detections {tuple(det_host.shape)}, {int((det_host[..., 1] > 0).sum())} valid rows")
+
+    # (c) images/s under the serving phase's protocol
+    rates = _images_per_second(serve, inputs)
+    calls = 1 + SERVE_ROUNDS * SERVE_STEPS
+    launches = {name: counter.launches for name, counter in counters.items()}
+    assert launches == {"stem": calls, "scan": calls, "mbconv": 10 * calls}, (launches, calls)
+    copies = fused_inference.mobilenetv2_features_fused.copies
+    assert copies == 0, f"{copies} layout copies around the stem kernel"
+    log(f"[option] b16 images/s, rounds: {[round(r, 2) for r in rates]}")
+    log(f"[option] s2d_stem='cuda' + method='topk' at b16 480x640: "
+        f"{statistics.median(rates):.2f} images/s | default path (phase 6, "
+        f"get_model_for_inference, exact NMS): {default_rate:.2f} images/s | {card}")
+    # the post-processing alone, on one forward's outputs
+    for images in (inputs[0], single):
+        out = option(images)
+        times = {method: cuda_median_ms(lambda: postprocess(out, method))
+                 for method in ("exact", "topk")}
+        log(f"[option] post-processing alone (suppression + decode + NMS) at b"
+            f"{images.shape[0]}: exact {times['exact']:.4f} ms | topk {times['topk']:.4f} ms "
+            f"(CUDA events, median of 20) | {card}")
+    return launches
+
+
+def _log_device_profile(tag: str, prof, wall_ms: float, steps: int, card: str, own) -> None:
+    """Device kernel time by name from a torch.profiler run over ``steps``
+    steps: the top 25 kernels and the port's own (names in ``own``)."""
+    kernels = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+               for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels.sort(key=lambda row: -row[1])
+    device_ms = sum(ms for _, ms, _ in kernels)
+    log(f"[profile] {tag}: wall {wall_ms:.3f} ms/step (profiled), device kernel time "
+        f"{device_ms:.3f} ms/step, busy share {device_ms / wall_ms:.3f}, "
+        f"{sum(n for _, _, n in kernels):.1f} kernels/step | {card}")
+    for rank, (name, ms, count) in enumerate(kernels):
+        if rank < 25 or any(k in name for k in own):
+            log(f"[profile] {ms:8.3f} ms {100 * ms / device_ms:5.1f}% x{count:6.1f}  {name[:110]}")
+
+
+def profile_serving(card: str, steps: int = 8) -> None:
+    """``python3 chip_smoke.py --profile-serve``: where the device time of a
+    bf16 b16 serving step goes (torch.profiler over ``steps`` pipelined
+    steps, kernel events only) on the default path and on the option path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    builder, model, nms = _builder()
+    infer = builder.get_model_for_inference(
+        model_trained=model, compute_dtype="bfloat16", fused_backbone=True,
+        mask_output="bfloat16", device="cuda", **nms)
+    make_forward, _, postprocess, _, _ = _option_path_parts()
+    option = make_forward(torch.bfloat16, "cuda")
+
+    def serve_option(images):
+        out = option(images)
+        return out["output-mask"], postprocess(out, "topk")
+
+    inputs, _ = _serving_inputs()
+    own = ("mbconv_kernel", "stem_block1_kernel", "nms_scan_kernel")
+    for tag, serve in (("default path", infer), ("option path", serve_option)):
+        for i in range(3):
+            serve(inputs[i])[1].cpu()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            outs = [serve(inputs[i % len(inputs)]) for i in range(steps)]
+            outs[-1][1].cpu()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        _log_device_profile(f"serving b16 bf16, {tag}", prof, wall_ms, steps, card, own)
+
+
 def profile_training(card: str, route: str, steps: int = 6) -> None:
     """``python3 chip_smoke.py --profile-train [route]``: where the time of
     one bf16 b16 train step goes, from torch.profiler over ``steps`` steps
@@ -593,17 +944,8 @@ def profile_training(card: str, route: str, steps: int = 6) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     finally:
         _set_route("aten")
-    kernels = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
-               for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    kernels.sort(key=lambda row: -row[1])
-    device_ms = sum(ms for _, ms, _ in kernels)
-    log(f"[profile] route {route}: wall {wall_ms:.3f} ms/step (profiled), device kernel time "
-        f"{device_ms:.3f} ms/step, busy share {device_ms / wall_ms:.3f}, "
-        f"{sum(n for _, _, n in kernels):.1f} kernels/step | {card}")
     own = ("chain_bwd_kernel", "chain_sums_kernel", "dw_bwd_kernel", "reduce_partials_kernel")
-    for rank, (name, ms, count) in enumerate(kernels):
-        if rank < 25 or any(k in name for k in own):  # the top, and the port's own kernels
-            log(f"[profile] {ms:8.3f} ms {100 * ms / device_ms:5.1f}% x{count:6.1f}  {name[:110]}")
+    _log_device_profile(f"route {route}", prof, wall_ms, steps, card, own)
 
 
 def main() -> None:
@@ -611,18 +953,25 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    if "--profile-serve" in sys.argv:
+        profile_serving(card)
+        return
     if "--profile-train" in sys.argv:
         routes = [a for a in sys.argv[1:] if a in ROUTES] or list(ROUTES)
         for route in routes:
             profile_training(card, route)
         return
     mbconv = phase_kernel_vs_twin()
+    scan = phase_scan_kernel_vs_plain()
+    stem = phase_stem_kernel_vs_plain()
     backward = phase_backward_kernels_vs_plain()
     phase_whole_path_parity()
-    mbconv["launches"] = phase_serving(card)
+    mbconv["launches"], default_rate = phase_serving(card)
     train_launches = phase_training(card)
     backward["depthwise_backward"]["launches"] = train_launches["depthwise"]
     backward["chain_backward"]["launches"] = train_launches["chain"]
+    option_launches = phase_option_path(card, default_rate)
+    scan["launches"], stem["launches"] = option_launches["scan"], option_launches["stem"]
     described = {
         "fused_mbconv": ("ssdseglib_torch/csrc/fused_mbconv.cu",
                          "ssdseglib_tpu/ops/fused_mbconv.py:48", mbconv),
@@ -632,6 +981,10 @@ def main() -> None:
         "chain_backward": ("ssdseglib_torch/csrc/fused_chain_backward.cu",
                            "ssdseglib_tpu/ops/fused_chain_backward.py:79",
                            backward["chain_backward"]),
+        "nms_scan": ("ssdseglib_torch/csrc/nms_scan.cu",
+                     "ssdseglib_tpu/ops/nms_pallas.py:27", scan),
+        "stem_block1": ("ssdseglib_torch/csrc/s2d_stem.cu",
+                        "ssdseglib_tpu/ops/s2d_stem.py:154", stem),
     }
     for name, (_, _, report) in described.items():
         if report["launches"] < 1:

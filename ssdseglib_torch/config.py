@@ -78,11 +78,12 @@ class NmsConfig:
     # wired through to the inference builder by callers (bench.py,
     # examples/03) — single source of truth for the cross-task gating switch
     use_segmentation_suppression: bool = True
-    # Only used by the alternative method="topk" NMS formulation: candidates
-    # per class entering the K-step suppression scan.  That path TRUNCATES
-    # to the top K scores and diverges from TF when more than K candidates
-    # clear score_threshold.  The default method="exact" iterative-argmax
-    # path considers every candidate and has no such bound.
+    # Only used by the alternative method="topk" of ops.nms.combined_nms:
+    # candidates per class entering the suppression scan (ops/nms_scan.py,
+    # at most 1344).  That path TRUNCATES to the top K scores and diverges
+    # from TF when more than K candidates clear score_threshold.  The
+    # default method="exact" iterative-argmax path considers every
+    # candidate and has no such bound.
     max_candidates_per_class: int = 256
 
 

@@ -92,6 +92,11 @@ class SsdSegModel(nn.ModuleDict):
         fm1 = taps["backbone-block13-expand-relu6"]  # os16
         fm2 = taps["backbone-block16-project-batchnorm"]  # os32
         skip = taps["backbone-block3-expand-relu6"]  # os4
+        return self.apply_heads(fm1, fm2, skip)
+
+    def apply_heads(self, fm1: torch.Tensor, fm2: torch.Tensor,
+                    skip: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Everything after the backbone, on its three NCHW taps."""
         fm3 = self[self.extra[0]](fm2)
         fm4 = self[self.extra[1]](fm3)
         mask = self["mask-decoder"](self["mask-encoder"](fm1), skip)

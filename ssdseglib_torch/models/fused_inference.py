@@ -8,8 +8,19 @@ stem and the stride-2 / first blocks run as cuDNN convs, and each stride-1
 residual repeat runs as one fused Hopper kernel (`ops/fused_mbconv.py`).
 The heads run folded and without concats (`heads_forward_folded`).
 
+Options of `make_fused_forward`, all off the default path:
+- ``s2d_stem="cuda"``: stem + block 1 as one fused Hopper kernel
+  (`ops/s2d_stem.py`) for inputs whose height and width are multiples of
+  4; the input rescale is then a pass of its own.
+- ``fused_heads=False``: the heads of `SsdSegModel` (unfolded, eval mode)
+  under the folded backbone.
+- ``fold_input_rescale=False``: the standalone rescale at every shape.
+Still queued (ROADMAP.md): ``s2d_stem="xla"`` (the conv reformulation of
+the same study, Queue 1 #15) and ``quantize_pointwise`` (int8 PTQ of two
+pointwise convs, Queue 1 #2).
+
 Activations are NCHW in the channels-last memory format, so the NHWC view
-the fused kernel takes is a permute, not a copy.  The public forward takes
+the fused kernels take is a permute, not a copy.  The public forward takes
 NHWC images and returns NHWC outputs, like the JAX package.
 """
 
@@ -25,6 +36,7 @@ from ssdseglib_torch.config import ModelConfig
 from ssdseglib_torch.models.blocks import bilinear_resize, conv2d_same
 from ssdseglib_torch.models.mobilenetv2 import _SEQUENCES
 from ssdseglib_torch.ops.fused_mbconv import fold_conv_bn, fused_mbconv
+from ssdseglib_torch.ops.s2d_stem import fused_stem_block1, stem_block1_args
 
 EXTRA_BLOCKS = ("backbone-block17", "backbone-block18")
 
@@ -167,22 +179,57 @@ def _mbconv_args(folded, block: int):
     )
 
 
-def mobilenetv2_features_fused(folded, x: torch.Tensor):
-    """Backbone forward; returns the three head taps (fm1 os16, fm2 os32,
-    skip os4), NCHW.  ``folded`` holds the device tensors of every folded
-    conv and, under ``backbone-block{N}-mbconv``, the kernel arguments of
-    each stride-1 residual repeat."""
+def _check_s2d_stem(s2d_stem) -> None:
+    if s2d_stem == "xla":
+        raise NotImplementedError(
+            "s2d_stem='xla' (the conv reformulation of the stem study) is not "
+            "ported: ROADMAP.md Queue 1 #15"
+        )
+    if s2d_stem not in (False, "cuda"):
+        # reject typos like 'cuba' / True instead of running another variant
+        raise ValueError(f"s2d_stem must be False or 'cuda'; got {s2d_stem!r}")
 
-    (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 0)
-    x = _conv(x, we, be, stride=2, relu6=True)
-    x = _conv(x, wd, bd, depthwise=True, relu6=True)
-    x = _conv(x, wp, bp)
+
+def _s2d_stem_applicable(x: torch.Tensor) -> bool:
+    """Shape gate of the fused stem + block 1 kernel on an NCHW input: the
+    two stride-2 convs pad 0 before and 1 after only on even sizes."""
+    return x.shape[2] % 4 == 0 and x.shape[3] % 4 == 0
+
+
+def mobilenetv2_features_fused(folded, x: torch.Tensor, s2d_stem=False):
+    """Backbone forward on pre-scaled input ([-1, 1], or raw with the
+    rescale folded into the stem); returns the three head taps (fm1 os16,
+    fm2 os32, skip os4), NCHW.  ``folded`` holds the device tensors of every
+    folded conv and, under ``backbone-block{N}-mbconv``, the kernel
+    arguments of each stride-1 residual repeat.
+
+    s2d_stem: ``"cuda"`` runs stem + block 1 as one fused kernel
+    (`ops/s2d_stem.py`, arguments under ``backbone-stem-block1-args``) when
+    the input shape allows it, on the NHWC view of the channels-last input;
+    a copy that view needs is counted on
+    ``mobilenetv2_features_fused.copies``.  Default off."""
+    _check_s2d_stem(s2d_stem)
+    use_s2d = bool(s2d_stem) and _s2d_stem_applicable(x)
+    if use_s2d:
+        nhwc = x.permute(0, 2, 3, 1)
+        if not nhwc.is_contiguous():
+            mobilenetv2_features_fused.copies += 1
+            nhwc = nhwc.contiguous()
+        y = fused_stem_block1(nhwc, folded["backbone-stem-block1-args"])
+        x = y.permute(0, 3, 1, 2)  # a channels-last view, as the convs below take it
+    else:
+        (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 0)
+        x = _conv(x, we, be, stride=2, relu6=True)
+        x = _conv(x, wd, bd, depthwise=True, relu6=True)
+        x = _conv(x, wp, bp)
 
     taps = {}
     block = 0
     for _, _, n_repeat, stride in _SEQUENCES:
         for n in range(n_repeat):
             block += 1
+            if block == 1 and use_s2d:
+                continue  # already inside the stem kernel
             if n == 0:
                 # stride-s first block, no residual: cuDNN convs; expose the
                 # expand activation (head taps live on first blocks)
@@ -201,6 +248,9 @@ def mobilenetv2_features_fused(folded, x: torch.Tensor):
         taps[f"block{block}-out"] = x
 
     return taps["block13-expand"], taps["block16-out"], taps["block3-expand"]
+
+
+mobilenetv2_features_fused.copies = 0
 
 
 def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip):
@@ -280,46 +330,75 @@ def _to_device(folded, dtype, device):
 
 
 def make_fused_forward(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
-                       device="cpu") -> Callable[[torch.Tensor], dict]:
+                       device="cuda", s2d_stem=False, fused_heads: bool = True,
+                       fold_input_rescale: bool = True
+                       ) -> Callable[[torch.Tensor], dict]:
     """Build the BN-folded serving forward with the outputs of
     ``SsdSegModel`` in eval mode: a function of NHWC images (any real or
     uint8 dtype, on ``device``) returning the dict of NHWC outputs.
 
-    The rescale is folded into the stem for images of
-    ``cfg.input_image_shape``; any other spatial shape takes the
-    standalone rescale (the border bias map is shape-specific).  Folding
-    runs in f32; the folded weights are then cast to ``compute_dtype``."""
+    fold_input_rescale: absorb the [0, 255] -> [-1, 1] rescale into the stem
+    conv for images of ``cfg.input_image_shape``; any other spatial shape
+    takes the standalone rescale (the border bias map is shape-specific).
+    Off under ``s2d_stem``, whose kernel takes the rescaled image.
+
+    s2d_stem: ``"cuda"`` runs stem + block 1 as one fused kernel (see
+    `mobilenetv2_features_fused`).  fused_heads: run the task heads through
+    the BN-folded, concat-free `heads_forward_folded`; ``False`` runs the
+    heads of `SsdSegModel` as they are.  Folding runs in f32; the weights
+    are then cast to ``compute_dtype``."""
     if cfg.backbone != "mobilenetv2":
         raise ValueError("fused inference currently supports mobilenetv2 only")
+    _check_s2d_stem(s2d_stem)
     device = torch.device(device)
     folded_f32 = fold_mobilenetv2(state_dict)
     folded = _to_device(folded_f32, compute_dtype, device)
-    stem_folded = dict(folded)
-    stem_folded["backbone-block0-expand"] = _to_device(
-        {"stem": fold_stem_rescale(*folded_f32["backbone-block0-expand"],
-                                   cfg.input_image_shape[:2])},
-        compute_dtype, device,
-    )["stem"]
+    stem_folded = None
+    if fold_input_rescale and not s2d_stem:
+        stem_folded = dict(folded)
+        stem_folded["backbone-block0-expand"] = _to_device(
+            {"stem": fold_stem_rescale(*folded_f32["backbone-block0-expand"],
+                                       cfg.input_image_shape[:2])},
+            compute_dtype, device,
+        )["stem"]
+    kernel_args = {}
+    if s2d_stem:
+        kernel_args["backbone-stem-block1-args"] = stem_block1_args(folded)
     block = 0
     for _, _, n_repeat, _ in _SEQUENCES:
         for n in range(n_repeat):
             block += 1
             if n > 0:
-                args = _mbconv_args(folded, block)
-                folded[f"backbone-block{block}-mbconv"] = args
-                stem_folded[f"backbone-block{block}-mbconv"] = args
-    heads = _to_device(fold_heads(state_dict, cfg), compute_dtype, device)
+                kernel_args[f"backbone-block{block}-mbconv"] = _mbconv_args(folded, block)
+    folded.update(kernel_args)
+    if stem_folded is not None:
+        stem_folded.update(kernel_args)
+
+    if fused_heads:
+        heads = _to_device(fold_heads(state_dict, cfg), compute_dtype, device)
+
+        def apply_heads(fm1, fm2, skip):
+            return heads_forward_folded(cfg, heads, fm1, fm2, skip)
+    else:
+        from ssdseglib_torch.models.builder import SsdSegModel
+
+        model = SsdSegModel(cfg, torch.Generator().manual_seed(0))
+        model.load_state_dict(state_dict)
+        del model["backbone"]
+        model = model.to(device=device, dtype=compute_dtype)
+        apply_heads = model.to(memory_format=torch.channels_last).eval().apply_heads
+
     expected_hw = tuple(cfg.input_image_shape[:2])
 
     @torch.inference_mode()
     def forward(images: torch.Tensor) -> dict:
         x = images.to(compute_dtype).permute(0, 3, 1, 2)  # NHWC -> channels-last NCHW
-        if tuple(images.shape[1:3]) == expected_hw:
+        if stem_folded is not None and tuple(images.shape[1:3]) == expected_hw:
             backbone = stem_folded  # raw-input path: rescale folded into the stem
         else:
             x = x / 127.5 - 1.0
             backbone = folded
-        fm1, fm2, skip = mobilenetv2_features_fused(backbone, x)
-        return heads_forward_folded(cfg, heads, fm1, fm2, skip)
+        fm1, fm2, skip = mobilenetv2_features_fused(backbone, x, s2d_stem=s2d_stem)
+        return apply_heads(fm1, fm2, skip)
 
     return forward

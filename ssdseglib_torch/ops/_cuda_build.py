@@ -25,6 +25,8 @@ SOURCES = (
     _CSRC / "fused_mbconv.cu",
     _CSRC / "depthwise_backward.cu",
     _CSRC / "fused_chain_backward.cu",
+    _CSRC / "nms_scan.cu",
+    _CSRC / "s2d_stem.cu",
 )
 HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = _PKG / "build"
@@ -142,5 +144,13 @@ def load_library() -> ctypes.CDLL:
         [ctypes.c_int] + [ptr] * 8 + [ctypes.c_int] * 4 + [ptr]
     )
     lib.chain_backward_launch.restype = ctypes.c_int
+    # (iou, valid, threshold, keep, rows, K, max_keep, stream)
+    lib.nms_scan_launch.argtypes = [ptr] * 4 + [ctypes.c_int] * 3 + [ptr]
+    lib.nms_scan_launch.restype = ctypes.c_int
+    # (dtype, images, six (weight, bias) pairs, out, B, H, W, stream)
+    lib.stem_block1_launch.argtypes = (
+        [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 3 + [ptr]
+    )
+    lib.stem_block1_launch.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -1,8 +1,8 @@
-"""Combined non-maximum suppression (PyTorch), counterpart of the exact
-method of ssdseglib_tpu/ops/nms.py (``tf.image.combined_non_max_suppression``
-as the reference calls it at ssdseglib/layers.py:141-149).
+"""Combined non-maximum suppression (PyTorch), counterpart of
+ssdseglib_tpu/ops/nms.py (``tf.image.combined_non_max_suppression`` as the
+reference calls it at ssdseglib/layers.py:141-149).
 
-Iterative argmax, exact over all N anchors:
+``method="exact"`` (the default): iterative argmax, exact over all N anchors:
 
 1. per class: `max_boxes_per_class` rounds of [argmax score over every
    not-yet-suppressed candidate above the score threshold (strict >), then
@@ -10,6 +10,19 @@ Iterative argmax, exact over all N anchors:
    -- greedy NMS restated, with no top-K prefilter.
 2. across classes: class-major concatenation, stable top-`max_total` by
    score (TF's concat-then-top_k combine step, including tie order).
+
+``method="topk"``: a top-K prefilter and one suppression scan, for
+workloads where `max_boxes_per_class` is large enough that M sequential
+argmax rounds lose to one scan:
+
+1. per class: the `max_candidates_per_class` highest scores, sorted
+   descending with ties to the lower index (a stable sort), their (K, K)
+   pairwise IoU, and the greedy scan over them (`ops/nms_scan.py`: a
+   hand-written kernel on a CUDA tensor, its plain version on a CPU tensor).
+2. across classes: the same class-major stable top-`max_total`.
+
+It equals the exact method only while at most K candidates of a class clear
+the score threshold; beyond that it truncates to the K best.
 
 Static shapes and no host synchronisation: the thresholds may be 0-d
 device tensors, so one serving path covers every operating point.  Argmax
@@ -24,6 +37,33 @@ from typing import Dict
 import torch
 
 from ssdseglib_torch.config import NmsConfig
+from ssdseglib_torch.ops.nms_scan import greedy_select
+
+
+def _pairwise_iou_yx(boxes: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of (..., K, 4) boxes in (ymin, xmin, ymax, xmax) layout.
+
+    Corners are canonicalized (min/max swap) and areas use the plain
+    continuous-coordinate convention, matching the TF NMS kernel; a pair
+    whose union is not positive has IoU 0.
+    """
+    ymin = torch.minimum(boxes[..., 0], boxes[..., 2])
+    xmin = torch.minimum(boxes[..., 1], boxes[..., 3])
+    ymax = torch.maximum(boxes[..., 0], boxes[..., 2])
+    xmax = torch.maximum(boxes[..., 1], boxes[..., 3])
+
+    inter_h = (
+        torch.minimum(ymax[..., :, None], ymax[..., None, :])
+        - torch.maximum(ymin[..., :, None], ymin[..., None, :])
+    ).clamp(min=0.0)
+    inter_w = (
+        torch.minimum(xmax[..., :, None], xmax[..., None, :])
+        - torch.maximum(xmin[..., :, None], xmin[..., None, :])
+    ).clamp(min=0.0)
+    inter = inter_h * inter_w
+    area = (ymax - ymin) * (xmax - xmin)
+    union = area[..., :, None] + area[..., None, :] - inter
+    return torch.where(union > 0.0, inter / union, 0.0)
 
 
 def _exact_greedy_nms(boxes_yx, scores_cn, iou_threshold, score_threshold,
@@ -75,10 +115,22 @@ def _exact_greedy_nms(boxes_yx, scores_cn, iou_threshold, score_threshold,
     return torch.stack(sel_idx, dim=-1), torch.stack(sel_scores, dim=-1)
 
 
+def _top_candidates(boxes_yx: torch.Tensor, scores_cn: torch.Tensor, k: int):
+    """The K best candidates of each class: (scores (B, C, K) sorted
+    descending with ties to the lower index, their boxes (B, C, K, 4)).  A
+    stable sort, because `torch.topk` promises no order among ties."""
+    b, c, n = scores_cn.shape
+    order = torch.sort(scores_cn, dim=-1, descending=True, stable=True)
+    index = order.indices[..., :k, None].expand(b, c, k, 4)
+    boxes = boxes_yx[:, None].expand(b, c, n, 4).gather(2, index)
+    return order.values[..., :k].contiguous(), boxes
+
+
 def combined_nms(
     boxes_yx: torch.Tensor,
     scores: torch.Tensor,
     cfg: NmsConfig,
+    method: str = "exact",
     iou_threshold=None,
     score_threshold=None,
 ) -> Dict[str, torch.Tensor]:
@@ -89,6 +141,9 @@ def combined_nms(
             (shared across classes)
         scores: (B, N, C) per-class probabilities (class 0 = background is
             NOT special-cased, like the reference)
+        method: "exact" (default, iterative argmax over all N candidates) or
+            "topk" (top-K prefilter + suppression scan, see the module
+            docstring)
         iou_threshold / score_threshold: optional overrides of the config
             values; Python floats or 0-d tensors on the scores' device.
     Returns:
@@ -97,22 +152,38 @@ def combined_nms(
             scores: (B, T) kept scores, zero padded
             classes: (B, T) float class ids, zero padded
             valid: (B,) number of valid rows per sample
-        where T = min(cfg.max_boxes_per_sample, C * cfg.max_boxes_per_class).
+        where T = min(cfg.max_boxes_per_sample, number of per-class slots):
+        C * cfg.max_boxes_per_class slots under "exact", C * K under "topk".
     """
     b, n, c = scores.shape
-    m = cfg.max_boxes_per_class
     if iou_threshold is None:
         iou_threshold = cfg.iou_threshold
     if score_threshold is None:
         score_threshold = cfg.score_threshold
+    scores_cn = scores.transpose(1, 2)  # (B, C, N)
 
-    sel_idx, sel_scores = _exact_greedy_nms(
-        boxes_yx, scores.transpose(1, 2), iou_threshold, score_threshold, m
-    )
-    flat_scores = sel_scores.reshape(b, c * m)
-    flat_boxes = boxes_yx[:, None].expand(b, c, n, 4).gather(
-        2, sel_idx[..., None].expand(b, c, m, 4)
-    ).reshape(b, c * m, 4)
+    if method == "exact":
+        m = cfg.max_boxes_per_class
+        sel_idx, sel_scores = _exact_greedy_nms(
+            boxes_yx, scores_cn, iou_threshold, score_threshold, m
+        )
+        flat_scores = sel_scores.reshape(b, c * m)
+        flat_boxes = boxes_yx[:, None].expand(b, c, n, 4).gather(
+            2, sel_idx[..., None].expand(b, c, m, 4)
+        )
+    elif method == "topk":
+        m = min(cfg.max_candidates_per_class, n)
+        cand_scores, cand_boxes = _top_candidates(boxes_yx, scores_cn, m)
+        keep = greedy_select(
+            _pairwise_iou_yx(cand_boxes), cand_scores > score_threshold,
+            iou_threshold, cfg.max_boxes_per_class,
+        )
+        flat_scores = torch.where(keep, cand_scores, float("-inf")).reshape(b, c * m)
+        flat_boxes = cand_boxes
+    else:
+        raise ValueError(f"unknown NMS method {method!r}")
+    # combine across classes: class-major flatten, stable top-T by score
+    flat_boxes = flat_boxes.reshape(b, c * m, 4)
     flat_classes = torch.arange(c, dtype=torch.float32, device=scores.device)
     flat_classes = flat_classes[None, :, None].expand(b, c, m).reshape(b, c * m)
 

@@ -1,6 +1,7 @@
 """The port's BN-folded serving forward against the JAX package's
-make_fused_forward (Pallas kernels in interpret mode), f32 on the CPU, and
-the host-side folds against their NumPy originals."""
+make_fused_forward (Pallas kernels in interpret mode), f32 on the CPU, the
+host-side folds against their NumPy originals, and the option path (fused
+stem + block 1, top-K NMS) as a whole."""
 
 import jax
 import jax.numpy as jnp
@@ -8,9 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from ssdseglib_tpu import layers as tpu_layers
+from ssdseglib_tpu.config import NmsConfig
 from ssdseglib_tpu.models import fused_inference as tpu_fused
+from ssdseglib_tpu.ops import encoding as tpu_encoding
+from ssdseglib_tpu.ops import nms as tpu_nms
+from ssdseglib_torch import layers as port_layers
 from ssdseglib_torch.config import ModelConfig as PortModelConfig
+from ssdseglib_torch.config import NmsConfig as PortNmsConfig
 from ssdseglib_torch.models import fused_inference as port_fused
+from ssdseglib_torch.ops import encoding as port_encoding
+from ssdseglib_torch.ops import nms as port_nms
 from tests.torch_parity import SMALL_CFG, images, jax_model_and_variables, port_model
 
 PORT_CFG = PortModelConfig(**vars(SMALL_CFG))
@@ -20,7 +29,7 @@ PORT_CFG = PortModelConfig(**vars(SMALL_CFG))
 def setup():
     module, variables = jax_model_and_variables(SMALL_CFG)
     state = port_model(SMALL_CFG, variables).state_dict()
-    forward = port_fused.make_fused_forward(PORT_CFG, state, torch.float32)
+    forward = port_fused.make_fused_forward(PORT_CFG, state, torch.float32, device="cpu")
     return module, variables, state, forward
 
 
@@ -93,3 +102,134 @@ def test_fused_forward_rejects_shufflenet(setup):
     _, _, state, _ = setup
     with pytest.raises(ValueError):
         port_fused.make_fused_forward(PortModelConfig(backbone="shufflenetv2"), state)
+
+
+def test_make_fused_forward_defaults_to_the_card(setup):
+    """Like `get_model_for_inference`: the default device is 'cuda', and
+    without a card the call raises instead of moving to the CPU."""
+    import inspect
+
+    _, _, state, _ = setup
+    parameters = inspect.signature(port_fused.make_fused_forward).parameters
+    assert parameters["device"].default == "cuda"
+    assert parameters["s2d_stem"].default is False
+    assert parameters["fused_heads"].default is True
+    assert parameters["fold_input_rescale"].default is True
+    if torch.cuda.is_available():
+        out = port_fused.make_fused_forward(PORT_CFG, state)(
+            torch.zeros(1, 96, 128, 3, device="cuda"))
+        assert out["output-mask"].is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            port_fused.make_fused_forward(PORT_CFG, state)
+
+
+N_BOXES = (6 * 8 + 3 * 4 + 2 * 2 + 1 * 1) * 6  # anchors at 96x128
+STDS = (0.1, 0.1, 0.2, 0.2)
+NMS_CFG = dict(max_boxes_per_class=4, max_boxes_per_sample=10, iou_threshold=0.5,
+               score_threshold=0.26)
+
+
+def _anchors_centroids():
+    rng = np.random.default_rng(0)
+    return np.stack([rng.uniform(0, 128, N_BOXES), rng.uniform(0, 96, N_BOXES),
+                     rng.uniform(5, 40, N_BOXES), rng.uniform(5, 40, N_BOXES)],
+                    axis=-1).astype(np.float32)
+
+
+def _postprocess_topk(expected, got):
+    """Decode + segmentation suppression + ``method="topk"`` NMS on both
+    sides: labels and row order exact, scores and boxes 1e-4."""
+    anchors = _anchors_centroids()
+    labels_j = tpu_layers.SegmentationSuppression()(
+        expected["output-mask"], expected["output-labels"])
+    boxes_j = tpu_encoding.decode_predictions_to_corners_yx(
+        expected["output-boxes"], jnp.asarray(anchors), STDS)
+    det_j = tpu_nms.combined_nms(boxes_j, labels_j, NmsConfig(**NMS_CFG), method="topk")
+    labels = port_layers.SegmentationSuppression(4)(
+        got["output-mask"], got["output-labels"].float())
+    boxes = port_encoding.decode_predictions_to_corners_yx(
+        got["output-boxes"].float(), torch.from_numpy(anchors), STDS)
+    det = port_nms.combined_nms(
+        boxes, labels, PortNmsConfig(**NMS_CFG), method="topk",
+        iou_threshold=torch.tensor(NMS_CFG["iou_threshold"]),
+        score_threshold=torch.tensor(NMS_CFG["score_threshold"]))
+    assert int(det["valid"].min()) >= 3  # several valid rows in every image
+    np.testing.assert_array_equal(det["valid"].numpy(), np.asarray(det_j["valid"]))
+    np.testing.assert_array_equal(det["classes"].numpy(), np.asarray(det_j["classes"]))
+    for key in ("scores", "boxes"):
+        np.testing.assert_allclose(det[key].numpy(), np.asarray(det_j[key]),
+                                   rtol=1e-4, atol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("options", [
+    dict(),
+    dict(fused_heads=False, fold_input_rescale=False),
+], ids=["folded-heads", "module-heads"])
+def test_option_path_matches_jax_option_path(setup, options):
+    """The option path end to end: fused stem + block 1 (its plain version on the
+    CPU, the Pallas kernel in interpret mode on the JAX side), the ten MBConv
+    blocks, the heads, then decode, suppression and the top-K NMS."""
+    _, variables, state, _ = setup
+    x = images(2, (4, 96, 128, 3))
+    expected = tpu_fused.make_fused_forward(
+        SMALL_CFG, variables, compute_dtype=jnp.float32, interpret=True,
+        s2d_stem="pallas", **options,
+    )(jnp.asarray(x))
+    got = port_fused.make_fused_forward(
+        PORT_CFG, state, torch.float32, device="cpu", s2d_stem="cuda", **options,
+    )(torch.from_numpy(x))
+    _compare(expected, got, 2e-3)
+    _postprocess_topk(expected, got)
+
+
+def test_module_heads_and_standalone_rescale_match_jax(setup):
+    """``fused_heads=False, fold_input_rescale=False`` (the heads of the
+    model as they are, the rescale as a pass of its own) against the same
+    options of the JAX package, whose own test holds them to 2e-3."""
+    _, variables, state, forward = setup
+    x = images(3, (2, 96, 128, 3))
+    expected = tpu_fused.make_fused_forward(
+        SMALL_CFG, variables, compute_dtype=jnp.float32, interpret=True,
+        fused_heads=False, fold_input_rescale=False,
+    )(jnp.asarray(x))
+    got = port_fused.make_fused_forward(
+        PORT_CFG, state, torch.float32, device="cpu", fused_heads=False,
+        fold_input_rescale=False,
+    )(torch.from_numpy(x))
+    _compare(expected, got, 2e-3)
+    _compare({k: v.numpy() for k, v in forward(torch.from_numpy(x)).items()}, got, 2e-3)
+
+
+def test_s2d_stem_gate_refuses_a_shape_and_takes_the_plain_stem(setup, monkeypatch):
+    """H = 98 is no multiple of 4: the forward takes the six convs, as the
+    JAX package does, and equals the default path's output there."""
+    _, _, state, forward = setup
+    fused = port_fused.make_fused_forward(PORT_CFG, state, torch.float32, device="cpu",
+                                          s2d_stem="cuda")
+
+    def refuse(*args):
+        raise AssertionError("the stem kernel's wrapper was called")
+
+    monkeypatch.setattr(port_fused, "fused_stem_block1", refuse)
+    x = torch.from_numpy(images(6, (2, 98, 128, 3)))
+    got, want = fused(x), forward(x)
+    for key in want:
+        np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), rtol=1e-6,
+                                   atol=1e-6, err_msg=key)
+    with pytest.raises(AssertionError, match="wrapper was called"):
+        fused(torch.from_numpy(images(6, (2, 96, 128, 3))))
+    assert port_fused.mobilenetv2_features_fused.copies == 0
+
+
+@pytest.mark.parametrize("bad", ["palas", True, "pallas"])
+def test_make_fused_forward_rejects_unknown_s2d_stem(setup, bad):
+    _, _, state, _ = setup
+    with pytest.raises(ValueError, match="s2d_stem"):
+        port_fused.make_fused_forward(PORT_CFG, state, device="cpu", s2d_stem=bad)
+
+
+def test_make_fused_forward_names_the_queue_of_the_xla_variant(setup):
+    _, _, state, _ = setup
+    with pytest.raises(NotImplementedError, match="Queue 1 #15"):
+        port_fused.make_fused_forward(PORT_CFG, state, device="cpu", s2d_stem="xla")

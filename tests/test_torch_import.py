@@ -34,6 +34,8 @@ SLICE_MODULES = (
     "ssdseglib_torch.ops._cuda_build",
     "ssdseglib_torch.ops.encoding",
     "ssdseglib_torch.ops.nms",
+    "ssdseglib_torch.ops.nms_scan",
+    "ssdseglib_torch.ops.s2d_stem",
     "ssdseglib_torch.utils.serving",
 )
 
@@ -110,14 +112,15 @@ def test_every_module_of_the_port_is_listed():
 
 
 def test_kernel_sources_and_build_name_the_library():
-    """The three CUDA sources and the shared header exist where the builder
+    """The five CUDA sources and the shared header exist where `_cuda_build`
     looks for them, and the missing-compiler message names the library."""
     import pytest
 
     from ssdseglib_torch.ops import _cuda_build
 
     names = sorted(p.name for p in _cuda_build.SOURCES)
-    assert names == ["depthwise_backward.cu", "fused_chain_backward.cu", "fused_mbconv.cu"]
+    assert names == ["depthwise_backward.cu", "fused_chain_backward.cu", "fused_mbconv.cu",
+                     "nms_scan.cu", "s2d_stem.cu"]
     for path in _cuda_build.SOURCES + _cuda_build.HEADERS:
         assert path.is_file(), path
     if _cuda_build.shutil.which("nvcc") is None and not os.path.exists(

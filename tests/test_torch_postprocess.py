@@ -16,6 +16,7 @@ from ssdseglib_torch import layers as port_layers
 from ssdseglib_torch.config import NmsConfig as PortNmsConfig
 from ssdseglib_torch.ops import encoding as port_encoding
 from ssdseglib_torch.ops import nms as port_nms
+from tests.torch_parity import random_detections
 
 STDS = (0.1, 0.1, 0.2, 0.2)
 # exp() of XLA's CPU backend and of torch differ in the last bit; near
@@ -28,19 +29,6 @@ DECODE_ATOL = 1e-4
 def anchors_centroids():
     a_cfg, e_cfg = reference_warehouse_config()[:2]
     return Anchors.from_config(a_cfg, e_cfg.image_shape).centroids  # (9600, 4)
-
-
-def _random_detections(rng, batch=3, n=128, num_classes=4, spread=100.0):
-    cx = rng.uniform(0, spread, (batch, n))
-    cy = rng.uniform(0, spread, (batch, n))
-    w = rng.uniform(5, 40, (batch, n))
-    h = rng.uniform(5, 40, (batch, n))
-    boxes_yx = np.stack(
-        [cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], axis=-1
-    ).astype(np.float32)
-    logits = rng.normal(size=(batch, n, num_classes)) * 3.0
-    scores = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
-    return boxes_yx, scores.astype(np.float32)
 
 
 def test_decode_predictions_matches_jax(anchors_centroids):
@@ -117,15 +105,15 @@ def _compare_nms(boxes_yx, scores, cfg_kwargs):
     "iou_thr,score_thr", [(0.5, 0.3), (0.025, 0.725), (0.9, 0.05), (0.3, 0.6)]
 )
 def test_combined_nms_matches_jax(seed, iou_thr, score_thr):
-    boxes_yx, scores = _random_detections(np.random.default_rng(seed))
+    boxes_yx, scores = random_detections(np.random.default_rng(seed))
     _compare_nms(boxes_yx, scores, dict(max_boxes_per_class=4, max_boxes_per_sample=10,
                                         iou_threshold=iou_thr,
                                         score_threshold=score_thr))
 
 
 def test_combined_nms_dense_overlaps():
-    boxes_yx, scores = _random_detections(np.random.default_rng(42), batch=2, n=256,
-                                          spread=30.0)
+    boxes_yx, scores = random_detections(np.random.default_rng(42), batch=2, n=256,
+                                         spread=30.0)
     _compare_nms(boxes_yx, scores, dict(max_boxes_per_class=4, max_boxes_per_sample=10,
                                         iou_threshold=0.4, score_threshold=0.4))
 
@@ -133,8 +121,8 @@ def test_combined_nms_dense_overlaps():
 def test_combined_nms_production_scale():
     """9600 anchors with thousands of candidates per class above the
     score threshold."""
-    boxes_yx, scores = _random_detections(np.random.default_rng(7), batch=2, n=9600,
-                                          spread=600.0)
+    boxes_yx, scores = random_detections(np.random.default_rng(7), batch=2, n=9600,
+                                         spread=600.0)
     assert (scores > 0.05).sum(axis=1).min() > 256
     out = _compare_nms(boxes_yx, scores, dict(max_boxes_per_class=4,
                                               max_boxes_per_sample=10,
@@ -167,7 +155,7 @@ def test_combined_nms_tied_scores():
     """Equal scores within a class (argmax: first index) and across
     classes (stable class-major sort): the row order is the JAX order."""
     rng = np.random.default_rng(11)
-    boxes_yx, _ = _random_detections(rng, batch=2, n=64, spread=400.0)
+    boxes_yx, _ = random_detections(rng, batch=2, n=64, spread=400.0)
     scores = np.full((2, 64, 4), 0.5, np.float32)
     scores[:, ::5, 2] = 0.75
     scores[:, 7::9, 0] = 0.75
@@ -178,7 +166,7 @@ def test_combined_nms_tied_scores():
 
 
 def test_nms_layer_matches_jax_layer():
-    boxes_yx, scores = _random_detections(np.random.default_rng(0), batch=2)
+    boxes_yx, scores = random_detections(np.random.default_rng(0), batch=2)
     args = dict(max_number_of_boxes_per_class=4, max_number_of_boxes_per_sample=10,
                 boxes_iou_threshold=0.5, labels_probability_threshold=0.3)
     expected = tpu_layers.NonMaximumSuppression(**args)(boxes_yx, scores)

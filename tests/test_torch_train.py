@@ -546,15 +546,17 @@ def test_fit_history_keys_and_refusals(jax_side, batch):
 
 
 def test_entry_points_default_to_the_card():
-    """`Trainer`, `get_model_for_training` and `get_model_for_inference` run
-    on the card unless the caller asks for the CPU: the default is 'cuda',
+    """`Trainer`, `get_model_for_training`, `get_model_for_inference` and
+    `make_fused_forward` run on the card unless the caller asks for the CPU:
+    the default is 'cuda',
     and without a card the call raises instead of moving to the CPU."""
     import inspect
 
     from ssdseglib_torch.models.builder import InferenceModel, _BuilderBase
+    from ssdseglib_torch.models.fused_inference import make_fused_forward
 
     for fn in (_BuilderBase.get_model_for_training, _BuilderBase.get_model_for_inference,
-               InferenceModel.__init__, make_batch_encoder):
+               InferenceModel.__init__, make_batch_encoder, make_fused_forward):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert {f.name: f.default for f in dataclasses.fields(Trainer)}["device"] == "cuda"
     anchors = Anchors.from_config(AnchorsConfig(**ANCHORS_CFG), IMAGE_SHAPE)

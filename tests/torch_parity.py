@@ -71,3 +71,45 @@ def images(seed: int, shape, dtype=np.float32):
     if dtype == np.uint8:
         return rng.integers(0, 256, shape, dtype=np.uint8)
     return rng.uniform(0, 255, shape).astype(dtype)
+
+
+def make_stem_folded(rng, scale: float = 0.4):
+    """Random folded (HWIO kernel, bias) pairs of the stem and block 1, the
+    channel plan 3 -> 32 -> 16 -> 96 -> 24, as the JAX package's stem tests
+    draw them."""
+    def k(*shape):
+        return rng.normal(0, scale, shape).astype(np.float32)
+
+    return {
+        "backbone-block0-expand": (k(3, 3, 3, 32), k(32)),
+        "backbone-block0-depthwise": (k(3, 3, 1, 32), k(32)),
+        "backbone-block0-project": (k(1, 1, 32, 16), k(16)),
+        "backbone-block1-expand": (k(1, 1, 16, 96), k(96)),
+        "backbone-block1-depthwise": (k(3, 3, 1, 96), k(96)),
+        "backbone-block1-project": (k(1, 1, 96, 24), k(24)),
+    }
+
+
+def port_folded(folded_hwio, dtype=torch.float32):
+    """The JAX package's folded dict (HWIO kernels) as the port's: OIHW
+    torch tensors in ``dtype``."""
+    return {
+        name: (torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1))).to(dtype),
+               torch.from_numpy(b).to(dtype))
+        for name, (k, b) in folded_hwio.items()
+    }
+
+
+def random_detections(rng, batch=3, n=128, num_classes=4, spread=100.0):
+    """Decoded boxes (B, N, 4) in (ymin, xmin, ymax, xmax) order and softmax
+    class probabilities (B, N, C) for the NMS tests."""
+    cx = rng.uniform(0, spread, (batch, n))
+    cy = rng.uniform(0, spread, (batch, n))
+    w = rng.uniform(5, 40, (batch, n))
+    h = rng.uniform(5, 40, (batch, n))
+    boxes_yx = np.stack(
+        [cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], axis=-1
+    ).astype(np.float32)
+    logits = rng.normal(size=(batch, n, num_classes)) * 3.0
+    scores = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return boxes_yx, scores.astype(np.float32)
