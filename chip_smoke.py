@@ -32,6 +32,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    call (``aten.convolution_backward``) for the depthwise backward and, as
    information, of the ATen autograd route for the chain.  The chain unit's
    forward is compared with the ATen route (conv, ``F.batch_norm``, clamp);
+   4b. the three 1x1 weight-gradient kernels (tensor-core product, CUDA-core
+   product, loads alone) vs their plain versions at the training path's two
+   layers, (16, 240, 320, 32 -> 16) and (16, 240, 320, 16 -> 96), at the same
+   two at batch 2 and at the ragged (3, 37, 53, 48 -> 32), in bf16 (all three)
+   and f32 (CUDA-core product, loads alone): f32 sums of up to 1.2 M terms
+   within 1e-4 of the largest reference magnitude.  Timings: kernel, plain
+   version and the library call (``aten.convolution_backward``, weight
+   only).  Then `wgrad_study` at (16, 240, 320, 32 -> 16) bf16: the
+   tensor-core kernel within 2e-2 (relative to the largest magnitude) of the
+   f32 product, and the five routes timed by CUDA events;
 5. whole-path serving parity: the BN-folded serving model (fused kernel)
    against the unfused eval-mode model + post-processing, batch 2, 480x640,
    f32;
@@ -64,23 +74,50 @@ Phases, in order; any failure raises and the script exits non-zero:
    + decode + NMS, CUDA events) under ``exact`` and under ``topk`` at batch
    16 and batch 1.
 
-``python3 chip_smoke.py --profile-train [aten|chain|depthwise ...]`` instead
+9. a whole training run, full width: 32 synthetic 480x640 samples ->
+   `TrainDataLoader` (batch 16, flip and rgb augmentation, transform on the
+   card) -> `Trainer(compute_dtype="bfloat16").fit(epochs=2,
+   checkpointer=Checkpointer(tmp))` under ``set_wgrad_impl('cuda')``: the
+   tensor-core kernel launched once per step for every layer of the model
+   inside the envelope (counted from the model), no layout copies, every
+   epoch loss finite and the last below the first; a second `Trainer`
+   resumes from the checkpoint (state equal bit for bit, step restored) and
+   trains one more epoch; the evaluators (`average_precision_object_detection`,
+   `jaccard_iou_semantic_segmentation`) run on the trained model's
+   predictions.  (a) f32, batch 2: loss (1e-5) and gradients (phase 7a's
+   metric) of one step under the gates 'aten', 'dot', 'cuda'.  (b) bf16,
+   batch 16: step time under the three gates, fenced by the loss, and the
+   images/s of a `fit` epoch over the loader (no checkpoint in the timing),
+   at the run's 2 steps and at 8 steps an epoch.
+
+``python3 chip_smoke.py --profile-train [aten|chain|depthwise|wgrad-dot|wgrad-cuda ...]`` instead
 builds the library and prints where the time of a bf16 b16 train step goes
 (torch.profiler, kernel time by name) under the named routes, and
 ``python3 chip_smoke.py --profile-serve`` where the device time of a bf16 b16
-serving step goes on the default path and on the option path; neither prints
-result lines.
+serving step goes on the default path and on the option path, and
+``python3 chip_smoke.py --profile-fit`` what each stage of a `fit` epoch over
+the loader costs alone, and
+``python3 chip_smoke.py --wgrad-variants`` times the three weight-gradient
+kernels alone, as they are and with other tiling constants; none of these
+prints result lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
 lines are the kernels' JSON report and ``{"ok": true, "device": {...}}``.
 In the report, ``launches`` counts the kernel's launches over its main path
 (phase 6 for the MBConv kernel, the route's steps of phase 7b for the two
-backward kernels, phase 8b-c for the scan and stem kernels), ``max_abs_err``
+backward kernels, phase 8b-c for the scan and stem kernels, the `fit` of
+phase 9 for the tensor-core weight-gradient kernel, the f32 step of phase 9a
+for the CUDA-core one, `wgrad_study` of phase 4b for the loads-alone kernel),
+``max_abs_err``
 is the largest kernel-vs-plain difference of its phase over every shape,
 dtype and output, and ``ms``, ``plain_ms``, ``library_ms``
 and ``bound_ms`` are at the main path's shapes in bf16 at batch 16 (the ten
-launches of one forward for the MBConv kernel).  ``bound_ms`` is the larger
+launches of one forward for the MBConv kernel; the two launches of one train
+step for the tensor-core weight-gradient kernel; f32 at batch 2, the two
+launches of phase 9a's step, for the CUDA-core one).  ``library_ms`` of the
+loads-alone kernel is the library's weight gradient, whose loads it
+reproduces.  ``bound_ms`` is the larger
 of bytes / 3.35 TB/s (every input read once, every output written once) and
 operations / the card's peak for the type (989 TFLOP/s bf16 for matrix
 products, 67 TFLOP/s f32 for stencils and compares).  The scan's bound
@@ -482,6 +519,90 @@ def phase_backward_kernels_vs_plain():
     return reports
 
 
+# (leading axes, Ci, Co): the two layers of the flagship model inside the
+# weight-gradient kernels' envelope (backbone-block0-project, backbone-block1-
+# expand) at batch 16 and at batch 2, then a ragged shape outside the model
+WGRAD_SHAPES = [((16, 240, 320), 32, 16), ((16, 240, 320), 16, 96),
+                ((2, 240, 320), 32, 16), ((2, 240, 320), 16, 96), ((3, 37, 53), 48, 32)]
+# the shapes a kernel's main path gives it: (dtype, indices into WGRAD_SHAPES)
+WGRAD_PATH = {"wgrad_mma": (torch.bfloat16, (0, 1)), "wgrad_fma": (torch.float32, (2, 3)),
+              "wgrad_copy": (torch.bfloat16, (0,))}
+
+
+def phase_wgrad_kernels_vs_plain(card: str):
+    """Phase 4b.  Returns {"wgrad_mma": report, "wgrad_fma": report,
+    "wgrad_copy": report}: timings summed over the shapes of WGRAD_PATH, and
+    the launches of `wgrad_copy` in the study (its main path)."""
+    from ssdseglib_torch.ops import pointwise_wgrad as pw
+
+    kernels = {"wgrad_mma": (pw.wgrad_mma, pw.wgrad_mma_reference),
+               "wgrad_fma": (pw.wgrad_fma, pw.wgrad_fma_reference),
+               "wgrad_copy": (pw.wgrad_copy, pw.wgrad_copy_reference)}
+    reports = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
+                          flops=0.0) for name in kernels}
+    gen = torch.Generator().manual_seed(4)
+    for dtype in (torch.bfloat16, torch.float32):
+        elem = 2 if dtype == torch.bfloat16 else 4
+        for index, (lead, ci, co) in enumerate(WGRAD_SHAPES):
+            x = torch.randn(*lead, ci, generator=gen).to("cuda", dtype)
+            dy = torch.randn(*lead, co, generator=gen).to("cuda", dtype)
+            weight = torch.zeros((co, ci, 1, 1), dtype=dtype, device="cuda")
+            k = x.numel() // ci
+            library_ms = cuda_median_ms(lambda: torch.ops.aten.convolution_backward(
+                dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), weight, None, [1, 1], [0, 0],
+                [1, 1], False, [0, 0], 1, [False, True, False]))
+            for name, (kernel, plain) in kernels.items():
+                if name == "wgrad_mma" and dtype != torch.bfloat16:
+                    continue
+                got = kernel(x, dy)
+                torch.cuda.synchronize()
+                tag = f"{name} {str(dtype)[6:]:8s} {lead} {ci} -> {co}"
+                err = _check_close(tag, got, plain(x, dy), SUM_TOLERANCE, scale_by_max=True)
+                ms = cuda_median_ms(lambda: kernel(x, dy))
+                plain_ms = cuda_median_ms(lambda: plain(x, dy))
+                # products on the tensor cores (mma) or the CUDA cores (fma);
+                # the loads-alone kernel does one add per element
+                flops, rate = {
+                    "wgrad_mma": (2 * k * ci * co, PEAK_FLOPS[torch.bfloat16]),
+                    "wgrad_fma": (2 * k * ci * co, PEAK_FLOPS[torch.float32]),
+                    "wgrad_copy": (k * (ci + co), PEAK_FLOPS[torch.float32])}[name]
+                nbytes = k * (ci + co) * elem + ci * co * 4
+                least, by = bound_ms(nbytes, (flops, rate))
+                log(f"[wgrad] {tag} max_abs_err {err:.3g} | kernel {ms:.4f} ms | plain "
+                    f"{plain_ms:.4f} ms | aten.convolution_backward (weight only) "
+                    f"{library_ms:.4f} ms | bound {least:.4f} ms ({by})")
+                rep = reports[name]
+                rep["max_abs_err"] = max(rep["max_abs_err"], err)
+                path_dtype, path_shapes = WGRAD_PATH[name]
+                if dtype == path_dtype and index in path_shapes:
+                    rep["ms"] += ms
+                    rep["plain_ms"] += plain_ms
+                    rep["library_ms"] += library_ms
+                    rep["bytes"] += nbytes
+                    rep["flops"] += flops
+                    rep["rate"] = rate
+            del x, dy
+            torch.cuda.empty_cache()
+    for rep in reports.values():
+        rep["bound_ms"], rep["bound_by"] = bound_ms(
+            rep.pop("bytes"), (rep.pop("flops"), rep.pop("rate")))
+
+    # the study that chooses the route: the loads-alone kernel's main path
+    lead, ci, co = WGRAD_SHAPES[0]
+    x = torch.randn(*lead, ci, generator=gen).to("cuda", torch.bfloat16)
+    dy = torch.randn(*lead, co, generator=gen).to("cuda", torch.bfloat16)
+    for kernel, _ in kernels.values():
+        kernel.launches = 0
+    study = pw.wgrad_study(x, dy)
+    reports["wgrad_copy"]["launches"] = pw.wgrad_copy.launches
+    log(f"[wgrad-study] {lead} {ci} -> {co} bf16: wgrad_mma off the f32 product by "
+        f"{study['rel_err']:.3g} of the largest magnitude (limit 2e-2)")
+    for arm in ("aten", "dot", "mma", "copy", "fma"):
+        log(f"[wgrad-study] {arm:5s} {study[arm + '_ms']:.4f} ms (CUDA events, median of 20) "
+            f"| {card}")
+    return reports
+
+
 def _builder():
     from ssdseglib_torch.boxes import Anchors
     from ssdseglib_torch.config import reference_warehouse_config
@@ -646,16 +767,47 @@ def _train_batch(batch: int):
     return anchors, model_cfg, images, targets, positives
 
 
-ROUTES = {  # name -> (chain gate, depthwise gate)
-    "aten": ("aten", "aten"), "chain": ("cuda", "aten"), "depthwise": ("aten", "cuda")}
+ROUTES = {  # name -> (chain gate, depthwise gate, weight-gradient gate)
+    "aten": ("aten", "aten", "aten"), "chain": ("cuda", "aten", "aten"),
+    "depthwise": ("aten", "cuda", "aten"), "wgrad-dot": ("aten", "aten", "dot"),
+    "wgrad-cuda": ("aten", "aten", "cuda")}
+BACKWARD_ROUTES = ("aten", "chain", "depthwise")  # phase 7
+WGRAD_ROUTES = ("aten", "wgrad-dot", "wgrad-cuda")  # phase 9
 
 
 def _set_route(name: str) -> None:
     from ssdseglib_torch.models import blocks
 
-    chain_gate, depthwise_gate = ROUTES[name]
+    chain_gate, depthwise_gate, wgrad_gate = ROUTES[name]
     blocks.set_chain_bwd_impl(chain_gate)
     blocks.set_depthwise_bwd_impl(depthwise_gate)
+    blocks.set_wgrad_impl(wgrad_gate)
+
+
+def _routes_agree_f32(tag: str, trainer, batch, routes) -> None:
+    """The loss (1e-5) and every gradient of one f32 step under ``routes``
+    against the first of them: per tensor, the norm of the difference over
+    the tensor's norm (floored at 1e-4 of the largest) within
+    GRADIENT_TOLERANCE."""
+    results = {}
+    for route in routes:
+        _set_route(route)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        metrics, grads, _ = trainer.loss_and_grads(state, *batch)
+        results[route] = float(metrics["loss"]), grads
+    loss_ref, grads_ref = results[routes[0]]
+    floor = 1e-4 * max(float(torch.linalg.vector_norm(g)) for g in grads_ref.values())
+    for route in routes[1:]:
+        loss, grads = results[route]
+        worst = max(
+            float(torch.linalg.vector_norm(grads[k] - grads_ref[k])
+                  / torch.linalg.vector_norm(grads_ref[k]).clamp_min(floor))
+            for k in grads_ref)
+        log(f"[{tag}] f32 b2 route {route}: loss {loss:.6f} vs {routes[0]} {loss_ref:.6f}; "
+            f"largest relative gradient difference of a tensor {worst:.3g} "
+            f"({len(grads_ref)} tensors)")
+        assert abs(loss - loss_ref) <= 1e-5 * abs(loss_ref), (route, loss, loss_ref)
+        assert worst <= GRADIENT_TOLERANCE, (route, worst)
 
 
 def phase_training(card: str):
@@ -677,32 +829,14 @@ def phase_training(card: str):
         trainer = Trainer(model=model, anchors=anchors,
                           config=TrainConfig(batch_size=2, compute_dtype="float32"))
         small = images[:2], {k: v[:2] for k, v in targets.items()}
-        results = {}
-        for route in ROUTES:
-            _set_route(route)
-            state = trainer.init_state(torch.Generator().manual_seed(0))
-            metrics, grads, _ = trainer.loss_and_grads(state, *small)
-            results[route] = float(metrics["loss"]), grads
-        loss_ref, grads_ref = results["aten"]
-        floor = 1e-4 * max(float(torch.linalg.vector_norm(g)) for g in grads_ref.values())
-        for route in ("chain", "depthwise"):
-            loss, grads = results[route]
-            worst = max(
-                float(torch.linalg.vector_norm(grads[k] - grads_ref[k])
-                      / torch.linalg.vector_norm(grads_ref[k]).clamp_min(floor))
-                for k in grads_ref)
-            log(f"[train] f32 b2 route {route}: loss {loss:.6f} vs ATen {loss_ref:.6f}; "
-                f"largest relative gradient difference of a tensor {worst:.3g} "
-                f"({len(grads_ref)} tensors)")
-            assert abs(loss - loss_ref) <= 1e-5 * abs(loss_ref), (route, loss, loss_ref)
-            assert worst <= GRADIENT_TOLERANCE, (route, worst)
-        del results, grads_ref, trainer, state, grads
+        _routes_agree_f32("train", trainer, small, BACKWARD_ROUTES)
+        del trainer
 
         # (b), (c) bf16, batch 16: steps on one batch under each route
         trainer = Trainer(model=model, anchors=anchors,
                           config=TrainConfig(batch_size=BATCH, compute_dtype="bfloat16"))
         launches, report = {}, {}
-        for route in ROUTES:
+        for route in BACKWARD_ROUTES:
             _set_route(route)
             state = trainer.init_state(torch.Generator().manual_seed(0))
             trainer.train_step(state, images, targets)[1]["loss"].item()  # warm-up
@@ -872,6 +1006,328 @@ def phase_option_path(card: str, default_rate: float):
     return launches
 
 
+def _wgrad_layers(model, dtype):
+    """Names of the model's convs whose weight gradient ``set_wgrad_impl(
+    'cuda')`` routes through the kernels: dense 1x1 stride-1 convs inside
+    the envelope."""
+    from ssdseglib_torch.models.blocks import SameConv2d
+    from ssdseglib_torch.ops.conv_backward import reformulated
+    from ssdseglib_torch.ops.pointwise_wgrad import wgrad_applicable
+
+    return [name for name, m in model.named_modules()
+            if isinstance(m, SameConv2d) and reformulated(m.weight, m.stride[0], m.groups)
+            and wgrad_applicable(m.in_channels, m.out_channels, dtype)]
+
+
+FIT_SAMPLES, FIT_EPOCHS = 32, 2
+
+
+def phase_fit(card: str):
+    """Phase 9.  Returns {"wgrad_mma": launches over the two epochs of `fit`,
+    "wgrad_fma": launches over the f32 step of (a)}."""
+    import shutil
+    import tempfile
+
+    from ssdseglib_torch import evaluators
+    from ssdseglib_torch.boxes import Anchors
+    from ssdseglib_torch.checkpoint import Checkpointer
+    from ssdseglib_torch.config import TrainConfig, reference_warehouse_config
+    from ssdseglib_torch.data.pipeline import TrainDataLoader
+    from ssdseglib_torch.data.synthetic import generate_dataset
+    from ssdseglib_torch.models.builder import SsdSegModel
+    from ssdseglib_torch.ops import conv_backward
+    from ssdseglib_torch.ops import pointwise_wgrad as pw
+    from ssdseglib_torch.train import Trainer
+
+    anchors_cfg, enc_cfg, model_cfg, _, _ = reference_warehouse_config()
+    anchors = Anchors.from_config(anchors_cfg, enc_cfg.image_shape)
+    samples = generate_dataset(FIT_SAMPLES, image_shape=enc_cfg.image_shape,
+                               num_classes=enc_cfg.num_classes, seed=0)
+    model = SsdSegModel(model_cfg, torch.Generator().manual_seed(0))
+    layers = _wgrad_layers(model, torch.bfloat16)
+    log(f"[fit] layers inside the weight-gradient kernels' envelope: {layers}")
+    assert layers == _wgrad_layers(model, torch.float32) and len(layers) >= 2, layers
+    config = TrainConfig(batch_size=BATCH, compute_dtype="bfloat16")
+    steps_per_epoch = FIT_SAMPLES // BATCH
+    directory = tempfile.mkdtemp(prefix="ssdseg_smoke_ckpt_")
+    try:
+        def loader():
+            return TrainDataLoader(samples, anchors, enc_cfg, batch_size=BATCH,
+                                   augmentation_horizontal_flip=True, augmentation_rgb=True,
+                                   seed=0)
+
+        # the run: loader -> fit (transform on the card) -> checkpoints
+        _set_route("wgrad-cuda")
+        trainer = Trainer(model=model, anchors=anchors, config=config)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        checkpointer = Checkpointer(directory)
+        logs = []
+        for counter in (pw.wgrad_mma, pw.wgrad_fma, pw.wgrad_copy):
+            counter.launches = 0  # the main path starts here
+        conv_backward.conv2d_fast_wgrad.copies = 0
+        state, history = trainer.fit(state, loader(), epochs=FIT_EPOCHS,
+                                     checkpointer=checkpointer, log_fn=logs.append)
+        mma_launches = pw.wgrad_mma.launches
+        for line in logs:
+            log(f"[fit] {line}")
+        steps = FIT_EPOCHS * steps_per_epoch
+        assert state.step == steps, state.step
+        assert mma_launches == len(layers) * steps, (mma_launches, layers, steps)
+        assert pw.wgrad_fma.launches == 0 and pw.wgrad_copy.launches == 0
+        assert conv_backward.conv2d_fast_wgrad.copies == 0, "hidden layout copies"
+        losses = history["loss"]
+        assert len(losses) == FIT_EPOCHS and all(np.isfinite(losses)), losses
+        assert losses[-1] < losses[0], losses
+        assert checkpointer.all_steps() == [steps_per_epoch * (e + 1) for e in range(FIT_EPOCHS)]
+        log(f"[fit] {FIT_EPOCHS} epochs of {steps_per_epoch} steps under set_wgrad_impl('cuda'): "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, wgrad_mma launches {mma_launches} = "
+            f"{len(layers)} layers x {steps} steps, checkpoints at steps "
+            f"{checkpointer.all_steps()}")
+
+        # resume: another trainer, other weights, restored to the saved state
+        resumed = Trainer(model=model, anchors=anchors, config=config)
+        other = resumed.init_state(torch.Generator().manual_seed(1))
+        restored = Checkpointer(directory).restore(other)
+        assert restored.step == steps
+        for name, saved, back in (
+                ("params", state.params, restored.params),
+                ("batch_stats", state.batch_stats, restored.batch_stats),
+                ("mu", state.opt_state.mu, restored.opt_state.mu),
+                ("nu", state.opt_state.nu, restored.opt_state.nu)):
+            for k, v in saved.items():
+                assert back[k].dtype == v.dtype and torch.equal(back[k], v), (name, k)
+        logs = []
+        other, more = resumed.fit(other, loader(), epochs=1, resume=True,
+                                  checkpointer=Checkpointer(directory), log_fn=logs.append)
+        assert logs[0] == f"resumed from checkpoint step {steps}", logs
+        assert other.step == steps + steps_per_epoch and np.isfinite(more["loss"][0])
+        log(f"[fit] resume: state of step {steps} restored bit for bit into a second Trainer, "
+            f"one more epoch to step {other.step}, loss {more['loss'][0]:.4f}")
+        del resumed, restored
+
+        # the evaluators on the trained model's predictions
+        builder, _, nms = _builder()
+        trained = SsdSegModel(model_cfg, torch.Generator().manual_seed(0))
+        trained.load_state_dict({k: v.cpu() for k, v in other.variables().items()},
+                                strict=False)
+        infer = builder.get_model_for_inference(
+            model_trained=trained.to("cuda"), compute_dtype="float32", device="cuda", **nms)
+        held = samples[:BATCH]
+        masks, detections = infer.predict(np.stack([s.image for s in held]))
+        masks, detections = np.asarray(masks, np.float32), np.asarray(detections, np.float32)
+        codes = list(range(enc_cfg.num_classes))
+        ap = evaluators.average_precision_object_detection(
+            detections[..., 0].astype(np.int32), detections[..., 1], detections[..., 2:6], 0.5,
+            [(s.labels, s.boxes) for s in held], codes, 0)
+        iou = evaluators.jaccard_iou_semantic_segmentation(
+            masks, [s.mask for s in held], codes, 0)
+        assert all(np.isfinite(v) for v in (*ap.values(), *iou.values())), (ap, iou)
+        log(f"[fit] evaluators on {len(held)} samples after {other.step} steps: AP@0.5 {ap}, "
+            f"soft IoU {iou}")
+        del infer, trained
+
+        # (a) f32, batch 2: one step under the three gates
+        _, _, images, targets, _ = _train_batch(BATCH)
+        small = images[:2], {k: v[:2] for k, v in targets.items()}
+        trainer32 = Trainer(model=model, anchors=anchors,
+                            config=TrainConfig(batch_size=2, compute_dtype="float32"))
+        pw.wgrad_fma.launches = 0  # the CUDA-core kernel's main path starts here
+        _routes_agree_f32("fit", trainer32, small, WGRAD_ROUTES)
+        fma_launches = pw.wgrad_fma.launches
+        assert fma_launches == len(layers), (fma_launches, layers)
+        del trainer32
+
+        # (b) bf16, batch 16: the step under the three gates, then a fit epoch
+        report = {}
+        for route in WGRAD_ROUTES:
+            _set_route(route)
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+            trainer.train_step(state, images, targets)[1]["loss"].item()  # warm-up
+            times = []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                trainer.train_step(state, images, targets)[1]["loss"].item()  # the fence
+                times.append((time.perf_counter() - t0) * 1e3)
+            report[route] = statistics.median(times)
+            log(f"[fit] bf16 b16 gate {ROUTES[route][2]}: step {report[route]:.3f} ms (median of "
+                f"{TRAIN_STEPS}, fetch-fenced), {BATCH / report[route] * 1e3:.2f} images/s "
+                f"| {card}")
+        # the run's own epoch (2 steps), and a longer one over the same samples
+        # four times (8 steps, one staged chunk), where start-up weighs less
+        _set_route("wgrad-cuda")
+        for repeat in (1, 4):
+            data = TrainDataLoader(samples * repeat, anchors, enc_cfg, batch_size=BATCH,
+                                   augmentation_horizontal_flip=True, augmentation_rgb=True,
+                                   seed=0)
+            rates = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                trainer.fit(state, data, epochs=1, log_fn=lambda line: None)
+                rates.append(len(data) * BATCH / (time.perf_counter() - t0))
+            log(f"[fit] fit epoch of {len(data)} steps over TrainDataLoader (flip and rgb, "
+                f"transform on the card, gate cuda), rounds: {[round(r, 2) for r in rates]} "
+                f"images/s, median {statistics.median(rates):.2f} | bare step under the same "
+                f"gate {BATCH / report['wgrad-cuda'] * 1e3:.2f} images/s | {card}")
+        return {"wgrad_mma": mma_launches, "wgrad_fma": fma_launches}
+    finally:
+        _set_route("aten")
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+# (rows a warp stages per step, most CTAs, rows a CTA stages per step) of
+# csrc/pointwise_wgrad.cu: the source's values first, then the alternatives
+WGRAD_VARIANTS = [(16, 528, 64), (32, 528, 64), (64, 528, 64), (16, 264, 64), (16, 1056, 64),
+                  (32, 792, 64), (16, 528, 128), (16, 528, 32)]
+
+
+def wgrad_variants(card: str, rounds: int = 2, launches: int = 50) -> None:
+    """``python3 chip_smoke.py --wgrad-variants``: the three weight-gradient
+    kernels ALONE (their C launchers called directly, ``launches`` of them
+    between two CUDA events, so the host's wrapper time is out of the
+    reading) at the two layers of the envelope in bf16 at batch 16, for the
+    source as it is and for copies of it with other tiling constants, each
+    built into a library of its own under the build directory."""
+    import ctypes
+    import re
+
+    from ssdseglib_torch.ops import _cuda_build
+
+    source = (_cuda_build.SOURCES[-1]).read_text()
+    assert _cuda_build.SOURCES[-1].name == "pointwise_wgrad.cu"
+    header = str(_cuda_build.HEADERS[0])
+    flags = [f for f in _cuda_build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    builds = {}
+    for rows, ctas, chunk in WGRAD_VARIANTS:
+        text = source.replace('#include "common.cuh"', f'#include "{header}"')
+        for constant, value in (("kWarpRows", rows), ("kMaxCtas", ctas), ("kChunkRows", chunk)):
+            text, n = re.subn(rf"constexpr int {constant} = \d+;",
+                              f"constexpr int {constant} = {value};", text)
+            assert n == 1, constant
+        base = _cuda_build.BUILD_DIR / f"wgrad_variant_r{rows}_c{ctas}_k{chunk}"
+        base.with_suffix(".cu").write_text(text)
+        builds[(rows, ctas, chunk)] = (base.with_suffix(".so"), subprocess.Popen(
+            [_cuda_build.find_nvcc(), *flags, "-shared", "-o", str(base.with_suffix(".so")),
+             str(base.with_suffix(".cu"))], stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for variant, (path, proc) in builds.items():
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {variant}:\n{stderr}")
+        lib = ctypes.CDLL(str(path))
+        lib.pointwise_wgrad_ctas.argtypes = [ctypes.c_longlong]
+        lib.pointwise_wgrad_launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                                               + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                                               + [ctypes.c_void_p])
+        libs[variant] = lib
+    gen = torch.Generator().manual_seed(4)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(rounds):
+        for variant, lib in libs.items():
+            cells = []
+            for lead, ci, co in WGRAD_SHAPES[:2]:
+                x = torch.randn(*lead, ci, generator=gen).to("cuda", torch.bfloat16)
+                dy = torch.randn(*lead, co, generator=gen).to("cuda", torch.bfloat16)
+                k = x.numel() // ci
+                want = x.reshape(k, ci).float().t() @ dy.reshape(k, co).float()
+                partials = torch.empty(lib.pointwise_wgrad_ctas(k), ci, co, device="cuda")
+                dw = torch.empty(ci, co, device="cuda")
+                for kernel, name in enumerate(("mma", "fma", "copy")):
+                    def launch():
+                        err = lib.pointwise_wgrad_launch(
+                            kernel, 1, x.data_ptr(), dy.data_ptr(), partials.data_ptr(),
+                            dw.data_ptr(), k, ci, co, stream)
+                        assert err == 0, (variant, name, err)
+
+                    for _ in range(5):
+                        launch()
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    for _ in range(launches):
+                        launch()
+                    end.record()
+                    end.synchronize()
+                    if name != "copy":
+                        _check_close(f"variant {variant} {name}", dw, want, SUM_TOLERANCE,
+                                     scale_by_max=True)
+                    cells.append(f"{name} {ci}->{co} {start.elapsed_time(end) / launches:.4f}")
+            log(f"[wgrad-variants] rows/warp step, CTAs, rows/CTA step {variant}: "
+                f"{' | '.join(cells)} ms, kernel alone | {card}")
+
+
+def profile_fit(card: str, steps: int = 8) -> None:
+    """``python3 chip_smoke.py --profile-fit``: what each stage of a `fit`
+    epoch over the loader costs at bf16 b16 (default gates), each timed alone
+    over ``steps`` batches: the loader's raw host batches, the pinned upload,
+    the transform on the card (host time to enqueue it, and its device time
+    by CUDA events), the bare step on a fixed batch, the fused step on
+    batches already on the card, and the whole `fit` epoch, staged in chunks
+    of 8 as `fit` does and, for comparison, batch by batch."""
+    from ssdseglib_torch.boxes import Anchors
+    from ssdseglib_torch.config import TrainConfig, reference_warehouse_config
+    from ssdseglib_torch.data.pipeline import TrainDataLoader, upload_batch
+    from ssdseglib_torch.data.synthetic import generate_dataset
+    from ssdseglib_torch.models.builder import SsdSegModel
+    from ssdseglib_torch.train import Trainer
+
+    anchors_cfg, enc_cfg, model_cfg, _, _ = reference_warehouse_config()
+    anchors = Anchors.from_config(anchors_cfg, enc_cfg.image_shape)
+    samples = generate_dataset(FIT_SAMPLES, image_shape=enc_cfg.image_shape,
+                               num_classes=enc_cfg.num_classes, seed=0)
+    loader = TrainDataLoader(samples * (steps * BATCH // FIT_SAMPLES), anchors, enc_cfg,
+                             batch_size=BATCH, augmentation_horizontal_flip=True,
+                             augmentation_rgb=True, seed=0)
+    trainer = Trainer(model=SsdSegModel(model_cfg, torch.Generator().manual_seed(0)),
+                      anchors=anchors,
+                      config=TrainConfig(batch_size=BATCH, compute_dtype="bfloat16"))
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    device = torch.device("cuda")
+
+    def per_step_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    trainer.fit(state, loader, epochs=1, log_fn=lambda line: None)  # warm-up
+    raw = []
+    loader_ms = per_step_ms(lambda: raw.extend(loader.iter_raw()))
+    assert len(raw) == steps
+    staged = []
+    upload_ms = per_step_ms(
+        lambda: staged.extend((rng, upload_batch(b, device)) for rng, b in raw))
+    ready = []
+    transform_device_ms = cuda_median_ms(
+        lambda: ready.append(loader.transform(staged[0][0], *staged[0][1])), runs=steps)
+    del ready[:]
+    transform_host_ms = per_step_ms(
+        lambda: ready.extend(loader.transform(rng, *batch) for rng, batch in staged))
+    images, targets = ready[0]
+    step_ms = per_step_ms(lambda: [trainer.train_step(state, images, targets)
+                                   for _ in range(steps)])
+    fused = trainer.fused_train_step_fn(loader.transform)
+    fused_ms = per_step_ms(lambda: [fused(state, rng, *batch) for rng, batch in staged])
+    # the whole epoch, staged in chunks of 8 (as `fit` does) and batch by batch
+    # (chunks of 1), in turns: 8, 1, 1, 8
+    chunked = trainer._staged
+    fit_ms = {8: [], 1: []}
+    for chunk_size in (8, 1, 1, 8):
+        trainer._staged = lambda raw_iter, n=chunk_size: chunked(raw_iter, chunk_size=n)
+        fit_ms[chunk_size].append(per_step_ms(
+            lambda: trainer.fit(state, loader, epochs=1, log_fn=lambda line: None)))
+    trainer._staged = chunked
+    log(f"[profile-fit] bf16 b16, {steps} steps, ms per step: loader alone (host batches) "
+        f"{loader_ms:.3f} | pinned upload {upload_ms:.3f} | transform alone "
+        f"{transform_host_ms:.3f} (its device time {transform_device_ms:.3f}) | bare step on "
+        f"one batch {step_ms:.3f} | fused step on uploaded batches {fused_ms:.3f} | fit epoch, "
+        f"run in turns: staged in chunks of 8 (as fit does) "
+        f"{[round(t, 3) for t in fit_ms[8]]} = "
+        f"{[round(BATCH / t * 1e3, 2) for t in fit_ms[8]]} images/s, in chunks of 1 "
+        f"{[round(t, 3) for t in fit_ms[1]]} = "
+        f"{[round(BATCH / t * 1e3, 2) for t in fit_ms[1]]} images/s, against "
+        f"{BATCH / step_ms * 1e3:.2f} for the bare step | {card}")
+
+
 def _log_device_profile(tag: str, prof, wall_ms: float, steps: int, card: str, own) -> None:
     """Device kernel time by name from a torch.profiler run over ``steps``
     steps: the top 25 kernels and the port's own (names in ``own``)."""
@@ -944,7 +1400,8 @@ def profile_training(card: str, route: str, steps: int = 6) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     finally:
         _set_route("aten")
-    own = ("chain_bwd_kernel", "chain_sums_kernel", "dw_bwd_kernel", "reduce_partials_kernel")
+    own = ("chain_bwd_kernel", "chain_sums_kernel", "dw_bwd_kernel", "reduce_partials_kernel",
+           "wgrad_mma_kernel", "wgrad_fma_kernel", "wgrad_copy_kernel")
     _log_device_profile(f"route {route}", prof, wall_ms, steps, card, own)
 
 
@@ -956,6 +1413,12 @@ def main() -> None:
     if "--profile-serve" in sys.argv:
         profile_serving(card)
         return
+    if "--profile-fit" in sys.argv:
+        profile_fit(card)
+        return
+    if "--wgrad-variants" in sys.argv:
+        wgrad_variants(card)
+        return
     if "--profile-train" in sys.argv:
         routes = [a for a in sys.argv[1:] if a in ROUTES] or list(ROUTES)
         for route in routes:
@@ -965,6 +1428,7 @@ def main() -> None:
     scan = phase_scan_kernel_vs_plain()
     stem = phase_stem_kernel_vs_plain()
     backward = phase_backward_kernels_vs_plain()
+    wgrad = phase_wgrad_kernels_vs_plain(card)
     phase_whole_path_parity()
     mbconv["launches"], default_rate = phase_serving(card)
     train_launches = phase_training(card)
@@ -972,6 +1436,9 @@ def main() -> None:
     backward["chain_backward"]["launches"] = train_launches["chain"]
     option_launches = phase_option_path(card, default_rate)
     scan["launches"], stem["launches"] = option_launches["scan"], option_launches["stem"]
+    fit_launches = phase_fit(card)
+    wgrad["wgrad_mma"]["launches"] = fit_launches["wgrad_mma"]
+    wgrad["wgrad_fma"]["launches"] = fit_launches["wgrad_fma"]
     described = {
         "fused_mbconv": ("ssdseglib_torch/csrc/fused_mbconv.cu",
                          "ssdseglib_tpu/ops/fused_mbconv.py:48", mbconv),
@@ -985,6 +1452,12 @@ def main() -> None:
                      "ssdseglib_tpu/ops/nms_pallas.py:27", scan),
         "stem_block1": ("ssdseglib_torch/csrc/s2d_stem.cu",
                         "ssdseglib_tpu/ops/s2d_stem.py:154", stem),
+        "wgrad_mma": ("ssdseglib_torch/csrc/pointwise_wgrad.cu",
+                      "tests/tpu_scripts/mosaic_reshape_probe.py:26", wgrad["wgrad_mma"]),
+        "wgrad_fma": ("ssdseglib_torch/csrc/pointwise_wgrad.cu",
+                      "tests/tpu_scripts/mosaic_reshape_probe.py:80", wgrad["wgrad_fma"]),
+        "wgrad_copy": ("ssdseglib_torch/csrc/pointwise_wgrad.cu",
+                       "tests/tpu_scripts/mosaic_reshape_probe.py:53", wgrad["wgrad_copy"]),
     }
     for name, (_, _, report) in described.items():
         if report["launches"] < 1:

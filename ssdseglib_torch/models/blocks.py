@@ -14,9 +14,10 @@ Activation convention (``relu_max``): None = no activation, 0.0 = uncapped
 ReLU, x > 0 = ReLU capped at x.
 
 Train mode follows Flax: `FlaxBatchNorm2d` keeps the BIASED batch variance in
-``running_var``.  Two module-level gates, named as in the JAX package, choose
-the backward route of the depthwise layers inside the envelope
-(`set_depthwise_bwd_impl`, `set_chain_bwd_impl`).
+``running_var``.  Three module-level gates, named as in the JAX package,
+choose a backward route: of the depthwise layers inside the envelope
+(`set_depthwise_bwd_impl`, `set_chain_bwd_impl`) and of the weight gradient
+of the dense convs (`set_wgrad_impl`).
 """
 
 from __future__ import annotations
@@ -65,6 +66,26 @@ def set_chain_bwd_impl(impl: str) -> None:
     if impl not in ("aten", "cuda"):
         raise ValueError(f"chain bwd impl must be 'aten' or 'cuda', got {impl!r}")
     CHAIN_BWD_IMPL = impl
+
+
+# Weight-gradient route of every dense (groups = 1) model conv: 'aten' = the
+# ATen/cuDNN autograd of the conv; 'dot' and 'cuda' route the conv through
+# ops/conv_backward.conv2d_fast_wgrad, whose forward and input gradient stay
+# the library's.  There the weight gradient of 1x1 stride-1 convs is one
+# giant-K library product with an f32 result ('dot'), or the hand-written
+# split-K kernels of ops/pointwise_wgrad inside their envelope
+# (wgrad_applicable -- in the flagship model backbone-block0-project and
+# backbone-block1-expand), the ATen rule outside it ('cuda').  Parameter
+# names, shapes and forward values do not depend on the gate.  Opt-in.
+# Read at every forward.
+WGRAD_IMPL = "aten"
+
+
+def set_wgrad_impl(impl: str) -> None:
+    global WGRAD_IMPL
+    if impl not in ("aten", "dot", "cuda"):
+        raise ValueError(f"wgrad impl must be 'aten', 'dot' or 'cuda', got {impl!r}")
+    WGRAD_IMPL = impl
 
 
 def same_pad(size: int, kernel: int, stride: int, dilation: int) -> Tuple[int, int]:
@@ -154,6 +175,17 @@ def depthwise_conv(conv: "SameConv2d", x: torch.Tensor) -> torch.Tensor:
     return conv(x)
 
 
+def dense_conv(conv: "SameConv2d", x: torch.Tensor) -> torch.Tensor:
+    """A dense (groups = 1) `SameConv2d` applied through the selected
+    weight-gradient route (WGRAD_IMPL)."""
+    if WGRAD_IMPL == "aten":
+        return conv(x)
+    from ssdseglib_torch.ops.conv_backward import conv2d_fast_wgrad
+
+    return conv2d_fast_wgrad(x, conv.weight, conv.bias, conv.stride[0], conv.dilation[0],
+                             conv.groups, impl=WGRAD_IMPL)
+
+
 class SameConv2d(nn.Conv2d):
     """``nn.Conv2d`` (no bias) with SAME padding."""
 
@@ -179,7 +211,7 @@ class ConvBN(nn.Module):
         self.relu_max = relu_max
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_relu(self.batchnorm(self.conv(x)), self.relu_max)
+        return apply_relu(self.batchnorm(dense_conv(self.conv, x)), self.relu_max)
 
 
 class DepthwiseConvBN(nn.Module):
@@ -234,7 +266,7 @@ class SepConvBN(nn.Module):
         self.relu_max = relu_max
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.pointwise(depthwise_conv(self.depthwise, x))
+        x = dense_conv(self.pointwise, depthwise_conv(self.depthwise, x))
         return apply_relu(self.batchnorm(x), self.relu_max)
 
 

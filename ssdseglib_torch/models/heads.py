@@ -20,6 +20,7 @@ from ssdseglib_torch.models.blocks import (
     SameConv2d,
     SepConvBN,
     bilinear_resize,
+    dense_conv,
 )
 
 
@@ -120,6 +121,6 @@ class DeepLabV3PlusDecoder(nn.ModuleDict):
         encoder = bilinear_resize(encoder, skip.shape[2], skip.shape[3])
         skip = self["backbone-reduce"](skip)
         x = self["conv"](torch.cat([encoder, skip], dim=1))
-        x = self["output-conv"](self["sepconv"](x))
+        x = dense_conv(self["output-conv"], self["sepconv"](x))
         x = bilinear_resize(x, *self.output_height_width)
         return torch.softmax(x, dim=1)

@@ -27,6 +27,7 @@ SOURCES = (
     _CSRC / "fused_chain_backward.cu",
     _CSRC / "nms_scan.cu",
     _CSRC / "s2d_stem.cu",
+    _CSRC / "pointwise_wgrad.cu",
 )
 HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = _PKG / "build"
@@ -152,5 +153,12 @@ def load_library() -> ctypes.CDLL:
         [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 3 + [ptr]
     )
     lib.stem_block1_launch.restype = ctypes.c_int
+    lib.pointwise_wgrad_ctas.argtypes = [ctypes.c_longlong]
+    lib.pointwise_wgrad_ctas.restype = ctypes.c_int
+    # (kernel, dtype, x, dy, partials, dw, K, Ci, Co, stream)
+    lib.pointwise_wgrad_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ptr] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ptr]
+    )
+    lib.pointwise_wgrad_launch.restype = ctypes.c_int
     _lib = lib
     return lib

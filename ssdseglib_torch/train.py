@@ -16,9 +16,15 @@ ssdseglib_tpu/train.py.
 `TrainState` is updated IN PLACE by `train_step` (the JAX package donates
 its state to the step, so there too the old state is gone after the call).
 
+`fit` takes plain (images, targets) batches or a loader that exposes its raw
+host batches and its device-side transform (``data/pipeline.TrainDataLoader``):
+then the transform runs inside the step, on raw batches uploaded in chunks
+through pinned memory, and the host never waits for the device inside an
+epoch.  With a ``checkpointer`` the state is saved after every epoch and
+``resume=True`` restarts from the latest step.
+
 Not ported yet, and refused by `fit` rather than ignored: ``mesh`` (data
-parallelism), ``checkpointer`` / ``resume``, and loaders that expose a raw
-iterator plus a device-side transform (the transform-fused steps).
+parallelism).
 """
 
 from __future__ import annotations
@@ -186,6 +192,7 @@ class Trainer:
         self._stat_names = [
             name for name, _ in self._net.named_buffers() if name.endswith(_STATS)
         ]
+        self._fused_steps: Dict[Tuple[str, int], Tuple[Callable, Callable]] = {}
 
     # -- state ------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None,
@@ -443,6 +450,53 @@ class Trainer:
                 (m2_sum / n - e_mean * e_mean).clamp_min(0.0))
         return state
 
+    # -- transform-fused steps ---------------------------------------------
+    # A loader's device-side transform (flip / color / one-hot / anchor
+    # matching) and the step as one call on a raw uploaded batch.  PyTorch
+    # runs eagerly, so nothing is compiled together: what the fusion buys
+    # here is that the loader hands over raw uint8 batches (a quarter of the
+    # bytes of f32 images, no targets) and the caller decides when they are
+    # uploaded.
+
+    def _fused_step_fn(self, kind: str, transform: Callable, inner: Callable) -> Callable:
+        # the cache holds a strong reference to the transform so its id()
+        # stays valid for the lifetime of the cached entry (a freed id can
+        # be reused by CPython and would alias a different transform)
+        key = (kind, id(transform))
+        if key not in self._fused_steps:
+            def fused(state: TrainState, rng, *raw_batch):
+                images, targets = transform(rng, *raw_batch)
+                return inner(state, images, targets)
+
+            self._fused_steps[key] = (transform, fused)
+        return self._fused_steps[key][1]
+
+    def fused_train_step_fn(self, transform: Callable) -> Callable:
+        """``fused(state, generator, *raw_batch) -> (state, metrics)``."""
+        return self._fused_step_fn("train", transform, self.train_step)
+
+    def fused_eval_step_fn(self, transform: Callable) -> Callable:
+        """``fused(state, generator, *raw_batch) -> metrics``."""
+        return self._fused_step_fn("eval", transform, self.eval_step)
+
+    def _staged(self, raw_iter, chunk_size: int = 8):
+        """Chunked host -> device staging for fused steps: ``chunk_size`` raw
+        host batches are buffered, then uploaded together (pinned staging,
+        non-blocking copies) and their steps dispatched back to back.  The
+        copies are queued on the current stream, behind the steps of the
+        chunk before: the stream's order is the fence on the last metric
+        that the JAX package has to ask for, and the host waits for
+        nothing."""
+        from ssdseglib_torch.data.pipeline import upload_batch
+
+        buf = []
+        for item in raw_iter:
+            buf.append(item)
+            if len(buf) >= chunk_size:
+                yield from [(rng, upload_batch(b, self.device)) for rng, b in buf]
+                buf = []
+        yield from [(rng, upload_batch(b, self.device)) for rng, b in buf]
+
     # -- loop -------------------------------------------------------------
     def fit(
         self,
@@ -460,31 +514,43 @@ class Trainer:
         """Epoch loop over (images, targets) batches.
 
         `train_data` / `validation_data` are callables returning a fresh
-        iterator per epoch, or re-iterable objects.  Metrics accumulate on
-        the device; the host reads them once per epoch.
+        iterator per epoch, or re-iterable objects; loaders exposing
+        ``iter_raw`` and ``transform`` (`TrainDataLoader`) run through the
+        transform-fused steps.  Metrics accumulate on the device; the host
+        reads them once per epoch.  With a ``checkpointer`` the state is
+        saved after every epoch; with ``resume=True`` and a checkpointer
+        holding a prior step, training restarts from the latest checkpoint.
         """
-        for name, value in (("mesh", mesh), ("checkpointer", checkpointer)):
-            if value is not None:
-                raise NotImplementedError(f"fit({name}=...) is not ported yet")
-        if resume:
-            raise NotImplementedError("fit(resume=True) needs a checkpointer")
-        for data in (train_data, validation_data):
-            if hasattr(data, "iter_raw") and hasattr(data, "transform"):
-                raise NotImplementedError(
-                    "loaders with a device-side transform (transform-fused "
-                    "steps) are not ported yet; pass (images, targets) batches"
-                )
+        if mesh is not None:
+            raise NotImplementedError("fit(mesh=...) is not ported yet")
         epochs = epochs or self.config.epochs
-        history: Dict[str, list] = {}
+        if resume and checkpointer is not None:
+            latest = checkpointer.latest_step()
+            if latest is not None:
+                state = checkpointer.restore(state)
+                log_fn(f"resumed from checkpoint step {latest}")
 
-        def _epoch_iter(data):
-            return data() if callable(data) else data
+        def _epoch(data, step: Callable, fused_step_fn: Callable) -> Callable:
+            """A generator function over what ``step`` returns for each batch
+            of one epoch of ``data``."""
+            if hasattr(data, "iter_raw") and hasattr(data, "transform"):
+                fused = fused_step_fn(data.transform)
 
-        def _run(step, data, limit):
+                def run():
+                    for rng, batch in self._staged(data.iter_raw()):
+                        yield fused(state, rng, *batch)
+            else:
+                def run():
+                    for images, targets in (data() if callable(data) else data):
+                        yield step(state, images, targets)
+            return run
+
+        def _run(metrics_of_steps, limit: Optional[int]):
+            # accumulate metrics ON DEVICE: a float() per step would force a
+            # device sync that serializes host decode / transfer / compute
             agg: Dict[str, torch.Tensor] = {}
             n = 0
-            for images, targets in _epoch_iter(data):
-                metrics = step(images, targets)
+            for metrics in metrics_of_steps:
                 n += 1
                 for k, v in metrics.items():
                     agg[k] = v if k not in agg else agg[k] + v
@@ -492,15 +558,17 @@ class Trainer:
                     break
             return agg, n
 
+        train_epoch = _epoch(train_data, self.train_step, self.fused_train_step_fn)
+        if validation_data is not None:
+            eval_epoch = _epoch(validation_data, self.eval_step, self.fused_eval_step_fn)
+        history: Dict[str, list] = {}
         for epoch in range(epochs):
             t0 = time.perf_counter()
-            agg, n = _run(lambda i, t: self.train_step(state, i, t)[1], train_data,
-                          steps_per_epoch)
+            agg, n = _run((metrics for _, metrics in train_epoch()), steps_per_epoch)
             for k in agg:
                 history.setdefault(k, []).append(float(agg[k]) / max(n, 1))
             if validation_data is not None:
-                vagg, vn = _run(lambda i, t: self.eval_step(state, i, t),
-                                validation_data, None)
+                vagg, vn = _run(eval_epoch(), None)
                 for k in vagg:
                     history.setdefault(f"val_{k}", []).append(float(vagg[k]) / max(vn, 1))
 
@@ -514,4 +582,12 @@ class Trainer:
             log_fn(msg)
             if metrics_logger is not None:
                 metrics_logger.log({k: v[-1] for k, v in history.items()}, step=state.step)
+            if checkpointer is not None:
+                checkpointer.save(state.step, state)
+
+        if checkpointer is not None and hasattr(checkpointer, "wait_until_finished"):
+            # a checkpointer may write in the background: fence before
+            # returning so a process that exits right after fit() cannot lose
+            # the final epoch's checkpoint
+            checkpointer.wait_until_finished()
         return state, history

@@ -17,13 +17,14 @@ Flax has no counterpart for) is 0 on the way in and dropped on the way out.
 Any mapping keyed like the parameters crosses the same way: a dict of
 gradients, or Adam's moments (`moments_to_flax` / `moments_from_flax`, the
 shape of ``optax``'s ``mu`` and ``nu`` trees), so a training comparison can
-hold every tensor of a step against the JAX package's.
+hold every tensor of a step against the JAX package's.  A whole training
+state crosses with `train_state_to_flax` / `train_state_from_flax`.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -37,14 +38,14 @@ _TO_TORCH = {
 }
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     """Nested Flax variables, or the flat '/'-joined mapping that
     ``checkpoint.save_params_npz`` writes, as a flat '/'-keyed dict."""
     flat = {}
     for key, value in tree.items():
         path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(value, Mapping):
-            flat.update(_flatten(value, path))
+            flat.update(flatten(value, path))
         else:
             flat[path] = np.asarray(value)
     return flat
@@ -54,7 +55,7 @@ def from_flax_variables(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """Flax variables ({'params', 'batch_stats'} tree or npz mapping) ->
     PyTorch state_dict."""
     state = OrderedDict()
-    for path, value in _flatten(tree).items():
+    for path, value in flatten(tree).items():
         collection, *modules, leaf = path.split("/")
         if collection not in ("params", "batch_stats") or leaf not in _TO_TORCH:
             raise ValueError(f"unexpected Flax variable {path!r}")
@@ -108,3 +109,41 @@ def moments_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """A ``params``-shaped tree (``optax``'s ``mu`` / ``nu``, or gradients)
     -> tensors keyed by ``state_dict`` names."""
     return from_flax_variables({"params": tree})
+
+
+def train_state_to_flax(state: Any) -> Dict[str, Any]:
+    """A ``train.TrainState`` as {'step', 'params', 'batch_stats', 'mu', 'nu'}:
+    the step as an int and four NumPy trees shaped like the JAX package's
+    ``TrainState`` fields (``mu`` and ``nu`` like the moments of
+    ``optax.adam``'s state; bfloat16 comes out as f32)."""
+    variables = to_flax_variables(state.variables())
+    return {
+        "step": int(state.step),
+        "params": variables["params"],
+        "batch_stats": variables["batch_stats"],
+        "mu": moments_to_flax(state.opt_state.mu),
+        "nu": moments_to_flax(state.opt_state.nu),
+    }
+
+
+def train_state_from_flax(tree: Mapping[str, Any], state: Any) -> Any:
+    """Fill the ``train.TrainState`` ``state`` IN PLACE from the fields of
+    the JAX package's state (as `train_state_to_flax` gives them: trees of
+    NumPy values) and return it; every tensor keeps its device, dtype and
+    layout."""
+    variables = from_flax_variables(
+        {"params": tree["params"], "batch_stats": tree["batch_stats"]})
+    sources = {
+        "params": variables, "batch_stats": variables,
+        "mu": moments_from_flax(tree["mu"]), "nu": moments_from_flax(tree["nu"]),
+    }
+    targets = {
+        "params": state.params, "batch_stats": state.batch_stats,
+        "mu": state.opt_state.mu, "nu": state.opt_state.nu,
+    }
+    with torch.no_grad():
+        for name, tensors in targets.items():
+            for key, tensor in tensors.items():
+                tensor.copy_(sources[name][key])
+    state.step = int(tree["step"])
+    return state

@@ -37,6 +37,15 @@ SLICE_MODULES = (
     "ssdseglib_torch.ops.nms_scan",
     "ssdseglib_torch.ops.s2d_stem",
     "ssdseglib_torch.utils.serving",
+    "ssdseglib_torch.ops.pointwise_wgrad",
+    "ssdseglib_torch.ops.conv_backward",
+    "ssdseglib_torch.ops.color",
+    "ssdseglib_torch.datacoder",
+    "ssdseglib_torch.utils.sample_cache",
+    "ssdseglib_torch.utils.logging",
+    "ssdseglib_torch.evaluators",
+    "ssdseglib_torch.data.pipeline",
+    "ssdseglib_torch.checkpoint",
 )
 
 
@@ -112,7 +121,7 @@ def test_every_module_of_the_port_is_listed():
 
 
 def test_kernel_sources_and_build_name_the_library():
-    """The five CUDA sources and the shared header exist where `_cuda_build`
+    """The six CUDA sources and the shared header exist where `_cuda_build`
     looks for them, and the missing-compiler message names the library."""
     import pytest
 
@@ -120,7 +129,7 @@ def test_kernel_sources_and_build_name_the_library():
 
     names = sorted(p.name for p in _cuda_build.SOURCES)
     assert names == ["depthwise_backward.cu", "fused_chain_backward.cu", "fused_mbconv.cu",
-                     "nms_scan.cu", "s2d_stem.cu"]
+                     "nms_scan.cu", "pointwise_wgrad.cu", "s2d_stem.cu"]
     for path in _cuda_build.SOURCES + _cuda_build.HEADERS:
         assert path.is_file(), path
     if _cuda_build.shutil.which("nvcc") is None and not os.path.exists(

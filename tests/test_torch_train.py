@@ -538,11 +538,16 @@ def test_fit_history_keys_and_refusals(jax_side, batch):
         def iter_raw(self):
             return iter(())
 
-    for kwargs in (dict(mesh=object()), dict(checkpointer=object()), dict(resume=True)):
-        with pytest.raises(NotImplementedError):
-            trainer.fit(state, [(images, targets)], epochs=1, **kwargs)
-    with pytest.raises(NotImplementedError, match="transform"):
-        trainer.fit(state, Loader(), epochs=1)
+    with pytest.raises(NotImplementedError):
+        trainer.fit(state, [(images, targets)], epochs=1, mesh=object())
+    # resume without a checkpointer is ignored, as in the JAX package; a
+    # loader with a device-side transform runs through the fused steps (this
+    # one yields no batch: no step, no history)
+    state, history = trainer.fit(state, [(images, targets)], epochs=1, resume=True,
+                                 log_fn=logs.append)
+    assert state.step == 6
+    state, history = trainer.fit(state, Loader(), epochs=1, log_fn=logs.append)
+    assert state.step == 6 and history == {}
 
 
 def test_entry_points_default_to_the_card():

@@ -5,10 +5,12 @@ inputs, made with numpy from a seed, go through both packages."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
 
 from ssdseglib_tpu.config import ModelConfig
+
 
 SMALL_CFG = ModelConfig(
     input_image_shape=(96, 128, 3),
@@ -17,6 +19,19 @@ SMALL_CFG = ModelConfig(
     backbone="mobilenetv2",
     segmentation_dilation_rates=(3, 6, 12),
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """For a test module that imports it: PyTorch on two intra-op threads while
+    the module's tests run.  The suite runs in several worker processes at
+    once; with a pool of all cores in each, the pools oversubscribe the
+    machine and every small op waits at a barrier (measured: a file of small
+    CPU tests took fifteen times its stand-alone time under six workers)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def randomize_batchnorm(variables, seed: int = 0):
