@@ -9,8 +9,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: the kernel library from ``ssdseglib_torch/csrc`` with nvcc, one
    compiler per source, started together;
 3. fused MBConv kernel vs plain twin at the five MBConv widths of the 480x640
-   serving path, batch 16, in bf16 (2 ulps) and f32 (1e-5, TF32 off), with
-   the median of 20 CUDA-event timings of each;
+   serving path, batch 16, in bf16 (2 ulps; the E-chunked tensor-core
+   kernel) and f32 (1e-5, TF32 off; the CUDA-core kernel), with each width's
+   tile, chunk of E, threads and shared memory, the median of 20 CUDA-event
+   timings of each and, as information, of the same block run as the
+   unfused default sequence (three cuDNN convs with their bias and ReLU6
+   passes, and the residual add);
    3b. the NMS scan kernel vs its plain version: (16, 4, 256) candidates
    from the decoded boxes of the flagship model, plus synthetic (2, 2, 100),
    (1, 1, 1) and (3, 4, 1024); Python-float and 0-d-tensor thresholds; the
@@ -39,9 +43,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    and f32 (CUDA-core product, loads alone): f32 sums of up to 1.2 M terms
    within 1e-4 of the largest reference magnitude.  Timings: kernel, plain
    version and the library call (``aten.convolution_backward``, weight
-   only).  Then `wgrad_study` at (16, 240, 320, 32 -> 16) bf16: the
-   tensor-core kernel within 2e-2 (relative to the largest magnitude) of the
-   f32 product, and the five routes timed by CUDA events;
+   only, timed before and after the kernels).  Then `wgrad_study` at
+   (16, 240, 320, 32 -> 16) bf16: the tensor-core kernel within 2e-2
+   (relative to the largest magnitude) of the f32 product, and the five
+   routes timed by CUDA events; one device kernel and one allocation (the
+   returned gradient) per `wgrad_mma` call after the first; the three
+   kernels alone at the two layers;
 5. whole-path serving parity: the BN-folded serving model (fused kernel)
    against the unfused eval-mode model + post-processing, batch 2, 480x640,
    f32;
@@ -49,7 +56,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    backbone, bf16 mask) on 16 uint8 480x640 images, checking that every
    call launches the kernel 10 times, then b16 images/s under bench.py's
    protocol (8 distinct batches, warm-up excluded, 16 steps, median of 3
-   rounds, fenced by fetching the detections) and b1 latency;
+   rounds, fenced by fetching the detections) and b1 latency; last, the raw
+   outputs against the same path with the kernel's plain version in its
+   place (SERVE_PLAIN_TOLERANCE);
 7. training, full width: `Trainer` on the flagship configuration, 16
    synthetic 480x640 samples encoded on the card.  (a) f32, batch 2: the
    loss (1e-5) and every gradient of one step under the three backward
@@ -86,9 +95,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    `jaccard_iou_semantic_segmentation`) run on the trained model's
    predictions.  (a) f32, batch 2: loss (1e-5) and gradients (phase 7a's
    metric) of one step under the gates 'aten', 'dot', 'cuda'.  (b) bf16,
-   batch 16: step time under the three gates, fenced by the loss, and the
-   images/s of a `fit` epoch over the loader (no checkpoint in the timing),
-   at the run's 2 steps and at 8 steps an epoch.
+   batch 16: step time under the three gates in turns (aten, dot, cuda, then
+   back), fenced by the loss, and the images/s of a `fit` epoch over the
+   loader (no checkpoint in the timing), at the run's 2 steps and at 8 steps
+   an epoch.
 
 ``python3 chip_smoke.py --profile-train [aten|chain|depthwise|wgrad-dot|wgrad-cuda ...]`` instead
 builds the library and prints where the time of a bf16 b16 train step goes
@@ -98,8 +108,10 @@ serving step goes on the default path and on the option path, and
 ``python3 chip_smoke.py --profile-fit`` what each stage of a `fit` epoch over
 the loader costs alone, and
 ``python3 chip_smoke.py --wgrad-variants`` times the three weight-gradient
-kernels alone, as they are and with other tiling constants; none of these
-prints result lines.
+kernels alone, the tensor-core one at other (rows per slab, CTAs), and
+``python3 chip_smoke.py --mbconv-variants`` the bf16 MBConv kernel at other
+(tile, chunk of E, column tiles per warp); none of these prints result
+lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
@@ -113,7 +125,8 @@ for the CUDA-core one, `wgrad_study` of phase 4b for the loads-alone kernel),
 is the largest kernel-vs-plain difference of its phase over every shape,
 dtype and output, and ``ms``, ``plain_ms``, ``library_ms``
 and ``bound_ms`` are at the main path's shapes in bf16 at batch 16 (the ten
-launches of one forward for the MBConv kernel; the two launches of one train
+launches of one forward for the MBConv kernel, whose bound counts its 1x1s
+at the tensor cores' rate and its depthwise taps at the f32 rate; the two launches of one train
 step for the tensor-core weight-gradient kernel; f32 at batch 2, the two
 launches of phase 9a's step, for the CUDA-core one).  ``library_ms`` of the
 loads-alone kernel is the library's weight gradient, whose loads it
@@ -226,6 +239,33 @@ def phase_build() -> None:
             log(f"[build] ptxas: {line.strip()}")
 
 
+def _mbconv_sequence(x, w1, b1, wd, b2, w3, b3):
+    """The block as the unfused default path would run it: three cuDNN convs
+    (expand, depthwise, project) with their bias and ReLU6 passes, and the
+    residual add, on the channels-last NCHW view of NHWC ``x``."""
+    from ssdseglib_torch.models.fused_inference import _conv
+
+    e, cin, cout = w1.shape[1], w1.shape[0], w3.shape[1]
+    cl = torch.channels_last
+    xc = x.permute(0, 3, 1, 2)
+    y = _conv(xc, w1.t().reshape(e, cin, 1, 1).contiguous(memory_format=cl), b1, relu6=True)
+    y = _conv(y, wd.t().reshape(e, 1, 3, 3).contiguous(memory_format=cl), b2, depthwise=True,
+              relu6=True)
+    y = _conv(y, w3.t().reshape(cout, e, 1, 1).contiguous(memory_format=cl), b3)
+    return (y + xc).permute(0, 2, 3, 1)
+
+
+def _mbconv_operands(gen, dtype, cin, h, w, e, batch=BATCH):
+    def draw(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
+
+    x = draw(batch, h, w, cin)
+    args = (draw(cin, e, scale=cin ** -0.5), draw(e, scale=0.1),
+            draw(9, e, scale=1 / 3), draw(e, scale=0.1),
+            draw(e, cin, scale=e ** -0.5), draw(cin, scale=0.1))
+    return x, args
+
+
 def phase_kernel_vs_twin():
     from ssdseglib_torch.ops.fused_mbconv import (
         fused_mbconv,
@@ -234,16 +274,12 @@ def phase_kernel_vs_twin():
     )
 
     gen = torch.Generator().manual_seed(0)
-    report = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0}
+    report = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "bytes": 0.0, "products": 0.0,
+              "taps": 0.0}
+    sequence_ms = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for cin, h, w, e, repeats in MBCONV_SHAPES:
-            def draw(*shape, scale=1.0):
-                return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
-
-            x = draw(BATCH, h, w, cin)
-            args = (draw(cin, e, scale=cin ** -0.5), draw(e, scale=0.1),
-                    draw(9, e, scale=1 / 3), draw(e, scale=0.1),
-                    draw(e, cin, scale=e ** -0.5), draw(cin, scale=0.1))
+            x, args = _mbconv_operands(gen, dtype, cin, h, w, e)
             got = fused_mbconv(x, *args)
             torch.cuda.synchronize()
             want = fused_mbconv_reference(x, *args)
@@ -254,10 +290,16 @@ def phase_kernel_vs_twin():
             max_err = float(err.max())
             ms = cuda_median_ms(lambda: fused_mbconv(x, *args))
             plain_ms = cuda_median_ms(lambda: fused_mbconv_reference(x, *args))
+            th, tw, ec, threads, smem = kernel_tile(dtype, cin, e, cin)
+            line = (f"[kernel] {str(dtype)[6:]:8s} Cin={cin:3d} {h}x{w} E={e:3d} "
+                    f"tile={th}x{tw} EC={ec} threads={threads} smem={smem} B "
+                    f"max_abs_err={max_err:.3g} kernel {ms:.4f} ms | twin {plain_ms:.4f} ms")
+            if dtype == torch.bfloat16:
+                seq_ms = cuda_median_ms(lambda: _mbconv_sequence(x, *args))
+                sequence_ms += repeats * seq_ms
+                line += f" | unfused sequence (information) {seq_ms:.4f} ms"
             torch.cuda.synchronize()
-            log(f"[kernel] {str(dtype)[6:]:8s} Cin={cin:3d} {h}x{w} E={e:3d} "
-                f"tile={kernel_tile(dtype, cin, e)} max_abs_err={max_err:.3g} "
-                f"kernel {ms:.4f} ms | twin {plain_ms:.4f} ms")
+            log(line)
             if bad:
                 raise AssertionError(
                     f"kernel disagrees with its twin at Cin={cin} {h}x{w} E={e} "
@@ -270,10 +312,22 @@ def phase_kernel_vs_twin():
                 pixels = BATCH * h * w
                 weights = cin * e + 9 * e + e * cin + 2 * e + cin
                 report["bytes"] += repeats * 2 * (pixels * 2 * cin + weights)
-                report["flops"] += repeats * 2 * pixels * e * (cin + 9 + cin)
-    # the 1x1s are matrix products: the peak is the tensor cores' bf16 rate
+                report["products"] += repeats * 2 * pixels * e * 2 * cin
+                report["taps"] += repeats * 2 * 9 * pixels * e
+            del x, args, got, want
+        torch.cuda.empty_cache()
+    # the 1x1s are matrix products at the tensor cores' bf16 rate; the
+    # depthwise taps run on the CUDA cores in f32
+    products, taps = report.pop("products"), report.pop("taps")
     report["bound_ms"], report["bound_by"] = bound_ms(
-        report.pop("bytes"), (report.pop("flops"), PEAK_FLOPS[torch.bfloat16]))
+        report.pop("bytes"), (products, PEAK_FLOPS[torch.bfloat16]),
+        (taps, PEAK_FLOPS[torch.float32]))
+    log(f"[kernel] bf16 one forward (ten launches): kernel {report['ms']:.4f} ms | twin "
+        f"{report['plain_ms']:.4f} ms | unfused sequence of three cuDNN convs with bias, "
+        f"ReLU6 and residual passes (information) {sequence_ms:.4f} ms | bound "
+        f"{report['bound_ms']:.4f} ms ({report['bound_by']}; {products / 1e9:.2f} GFLOP of "
+        f"1x1s, {taps / 1e9:.2f} GFLOP of taps)")
+    report["library_ms"] = None
     return report
 
 
@@ -548,9 +602,20 @@ def phase_wgrad_kernels_vs_plain(card: str):
             dy = torch.randn(*lead, co, generator=gen).to("cuda", dtype)
             weight = torch.zeros((co, ci, 1, 1), dtype=dtype, device="cuda")
             k = x.numel() // ci
-            library_ms = cuda_median_ms(lambda: torch.ops.aten.convolution_backward(
-                dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), weight, None, [1, 1], [0, 0],
-                [1, 1], False, [0, 0], 1, [False, True, False]))
+
+            def library():
+                return torch.ops.aten.convolution_backward(
+                    dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), weight, None, [1, 1],
+                    [0, 0], [1, 1], False, [0, 0], 1, [False, True, False])
+
+            library_first = cuda_median_ms(library)
+            timed = {}
+            for name, (kernel, plain) in kernels.items():
+                if name == "wgrad_mma" and dtype != torch.bfloat16:
+                    continue
+                timed[name] = cuda_median_ms(lambda: kernel(x, dy))
+            # the library before and after the kernels: the kernels are timed in turns with it
+            library_ms = (library_first + cuda_median_ms(library)) / 2
             for name, (kernel, plain) in kernels.items():
                 if name == "wgrad_mma" and dtype != torch.bfloat16:
                     continue
@@ -558,7 +623,7 @@ def phase_wgrad_kernels_vs_plain(card: str):
                 torch.cuda.synchronize()
                 tag = f"{name} {str(dtype)[6:]:8s} {lead} {ci} -> {co}"
                 err = _check_close(tag, got, plain(x, dy), SUM_TOLERANCE, scale_by_max=True)
-                ms = cuda_median_ms(lambda: kernel(x, dy))
+                ms = timed[name]
                 plain_ms = cuda_median_ms(lambda: plain(x, dy))
                 # products on the tensor cores (mma) or the CUDA cores (fma);
                 # the loads-alone kernel does one add per element
@@ -570,7 +635,8 @@ def phase_wgrad_kernels_vs_plain(card: str):
                 least, by = bound_ms(nbytes, (flops, rate))
                 log(f"[wgrad] {tag} max_abs_err {err:.3g} | kernel {ms:.4f} ms | plain "
                     f"{plain_ms:.4f} ms | aten.convolution_backward (weight only) "
-                    f"{library_ms:.4f} ms | bound {least:.4f} ms ({by})")
+                    f"{library_ms:.4f} ms (mean of {library_first:.4f} before and the reading "
+                    f"after the kernels) | bound {least:.4f} ms ({by})")
                 rep = reports[name]
                 rep["max_abs_err"] = max(rep["max_abs_err"], err)
                 path_dtype, path_shapes = WGRAD_PATH[name]
@@ -600,7 +666,84 @@ def phase_wgrad_kernels_vs_plain(card: str):
     for arm in ("aten", "dot", "mma", "copy", "fma"):
         log(f"[wgrad-study] {arm:5s} {study[arm + '_ms']:.4f} ms (CUDA events, median of 20) "
             f"| {card}")
+    _wgrad_launches_and_allocations(gen)
+    for lead, ci, co in WGRAD_SHAPES[:2]:
+        x = torch.randn(*lead, ci, generator=gen).to("cuda", torch.bfloat16)
+        dy = torch.randn(*lead, co, generator=gen).to("cuda", torch.bfloat16)
+        alone = {name: _wgrad_alone_ms(kernel, x, dy) for name, kernel in
+                 (("mma", pw._MMA), ("fma", pw._FMA), ("copy", pw._COPY))}
+        log(f"[wgrad] kernels alone (launchers called directly, 50 launches between two "
+            f"CUDA events) bf16 {lead} {ci} -> {co}: "
+            + " | ".join(f"{name} {ms:.4f} ms" for name, ms in alone.items()) + f" | {card}")
     return reports
+
+
+def _wgrad_launches_and_allocations(gen, calls: int = 10) -> None:
+    """`wgrad_mma` at the training path's first layer: device kernels a call
+    launches (torch.profiler) and allocations a call makes after the first
+    (the caching allocator's count): one launch, and one allocation -- the
+    gradient it returns -- with no scratch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssdseglib_torch.ops import pointwise_wgrad as pw
+
+    lead, ci, co = WGRAD_SHAPES[0]
+    x = torch.randn(*lead, ci, generator=gen).to("cuda", torch.bfloat16)
+    dy = torch.randn(*lead, co, generator=gen).to("cuda", torch.bfloat16)
+    pw.wgrad_mma(x, dy, torch.bfloat16)  # the first call allocates the scratch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    kept = [pw.wgrad_mma(x, dy, torch.bfloat16) for _ in range(calls)]
+    allocations = (torch.cuda.memory_stats()["allocation.all.allocated"] - before) / calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            pw.wgrad_mma(x, dy, torch.bfloat16)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+    log(f"[wgrad] wgrad_mma {lead} {ci} -> {co} bf16 -> (Co, Ci) bf16: {kernels / calls:g} "
+        f"device kernel(s) and {allocations:g} allocation(s) per call after the first "
+        f"(the returned gradient); scratch buffers cached: {len(pw._SCRATCH)}")
+    assert kernels == calls and allocations == 1, (kernels, allocations)
+    del kept
+
+
+def _wgrad_alone_ms(kernel: int, x, dy, rows: int = 0, ctas: int = 0,
+                    launches: int = 50, check: bool = False) -> float:
+    """One weight-gradient kernel alone: its C launcher called ``launches``
+    times between two CUDA events (the wrapper's host time out of the
+    reading), with the (rows, CTAs) given, 0 for the built-in choice.  With
+    ``check``, the result is held against the plain version first."""
+    from ssdseglib_torch.ops import _cuda_build
+    from ssdseglib_torch.ops import pointwise_wgrad as pw
+
+    lib = _cuda_build.load_library()
+    ci, co = x.shape[-1], dy.shape[-1]
+    k = x.numel() // ci
+    stream = torch.cuda.current_stream().cuda_stream
+    partials, counters = pw._scratch(x.device, stream, ci, co,
+                                     *pw._grid(lib, kernel, k, ci, co, ctas))
+    out = torch.empty((co, ci), dtype=torch.float32, device="cuda")
+    dtype = pw._DTYPE_CODES[x.dtype]
+
+    def launch():
+        err = lib.pointwise_wgrad_launch(kernel, dtype, x.data_ptr(), dy.data_ptr(),
+                                         partials.data_ptr(), counters.data_ptr(),
+                                         out.data_ptr(), 0, k, ci, co, rows, ctas, stream)
+        assert err == 0, (kernel, rows, ctas, err)
+
+    for _ in range(5):
+        launch()
+    if check:
+        plain = (pw.wgrad_copy_reference if kernel == pw._COPY else pw.wgrad_mma_reference)
+        _check_close(f"wgrad kernel {kernel} rows {rows} CTAs {ctas}", out, plain(x, dy),
+                     SUM_TOLERANCE, scale_by_max=True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(launches):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def _builder():
@@ -733,7 +876,45 @@ def phase_serving(card: str):
         f"images/s | b1 latency {statistics.median(latencies):.3f} ms (median of 20, "
         f"fetch-fenced) | {card} | peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _serving_kernel_vs_plain(infer)
     return launches, statistics.median(rates)
+
+
+# Kernel path against the same path with the MBConv kernel's plain version,
+# bf16 b16: both round to bf16 at every layer (about 60), so one or two ulps of
+# difference in a block output (the kernel sums in another order) travel on
+# through ten blocks and the heads; 2^-8 relative per rounding over ~60 of
+# them adds up to about 2e-2, so 3e-2 of (1 + |plain|) is the limit.
+SERVE_PLAIN_TOLERANCE = 3e-2
+
+
+def _serving_kernel_vs_plain(infer) -> None:
+    """Phase 6, last: the default path's raw outputs (mask, class
+    probabilities, decoded boxes) with the kernel against the same path with
+    `fused_mbconv_reference` in the kernel's place, on the card, bf16 b16."""
+    from ssdseglib_torch.models import fused_inference
+    from ssdseglib_torch.ops.fused_mbconv import fused_mbconv_reference
+
+    images = _uint8_images(3, BATCH)
+    got = [t.float() for t in infer.raw_outputs(images)]
+    real = fused_inference.fused_mbconv
+    fused_inference.fused_mbconv = lambda x, *args, residual=True: fused_mbconv_reference(
+        x, *args, residual=residual)
+    try:
+        want = [t.float() for t in infer.raw_outputs(images)]
+    finally:
+        fused_inference.fused_mbconv = real
+    for name, a, b in zip(("mask", "labels", "boxes"), got, want):
+        # probabilities element by element; box corners (pixels, decoded
+        # from bf16 offsets times the anchor's size) against the image's scale
+        scale = 1.0 + (b.abs().max() if name == "boxes" else b.abs())
+        err = (a - b).abs() / scale
+        log(f"[serve] bf16 b16 {name} {tuple(a.shape)}: kernel path vs plain-version path, "
+            f"max |diff| / (1 + |plain|{' max' if name == 'boxes' else ''}) = "
+            f"{float(err.max()):.3g}, max |diff| {float((a - b).abs().max()):.3g} (limit "
+            f"{SERVE_PLAIN_TOLERANCE})")
+        assert bool(torch.isfinite(a).all()), name
+        assert float(err.max()) <= SERVE_PLAIN_TOLERANCE, (name, float(err.max()))
 
 
 def _train_batch(batch: int):
@@ -1137,9 +1318,10 @@ def phase_fit(card: str):
         assert fma_launches == len(layers), (fma_launches, layers)
         del trainer32
 
-        # (b) bf16, batch 16: the step under the three gates, then a fit epoch
-        report = {}
-        for route in WGRAD_ROUTES:
+        # (b) bf16, batch 16: the step under the three gates, in turns (the
+        # gates, then the gates in reverse), then a fit epoch
+        report = {route: [] for route in WGRAD_ROUTES}
+        for route in WGRAD_ROUTES + WGRAD_ROUTES[::-1]:
             _set_route(route)
             state = trainer.init_state(torch.Generator().manual_seed(0))
             trainer.train_step(state, images, targets)[1]["loss"].item()  # warm-up
@@ -1148,10 +1330,13 @@ def phase_fit(card: str):
                 t0 = time.perf_counter()
                 trainer.train_step(state, images, targets)[1]["loss"].item()  # the fence
                 times.append((time.perf_counter() - t0) * 1e3)
-            report[route] = statistics.median(times)
-            log(f"[fit] bf16 b16 gate {ROUTES[route][2]}: step {report[route]:.3f} ms (median of "
-                f"{TRAIN_STEPS}, fetch-fenced), {BATCH / report[route] * 1e3:.2f} images/s "
-                f"| {card}")
+            report[route].append(statistics.median(times))
+        for route, medians in report.items():
+            log(f"[fit] bf16 b16 gate {ROUTES[route][2]}: step {medians[0]:.3f} / "
+                f"{medians[1]:.3f} ms (median of {TRAIN_STEPS}, fetch-fenced, in turns "
+                f"aten-dot-cuda-cuda-dot-aten), {BATCH / min(medians) * 1e3:.2f} images/s "
+                f"at the faster | {card}")
+        report = {route: min(medians) for route, medians in report.items()}
         # the run's own epoch (2 steps), and a longer one over the same samples
         # four times (8 steps, one staged chunk), where start-up weighs less
         _set_route("wgrad-cuda")
@@ -1174,84 +1359,94 @@ def phase_fit(card: str):
         shutil.rmtree(directory, ignore_errors=True)
 
 
-# (rows a warp stages per step, most CTAs, rows a CTA stages per step) of
-# csrc/pointwise_wgrad.cu: the source's values first, then the alternatives
-WGRAD_VARIANTS = [(16, 528, 64), (32, 528, 64), (64, 528, 64), (16, 264, 64), (16, 1056, 64),
-                  (32, 792, 64), (16, 528, 128), (16, 528, 32)]
+# (rows a warp stages per slab, CTAs) of the tensor-core weight-gradient kernel
+# (0: the source's choice), for `--wgrad-variants`
+WGRAD_VARIANTS = [(0, 0), (16, 132), (16, 264), (16, 396), (16, 528), (32, 132), (32, 264),
+                  (32, 396), (32, 528)]
 
 
-def wgrad_variants(card: str, rounds: int = 2, launches: int = 50) -> None:
-    """``python3 chip_smoke.py --wgrad-variants``: the three weight-gradient
-    kernels ALONE (their C launchers called directly, ``launches`` of them
-    between two CUDA events, so the host's wrapper time is out of the
-    reading) at the two layers of the envelope in bf16 at batch 16, for the
-    source as it is and for copies of it with other tiling constants, each
-    built into a library of its own under the build directory."""
-    import ctypes
-    import re
+def wgrad_variants(card: str, rounds: int = 2) -> None:
+    """``python3 chip_smoke.py --wgrad-variants``: the weight-gradient kernels
+    ALONE (`_wgrad_alone_ms`) at the two layers of the envelope in bf16 at
+    batch 16: the tensor-core kernel with each (rows per slab, CTAs) of
+    WGRAD_VARIANTS, checked against its plain version, and the CUDA-core and
+    loads-alone kernels as built, in turns over ``rounds`` rounds."""
+    from ssdseglib_torch.ops import pointwise_wgrad as pw
 
-    from ssdseglib_torch.ops import _cuda_build
-
-    source = (_cuda_build.SOURCES[-1]).read_text()
-    assert _cuda_build.SOURCES[-1].name == "pointwise_wgrad.cu"
-    header = str(_cuda_build.HEADERS[0])
-    flags = [f for f in _cuda_build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    builds = {}
-    for rows, ctas, chunk in WGRAD_VARIANTS:
-        text = source.replace('#include "common.cuh"', f'#include "{header}"')
-        for constant, value in (("kWarpRows", rows), ("kMaxCtas", ctas), ("kChunkRows", chunk)):
-            text, n = re.subn(rf"constexpr int {constant} = \d+;",
-                              f"constexpr int {constant} = {value};", text)
-            assert n == 1, constant
-        base = _cuda_build.BUILD_DIR / f"wgrad_variant_r{rows}_c{ctas}_k{chunk}"
-        base.with_suffix(".cu").write_text(text)
-        builds[(rows, ctas, chunk)] = (base.with_suffix(".so"), subprocess.Popen(
-            [_cuda_build.find_nvcc(), *flags, "-shared", "-o", str(base.with_suffix(".so")),
-             str(base.with_suffix(".cu"))], stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for variant, (path, proc) in builds.items():
-        _, stderr = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {variant}:\n{stderr}")
-        lib = ctypes.CDLL(str(path))
-        lib.pointwise_wgrad_ctas.argtypes = [ctypes.c_longlong]
-        lib.pointwise_wgrad_launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                                               + [ctypes.c_longlong] + [ctypes.c_int] * 2
-                                               + [ctypes.c_void_p])
-        libs[variant] = lib
     gen = torch.Generator().manual_seed(4)
-    stream = torch.cuda.current_stream().cuda_stream
-    for _ in range(rounds):
-        for variant, lib in libs.items():
-            cells = []
-            for lead, ci, co in WGRAD_SHAPES[:2]:
-                x = torch.randn(*lead, ci, generator=gen).to("cuda", torch.bfloat16)
-                dy = torch.randn(*lead, co, generator=gen).to("cuda", torch.bfloat16)
-                k = x.numel() // ci
-                want = x.reshape(k, ci).float().t() @ dy.reshape(k, co).float()
-                partials = torch.empty(lib.pointwise_wgrad_ctas(k), ci, co, device="cuda")
-                dw = torch.empty(ci, co, device="cuda")
-                for kernel, name in enumerate(("mma", "fma", "copy")):
-                    def launch():
-                        err = lib.pointwise_wgrad_launch(
-                            kernel, 1, x.data_ptr(), dy.data_ptr(), partials.data_ptr(),
-                            dw.data_ptr(), k, ci, co, stream)
-                        assert err == 0, (variant, name, err)
+    layers = []
+    for lead, ci, co in WGRAD_SHAPES[:2]:
+        layers.append((f"{ci}->{co}",
+                       torch.randn(*lead, ci, generator=gen).to("cuda", torch.bfloat16),
+                       torch.randn(*lead, co, generator=gen).to("cuda", torch.bfloat16)))
+    for r in range(rounds):
+        for rows, ctas in WGRAD_VARIANTS:
+            cells = [f"{name} {_wgrad_alone_ms(pw._MMA, x, dy, rows, ctas, check=r == 0):.4f}"
+                     for name, x, dy in layers]
+            log(f"[wgrad-variants] round {r} mma rows/slab {rows or 'built-in'}, CTAs "
+                f"{ctas or 'built-in'}: {' | '.join(cells)} ms, kernel alone | {card}")
+        for kernel, label in ((pw._FMA, "fma"), (pw._COPY, "copy")):
+            cells = [f"{name} {_wgrad_alone_ms(kernel, x, dy):.4f}" for name, x, dy in layers]
+            log(f"[wgrad-variants] round {r} {label} as built: {' | '.join(cells)} ms, kernel "
+                f"alone | {card}")
 
-                    for _ in range(5):
-                        launch()
-                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                    start.record()
-                    for _ in range(launches):
-                        launch()
-                    end.record()
-                    end.synchronize()
-                    if name != "copy":
-                        _check_close(f"variant {variant} {name}", dw, want, SUM_TOLERANCE,
-                                     scale_by_max=True)
-                    cells.append(f"{name} {ci}->{co} {start.elapsed_time(end) / launches:.4f}")
-            log(f"[wgrad-variants] rows/warp step, CTAs, rows/CTA step {variant}: "
-                f"{' | '.join(cells)} ms, kernel alone | {card}")
+
+# Candidate (th, tw, EC, NREP) of the bf16 MBConv kernel per width (Cin, E),
+# the source's choice first, for `--mbconv-variants`
+MBCONV_VARIANTS = {
+    (24, 144): [(15, 16, 48, 3), (8, 16, 48, 3), (8, 16, 16, 3), (8, 16, 144, 3),
+                (8, 8, 48, 1), (10, 16, 48, 3), (4, 16, 48, 1), (6, 16, 48, 3),
+                (15, 16, 16, 3), (15, 8, 48, 3), (8, 20, 48, 3), (12, 20, 48, 3),
+                (15, 10, 48, 3)],
+    (32, 192): [(10, 20, 48, 4), (6, 20, 48, 4), (6, 16, 48, 2), (6, 16, 48, 4),
+                (6, 16, 64, 2), (6, 16, 96, 2), (10, 8, 48, 2), (4, 16, 48, 2),
+                (12, 16, 48, 4), (6, 20, 64, 4), (6, 20, 96, 4), (6, 20, 192, 4),
+                (12, 20, 48, 4), (5, 20, 48, 4)],
+    (64, 384): [(10, 8, 64, 4), (10, 8, 48, 4), (6, 8, 48, 2), (6, 8, 48, 4), (6, 8, 64, 2),
+                (6, 8, 96, 2), (5, 8, 48, 2), (6, 10, 48, 4), (3, 8, 48, 2), (10, 8, 96, 4),
+                (10, 8, 48, 8), (10, 10, 48, 4), (15, 8, 48, 4), (10, 20, 48, 8)],
+    (96, 576): [(10, 8, 64, 6), (10, 8, 48, 6), (6, 8, 48, 3), (6, 8, 48, 6), (6, 8, 64, 3),
+                (6, 8, 96, 3), (5, 8, 48, 3), (6, 10, 48, 6), (3, 8, 48, 3), (10, 8, 96, 6),
+                (10, 8, 48, 4), (10, 10, 48, 6), (15, 8, 48, 6)],
+    (160, 960): [(5, 4, 48, 4), (5, 4, 48, 5), (5, 5, 48, 5), (5, 5, 64, 5), (5, 5, 96, 5),
+                 (3, 5, 48, 2), (5, 10, 48, 10), (3, 10, 48, 5), (3, 4, 48, 2),
+                 (5, 4, 64, 5), (5, 4, 32, 5), (5, 4, 16, 5), (5, 4, 48, 10), (5, 2, 48, 5)],
+}
+
+
+def mbconv_variants(card: str, rounds: int = 2, launches: int = 20) -> None:
+    """``python3 chip_smoke.py --mbconv-variants``: the bf16 MBConv kernel at
+    each width of the serving path (batch 16) with each (th, tw, EC, NREP) of
+    MBCONV_VARIANTS, ``launches`` launches between two CUDA events, every
+    variant first held against the plain version, in turns over ``rounds``
+    rounds."""
+    from ssdseglib_torch.ops import fused_mbconv as fm
+
+    gen = torch.Generator().manual_seed(0)
+    operands = {}
+    for cin, h, w, e, _ in MBCONV_SHAPES:
+        x, args = _mbconv_operands(gen, torch.bfloat16, cin, h, w, e)
+        operands[(cin, e)] = (x, args, fm.fused_mbconv_reference(x, *args))
+    for r in range(rounds):
+        for (cin, e), configs in MBCONV_VARIANTS.items():
+            x, args, want = operands[(cin, e)]
+            cells = []
+            for config in configs:
+                if r == 0:
+                    _check_close(f"MBConv Cin={cin} E={e} config {config}",
+                                 fm._launch(x, *args, True, config), want,
+                                 TOLERANCE[torch.bfloat16])
+                for _ in range(3):
+                    fm._launch(x, *args, True, config)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                for _ in range(launches):
+                    fm._launch(x, *args, True, config)
+                end.record()
+                end.synchronize()
+                cells.append(f"{config} {start.elapsed_time(end) / launches:.4f}")
+            log(f"[mbconv-variants] round {r} Cin={cin} E={e} (th, tw, EC, NREP) ms: "
+                f"{' | '.join(cells)} | {card}")
 
 
 def profile_fit(card: str, steps: int = 8) -> None:
@@ -1361,7 +1556,7 @@ def profile_serving(card: str, steps: int = 8) -> None:
         return out["output-mask"], postprocess(out, "topk")
 
     inputs, _ = _serving_inputs()
-    own = ("mbconv_kernel", "stem_block1_kernel", "nms_scan_kernel")
+    own = ("mbconv_bf16_kernel", "stem_block1_kernel", "nms_scan_kernel")
     for tag, serve in (("default path", infer), ("option path", serve_option)):
         for i in range(3):
             serve(inputs[i])[1].cpu()
@@ -1418,6 +1613,9 @@ def main() -> None:
         return
     if "--wgrad-variants" in sys.argv:
         wgrad_variants(card)
+        return
+    if "--mbconv-variants" in sys.argv:
+        mbconv_variants(card)
         return
     if "--profile-train" in sys.argv:
         routes = [a for a in sys.argv[1:] if a in ROUTES] or list(ROUTES)

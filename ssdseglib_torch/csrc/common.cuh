@@ -1,6 +1,8 @@
-// Shared pieces of the 3x3 depthwise backward kernels (depthwise_backward.cu,
-// fused_chain_backward.cu): dtype conversion, the tile geometry, the in-CTA
-// reduction of per-thread partial sums and the cross-CTA reduction kernel.
+// Shared pieces of the port's kernels: dtype conversion and the asynchronous
+// 16-byte copy (all of them), and, for the 3x3 depthwise backward kernels
+// (depthwise_backward.cu, fused_chain_backward.cu), the tile geometry, the
+// in-CTA reduction of per-thread partial sums and the cross-CTA reduction
+// kernel.
 //
 // Geometry.  Tensors are NHWC contiguous, so the (w, c) axes of one image row
 // are one contiguous run.  A CTA owns one image, kTileRows rows, tw columns
@@ -38,6 +40,23 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// Asynchronous 16-byte copy from device memory to shared memory (sm_80+).
+// With `inside` false nothing is read and the 16 bytes are zero-filled (the
+// src-size operand is 0), so ragged edges take the same path.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool inside) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(inside ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are still in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 struct Tiling {

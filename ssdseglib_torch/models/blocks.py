@@ -75,9 +75,11 @@ def set_chain_bwd_impl(impl: str) -> None:
 # giant-K library product with an f32 result ('dot'), or the hand-written
 # split-K kernels of ops/pointwise_wgrad inside their envelope
 # (wgrad_applicable -- in the flagship model backbone-block0-project and
-# backbone-block1-expand), the ATen rule outside it ('cuda').  Parameter
-# names, shapes and forward values do not depend on the gate.  Opt-in.
-# Read at every forward.
+# backbone-block1-expand), the ATen rule outside it ('cuda').  A conv whose
+# weight gradient keeps the library's rule under the gate is not routed
+# through the unit at all: the unit's Python would cost host time per layer
+# and change nothing.  Parameter names, shapes and forward values do not
+# depend on the gate.  Opt-in.  Read at every forward.
 WGRAD_IMPL = "aten"
 
 
@@ -180,8 +182,10 @@ def dense_conv(conv: "SameConv2d", x: torch.Tensor) -> torch.Tensor:
     weight-gradient route (WGRAD_IMPL)."""
     if WGRAD_IMPL == "aten":
         return conv(x)
-    from ssdseglib_torch.ops.conv_backward import conv2d_fast_wgrad
+    from ssdseglib_torch.ops.conv_backward import conv2d_fast_wgrad, own_route
 
+    if not own_route(conv.weight, conv.stride[0], conv.groups, WGRAD_IMPL, x.dtype):
+        return conv(x)
     return conv2d_fast_wgrad(x, conv.weight, conv.bias, conv.stride[0], conv.dilation[0],
                              conv.groups, impl=WGRAD_IMPL)
 

@@ -120,13 +120,16 @@ def load_library() -> ctypes.CDLL:
     build_info = _build(target) if not target.exists() else BuildInfo(target, 0.0, "")
     lib = ctypes.CDLL(str(target))
     ptr = ctypes.c_void_p
+    # (dtype, x, w1, b1, wd, b2, w3, b3, out, B, H, W, Cin, E, Cout, residual,
+    #  th, tw, ec, nrep, stream)
     lib.fused_mbconv_launch.argtypes = (
-        [ctypes.c_int] + [ptr] * 8 + [ctypes.c_int] * 7 + [ptr]
+        [ctypes.c_int] + [ptr] * 8 + [ctypes.c_int] * 11 + [ptr]
     )
     lib.fused_mbconv_launch.restype = ctypes.c_int
-    lib.fused_mbconv_tile.argtypes = [ctypes.c_int] * 3 + [
+    # (dtype, Cin, E, Cout, *th, *tw, *ec, *threads, *smem)
+    lib.fused_mbconv_tile.argtypes = [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_int)
-    ] * 2
+    ] * 5
     lib.fused_mbconv_tile.restype = ctypes.c_int
     lib.dw_bwd_partial_rows.argtypes = [ctypes.c_int] * 4
     lib.dw_bwd_partial_rows.restype = ctypes.c_int
@@ -153,11 +156,17 @@ def load_library() -> ctypes.CDLL:
         [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 3 + [ptr]
     )
     lib.stem_block1_launch.restype = ctypes.c_int
-    lib.pointwise_wgrad_ctas.argtypes = [ctypes.c_longlong]
-    lib.pointwise_wgrad_ctas.restype = ctypes.c_int
-    # (kernel, dtype, x, dy, partials, dw, K, Ci, Co, stream)
+    # (kernel, K, Ci, Co, ctas, *ctas_out, *counters_out)
+    lib.pointwise_wgrad_grid.argtypes = (
+        [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [ctypes.POINTER(ctypes.c_int)] * 2
+    )
+    lib.pointwise_wgrad_grid.restype = ctypes.c_int
+    # (kernel, dtype, x, dy, partials, counters, out, out_bf16, K, Ci, Co, rows,
+    #  ctas, stream)
     lib.pointwise_wgrad_launch.argtypes = (
-        [ctypes.c_int] * 2 + [ptr] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ptr]
+        [ctypes.c_int] * 2 + [ptr] * 5 + [ctypes.c_int] + [ctypes.c_longlong]
+        + [ctypes.c_int] * 4 + [ptr]
     )
     lib.pointwise_wgrad_launch.restype = ctypes.c_int
     _lib = lib

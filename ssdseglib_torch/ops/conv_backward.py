@@ -13,7 +13,9 @@ ASPP and decoder pointwise reductions) takes another route:
                  the library as the JAX package leaves it to XLA
     impl="cuda"  the hand-written split-K kernels of ``ops/pointwise_wgrad``
                  (tensor cores in bf16, CUDA cores in f32) inside
-                 `wgrad_applicable`; outside it the library's rule
+                 `wgrad_applicable`, which write the gradient in the weight's
+                 (Co, Ci) layout and dtype in one launch; outside it the
+                 library's rule
 
 Every other conv (k > 1, strided, dilated with k > 1, grouped) keeps the
 library's rule whatever ``impl`` says: the JAX package measured a per-tap
@@ -45,6 +47,16 @@ def reformulated(weight: torch.Tensor, stride: int, groups: int) -> bool:
     return tuple(weight.shape[2:]) == (1, 1) and stride == 1 and groups == 1
 
 
+def own_route(weight: torch.Tensor, stride: int, groups: int, impl: str,
+              dtype: torch.dtype) -> bool:
+    """Whether ``impl`` gives this conv's weight gradient another route than
+    the library's: every reformulated conv under "dot", those inside the
+    kernels' envelope under "cuda"."""
+    co, ci = weight.shape[:2]
+    return reformulated(weight, stride, groups) and (
+        impl == "dot" or wgrad_applicable(ci, co, dtype))
+
+
 def _library_backward(g, x, weight, has_bias, stride, dilation, groups, mask):
     """``aten.convolution_backward`` of `conv2d_same`: (dx, dw, db), None
     where ``mask`` is False."""
@@ -74,17 +86,22 @@ class _Conv2dFastWgrad(torch.autograd.Function):
         has_bias, stride, dilation, groups, impl = ctx.conv
         need_x, need_w, need_b = (ctx.needs_input_grad[i] for i in range(3))
         co, ci = weight.shape[:2]
-        own = need_w and reformulated(weight, stride, groups) and (
-            impl == "dot" or wgrad_applicable(ci, co, x.dtype))
+        own = need_w and own_route(weight, stride, groups, impl, x.dtype)
         dx, dw, db = _library_backward(
             g, x, weight, has_bias, stride, dilation, groups,
             (need_x, need_w and not own, has_bias and need_b))
         if own:
             counter = conv2d_fast_wgrad
-            product = dot_wgrad if impl == "dot" else pointwise_wgrad
-            dk = product(nhwc_view(x, counter), nhwc_view(g, counter))  # (Ci, Co) f32
-            dw = torch.empty_like(weight)  # the weight's dtype and strides
-            dw.copy_(dk.t().reshape(co, ci, 1, 1))
+            xv, gv = nhwc_view(x, counter), nhwc_view(g, counter)
+            if impl == "dot":
+                dk = dot_wgrad(xv, gv)  # (Ci, Co) f32
+                dw = torch.empty_like(weight)  # the weight's dtype and strides
+                dw.copy_(dk.t().reshape(co, ci, 1, 1))
+            else:
+                # (Co, Ci) in the weight's dtype, written so by the kernel: the
+                # memory of a (Co, Ci, 1, 1) weight in either memory format
+                dw = pointwise_wgrad(xv, gv, weight.dtype).as_strided(
+                    weight.shape, weight.stride())
         return dx, dw, db, None, None, None, None
 
 

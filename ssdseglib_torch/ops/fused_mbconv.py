@@ -5,7 +5,11 @@ block -- expand 1x1 -> relu6 -> depthwise 3x3 -> relu6 -> project 1x1
 (-> + residual) -- runs as one hand-written Hopper kernel
 (``csrc/fused_mbconv.cu``) that keeps the E-wide expanded tensor on chip,
 so per pixel only Cin + Cout channels cross device memory instead of
-Cin + 2E + Cout.
+Cin + 2E + Cout.  In bfloat16 the kernel walks E in chunks with both 1x1s
+on the tensor cores and the next chunk's weights copied asynchronously; in
+float32 it keeps the whole expanded tile and runs the 1x1s on the CUDA
+cores.  bfloat16 needs Cin and Cout multiples of 8, E a multiple of 16 and
+16-byte aligned operands; a call outside that raises.
 
 BatchNorm is folded into conv weight + bias beforehand (`fold_conv_bn`).
 
@@ -107,29 +111,7 @@ def fused_mbconv(
         return fused_mbconv_reference(
             x, w1, b_expand, wd, b_depthwise, w3, b_project, residual
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mbconv runs on cuda or cpu, not {x.device}")
-
-    from ssdseglib_torch.ops._cuda_build import load_library
-
-    lib = load_library()
-    batch, h, w, cin = x.shape
-    e, cout = w1.shape[1], w3.shape[1]
-    out = torch.empty((batch, h, w, cout), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_mbconv_launch(
-            _DTYPE_CODES[x.dtype],
-            *(t.data_ptr() for t in (x, w1, b_expand, wd, b_depthwise, w3,
-                                     b_project, out)),
-            batch, h, w, cin, e, cout, int(residual), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"fused_mbconv kernel launch failed with cudaError {err} "
-            f"(B={batch}, H={h}, W={w}, Cin={cin}, E={e}, Cout={cout}, "
-            f"{x.dtype})"
-        )
+    out = _launch(x, w1, b_expand, wd, b_depthwise, w3, b_project, residual)
     fused_mbconv.launches += 1
     return out
 
@@ -137,18 +119,53 @@ def fused_mbconv(
 fused_mbconv.launches = 0
 
 
-def kernel_tile(dtype: torch.dtype, cin: int, expanded: int):
-    """(th, tw) spatial tile the kernel uses for these widths on the
-    current card."""
+def _launch(x, w1, b1, wd, b2, w3, b3, residual, config=(0, 0, 0, 0)):
+    """One launch on the card.  ``config`` = (th, tw, EC, NREP) of the bf16
+    kernel, 0 for the built-in choice (what `kernel_tile` reports); the
+    f32 kernel ignores it."""
     from ssdseglib_torch.ops._cuda_build import load_library
 
-    th, tw = ctypes.c_int(0), ctypes.c_int(0)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mbconv runs on cuda or cpu, not {x.device}")
+    ptrs = [t.data_ptr() for t in (x, w1, b1, wd, b2, w3, b3)]
+    if x.dtype == torch.bfloat16 and any(p % 16 for p in ptrs):
+        raise ValueError("fused_mbconv: bfloat16 operands must be 16-byte aligned")
+    lib = load_library()
+    batch, h, w, cin = x.shape
+    e, cout = w1.shape[1], w3.shape[1]
+    device = x.device
+    out = torch.empty((batch, h, w, cout), dtype=x.dtype, device=device)
+    args = (_DTYPE_CODES[x.dtype], *ptrs, out.data_ptr(), batch, h, w, cin, e, cout,
+            int(residual), *config, torch.cuda.current_stream(device).cuda_stream)
+    if device.index == torch.cuda.current_device():
+        err = lib.fused_mbconv_launch(*args)
+    else:
+        with torch.cuda.device(device):
+            err = lib.fused_mbconv_launch(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_mbconv kernel launch failed with cudaError {err} "
+            f"(B={batch}, H={h}, W={w}, Cin={cin}, E={e}, Cout={cout}, "
+            f"{x.dtype}, config {config})"
+        )
+    return out
+
+
+def kernel_tile(dtype: torch.dtype, cin: int, expanded: int, cout: int):
+    """What the kernel uses for these widths on the current card:
+    (th, tw, EC, threads, shared-memory bytes) -- the spatial tile, the
+    chunk of E it walks (E itself for float32, whose kernel keeps the whole
+    expanded tile), the CTA's threads and its dynamic shared memory."""
+    from ssdseglib_torch.ops._cuda_build import load_library
+
+    fields = [ctypes.c_int(0) for _ in range(5)]
     err = load_library().fused_mbconv_tile(
-        _DTYPE_CODES[dtype], cin, expanded, ctypes.byref(th), ctypes.byref(tw)
+        _DTYPE_CODES[dtype], cin, expanded, cout, *(ctypes.byref(f) for f in fields)
     )
     if err != 0:
-        raise RuntimeError(f"no tile for Cin={cin}, E={expanded}, {dtype}: cudaError {err}")
-    return th.value, tw.value
+        raise RuntimeError(
+            f"no tile for Cin={cin}, E={expanded}, Cout={cout}, {dtype}: cudaError {err}")
+    return tuple(f.value for f in fields)
 
 
 def fused_mbconv_reference(

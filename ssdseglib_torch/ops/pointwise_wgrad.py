@@ -5,15 +5,18 @@ Counterpart of the three Pallas kernels of
 (``csrc/pointwise_wgrad.cu``).  With x (..., Ci) and dy (..., Co), K the
 product of the leading axes:
 
-    wgrad_mma   dW[i,o] = sum_k x[k,i] * dy[k,o], bf16 operands, the product
+    wgrad_mma   dW[o,i] = sum_k dy[k,o] * x[k,i], bf16 operands, the product
                 on the tensor cores inside the kernel, f32 sums  (`kernel`)
     wgrad_fma   the same dW by FMAs on the CUDA cores, bf16 or f32 operands
                 cast to f32 in registers                        (`vpu_kernel`)
-    wgrad_copy  out[i,o] = sum_k x[k,i] + sum_k dy[k,o]: the same loads and no
+    wgrad_copy  out[o,i] = sum_k x[k,i] + sum_k dy[k,o]: the same loads and no
                 product, the memory floor of the other two     (`copy_kernel`)
 
-All three return (Ci, Co) f32 and are split-K reductions with a fixed order
-of summation (no atomics): the same bits on every run.
+All three return (Co, Ci) -- the layout of a (Co, Ci, 1, 1) conv weight -- in
+f32 or bf16 (``out_dtype``), from ONE launch: a split-K reduction whose
+partial sums are added inside the same launch, in an order fixed by the grid
+(no atomics in the sums): the same bits on every run.  The partials' scratch
+is allocated once per (device, stream, Ci, Co, CTAs) and kept.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain version
 (``*_reference``) on CPU tensors; a CUDA call the kernel cannot take raises.
@@ -25,8 +28,9 @@ kernel by dtype; `wgrad_study` times the routes against each other.
 
 from __future__ import annotations
 
+import ctypes
 import statistics
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -77,40 +81,94 @@ def _check(name: str, x: torch.Tensor, dy: torch.Tensor) -> int:
     return x.numel() // x.shape[-1]
 
 
-def _launch(kernel: int, name: str, x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+# Scratch of the in-launch reduction, allocated once per (device, stream, Ci,
+# Co, CTAs) and kept: (partials (CTAs, Co, Ci) f32, counters int32).  Sharing
+# it between launches is safe because a buffer is only ever used on its own
+# stream, and launches on one stream run in order: a launch starts after the
+# previous one has read its partials and reset its counters to 0.
+_SCRATCH: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _grid(lib, kernel: int, k: int, ci: int, co: int, ctas: int = 0) -> Tuple[int, int]:
+    """(CTAs, counters) of a launch as the library splits K; ``ctas`` 0 for
+    its built-in grid."""
+    n_ctas, n_counters = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.pointwise_wgrad_grid(kernel, k, ci, co, ctas, ctypes.byref(n_ctas),
+                                   ctypes.byref(n_counters))
+    if err != 0:
+        raise RuntimeError(f"no grid for K={k}, Ci={ci}, Co={co}: cudaError {err}")
+    return n_ctas.value, n_counters.value
+
+
+def _scratch(device: torch.device, stream: int, ci: int, co: int, ctas: int,
+             counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, stream, ci, co, ctas)
+    if key not in _SCRATCH:
+        # counters start at 0, and every launch leaves them at 0
+        _SCRATCH[key] = (torch.empty((ctas, co, ci), dtype=torch.float32, device=device),
+                         torch.zeros(ctas + 1, dtype=torch.int32, device=device))
+    partials, counter = _SCRATCH[key]
+    assert counters <= counter.numel()
+    return partials, counter
+
+
+# (device, stream, kernel, K, Ci, Co) -> the cached scratch's (partials,
+# counters) addresses: one dictionary lookup per call after the first
+_PLANS: Dict[tuple, Tuple[int, int]] = {}
+
+
+def _launch(kernel: int, name: str, x: torch.Tensor, dy: torch.Tensor, k: int,
+            out_dtype: torch.dtype) -> torch.Tensor:
     from ssdseglib_torch.ops._cuda_build import load_library
 
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-    if x.data_ptr() % 16 or dy.data_ptr() % 16:
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
+    x_ptr, dy_ptr = x.data_ptr(), dy.data_ptr()
+    if x_ptr % 16 or dy_ptr % 16:
         raise ValueError(f"{name}: operands must be 16-byte aligned")
     lib = load_library()
     ci, co = x.shape[-1], dy.shape[-1]
-    dw = torch.empty((ci, co), dtype=torch.float32, device=x.device)
-    partials = torch.empty((lib.pointwise_wgrad_ctas(k), ci, co), dtype=torch.float32,
-                           device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.pointwise_wgrad_launch(
-            kernel, _DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(), partials.data_ptr(),
-            dw.data_ptr(), k, ci, co, torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream, kernel, k, ci, co)
+    plan = _PLANS.get(key)
+    if plan is None:
+        partials, counters = _scratch(device, stream, ci, co, *_grid(lib, kernel, k, ci, co))
+        plan = _PLANS[key] = (partials.data_ptr(), counters.data_ptr())
+    out = torch.empty((co, ci), dtype=out_dtype, device=device)
+    args = (kernel, _DTYPE_CODES[x.dtype], x_ptr, dy_ptr, *plan, out.data_ptr(),
+            _DTYPE_CODES[out_dtype], k, ci, co, 0, 0, stream)
+    if device.index == torch.cuda.current_device():
+        err = lib.pointwise_wgrad_launch(*args)
+    else:
+        with torch.cuda.device(device):
+            err = lib.pointwise_wgrad_launch(*args)
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed with cudaError {err} (K={k}, Ci={ci}, Co={co}, "
             f"{x.dtype})"
         )
-    return dw
+    return out
 
 
-def wgrad_mma(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """dW = x^T dy on the tensor cores: bfloat16 x (..., Ci), dy (..., Co)
-    -> (Ci, Co) f32 (exact bf16 products, f32 sums)."""
+def _out_dtype(out_dtype) -> torch.dtype:
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    return out_dtype
+
+
+def wgrad_mma(x: torch.Tensor, dy: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """dW = dy^T x on the tensor cores: bfloat16 x (..., Ci), dy (..., Co)
+    -> (Co, Ci), the layout of a (Co, Ci, 1, 1) conv weight, summed in f32
+    (exact bf16 products) and written in ``out_dtype``."""
     k = _check("wgrad_mma", x, dy)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"wgrad_mma takes bfloat16 operands, got {x.dtype}")
+    out_dtype = _out_dtype(out_dtype)
     if x.device.type == "cpu":
-        return wgrad_mma_reference(x, dy)
-    dw = _launch(_MMA, "wgrad_mma", x, dy, k)
+        return wgrad_mma_reference(x, dy).to(out_dtype)
+    dw = _launch(_MMA, "wgrad_mma", x, dy, k, out_dtype)
     wgrad_mma.launches += 1
     return dw
 
@@ -118,13 +176,15 @@ def wgrad_mma(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 wgrad_mma.launches = 0
 
 
-def wgrad_fma(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """dW = x^T dy by f32 FMAs on the CUDA cores: float32 or bfloat16
-    x (..., Ci), dy (..., Co) -> (Ci, Co) f32."""
+def wgrad_fma(x: torch.Tensor, dy: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """dW = dy^T x by f32 FMAs on the CUDA cores: float32 or bfloat16
+    x (..., Ci), dy (..., Co) -> (Co, Ci) in ``out_dtype``."""
     k = _check("wgrad_fma", x, dy)
+    out_dtype = _out_dtype(out_dtype)
     if x.device.type == "cpu":
-        return wgrad_fma_reference(x, dy)
-    dw = _launch(_FMA, "wgrad_fma", x, dy, k)
+        return wgrad_fma_reference(x, dy).to(out_dtype)
+    dw = _launch(_FMA, "wgrad_fma", x, dy, k, out_dtype)
     wgrad_fma.launches += 1
     return dw
 
@@ -132,13 +192,16 @@ def wgrad_fma(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 wgrad_fma.launches = 0
 
 
-def wgrad_copy(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """out[i, o] = sum_k x[k, i] + sum_k dy[k, o]: the loads of the weight
-    gradient without its product.  float32 or bfloat16 -> (Ci, Co) f32."""
+def wgrad_copy(x: torch.Tensor, dy: torch.Tensor,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """out[o, i] = sum_k x[k, i] + sum_k dy[k, o]: the loads of the weight
+    gradient without its product.  float32 or bfloat16 -> (Co, Ci) in
+    ``out_dtype``."""
     k = _check("wgrad_copy", x, dy)
+    out_dtype = _out_dtype(out_dtype)
     if x.device.type == "cpu":
-        return wgrad_copy_reference(x, dy)
-    out = _launch(_COPY, "wgrad_copy", x, dy, k)
+        return wgrad_copy_reference(x, dy).to(out_dtype)
+    out = _launch(_COPY, "wgrad_copy", x, dy, k, out_dtype)
     wgrad_copy.launches += 1
     return out
 
@@ -148,29 +211,32 @@ wgrad_copy.launches = 0
 
 def wgrad_mma_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of `wgrad_mma`: one f32 matrix product of the
-    operands' f32 values."""
-    return x.reshape(-1, x.shape[-1]).float().t() @ dy.reshape(-1, dy.shape[-1]).float()
+    operands' f32 values, (Co, Ci)."""
+    return dy.reshape(-1, dy.shape[-1]).float().t() @ x.reshape(-1, x.shape[-1]).float()
 
 
 def wgrad_fma_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of `wgrad_fma`, written as the kernel computes
-    it: per output channel a multiply and a sum over K, in f32."""
+    it: per output channel a multiply and a sum over K, in f32, (Co, Ci)."""
     x2 = x.reshape(-1, x.shape[-1]).float()
     g2 = dy.reshape(-1, dy.shape[-1]).float()
-    return torch.stack([(x2 * g2[:, o:o + 1]).sum(dim=0) for o in range(g2.shape[1])], dim=1)
+    return torch.stack([(x2 * g2[:, o:o + 1]).sum(dim=0) for o in range(g2.shape[1])], dim=0)
 
 
 def wgrad_copy_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of `wgrad_copy`."""
+    """Plain PyTorch version of `wgrad_copy`, (Co, Ci)."""
     sx = x.reshape(-1, x.shape[-1]).float().sum(dim=0)
     sy = dy.reshape(-1, dy.shape[-1]).float().sum(dim=0)
-    return sx[:, None] + sy[None, :]
+    return sy[:, None] + sx[None, :]
 
 
-def pointwise_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """The weight gradient by the kernel of the operands' dtype: bfloat16 on
-    the tensor cores, float32 on the CUDA cores."""
-    return wgrad_mma(x, dy) if x.dtype == torch.bfloat16 else wgrad_fma(x, dy)
+def pointwise_wgrad(x: torch.Tensor, dy: torch.Tensor,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The weight gradient (Co, Ci) in ``out_dtype`` by the kernel of the
+    operands' dtype: bfloat16 on the tensor cores, float32 on the CUDA
+    cores."""
+    kernel = wgrad_mma if x.dtype == torch.bfloat16 else wgrad_fma
+    return kernel(x, dy, out_dtype)
 
 
 def dot_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

@@ -70,8 +70,9 @@ def test_plain_versions_match_pallas_kernels_in_interpret_mode(probe, pallas_nam
     want = np.asarray(getattr(probe, pallas_name)(
         jnp.asarray(x, jnp.bfloat16), jnp.asarray(dy, jnp.bfloat16)))
     got = plain(torch.from_numpy(x).bfloat16(), torch.from_numpy(dy).bfloat16())
-    assert got.dtype == torch.float32 and tuple(got.shape) == (32, 16)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    # the port's layout is the weight's (Co, Ci); the probe's is (Ci, Co)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (16, 32)
+    np.testing.assert_allclose(got.t().numpy(), want, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -81,20 +82,72 @@ def test_wrappers_run_their_plain_versions_on_cpu_tensors(dtype):
     x, dy = _operands((3, 7, 11), 48, 32, seed=1)
     xt, gt = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
     x64, g64 = xt.double().reshape(-1, 48), gt.double().reshape(-1, 32)
-    want = (x64.t() @ g64).numpy()
-    sums = (x64.sum(0)[:, None] + g64.sum(0)[None, :]).numpy()
+    want = (g64.t() @ x64).numpy()  # (Co, Ci), the weight's layout
+    sums = (g64.sum(0)[:, None] + x64.sum(0)[None, :]).numpy()
     counters = (pointwise_wgrad.wgrad_mma, pointwise_wgrad.wgrad_fma, pointwise_wgrad.wgrad_copy)
     before = [c.launches for c in counters]
     np.testing.assert_allclose(pointwise_wgrad.wgrad_fma(xt, gt).numpy(), want, atol=1e-4)
     np.testing.assert_allclose(pointwise_wgrad.wgrad_copy(xt, gt).numpy(), sums, atol=1e-4)
     np.testing.assert_allclose(pointwise_wgrad.pointwise_wgrad(xt, gt).numpy(), want, atol=1e-4)
-    np.testing.assert_allclose(pointwise_wgrad.dot_wgrad(xt, gt).numpy(), want, atol=1e-4)
+    np.testing.assert_allclose(pointwise_wgrad.dot_wgrad(xt, gt).t().numpy(), want, atol=1e-4)
     if dtype == torch.bfloat16:
         np.testing.assert_allclose(pointwise_wgrad.wgrad_mma(xt, gt).numpy(), want, atol=1e-4)
     else:
         with pytest.raises(ValueError, match="bfloat16"):
             pointwise_wgrad.wgrad_mma(xt, gt)
     assert [c.launches for c in counters] == before
+
+
+WRAPPERS = {"mma": pointwise_wgrad.wgrad_mma, "fma": pointwise_wgrad.wgrad_fma,
+            "pointwise": pointwise_wgrad.pointwise_wgrad}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(WRAPPERS))
+def test_result_is_in_the_weights_layout_and_dtype(name, out_dtype):
+    """The contract `_Conv2dFastWgrad` relies on, on CPU tensors: (Co, Ci) --
+    the memory of a (Co, Ci, 1, 1) weight -- contiguous, in ``out_dtype``,
+    equal to the f32 sums rounded once to that dtype."""
+    x, dy = _operands((2, 5, 9), 32, 16, seed=2)
+    xt, gt = torch.from_numpy(x).bfloat16(), torch.from_numpy(dy).bfloat16()
+    got = WRAPPERS[name](xt, gt, out_dtype)
+    assert got.dtype == out_dtype and tuple(got.shape) == (16, 32) and got.is_contiguous()
+    want = gt.double().reshape(-1, 16).t() @ xt.double().reshape(-1, 32)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=8e-3, atol=1e-4)
+    with pytest.raises(ValueError, match="out_dtype"):
+        WRAPPERS[name](xt, gt, torch.float16)
+
+
+@pytest.mark.parametrize("weight_format", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_route_returns_the_kernels_result_as_the_weight_gradient(
+        monkeypatch, dtype, weight_format):
+    """Under impl='cuda' the backward asks the kernel's wrapper for the
+    weight's dtype and hands its (Co, Ci) result on as the weight gradient
+    itself -- the same memory, the weight's shape and strides -- with no
+    copy into another layout."""
+    seen = []
+    real = conv_backward.pointwise_wgrad
+
+    def spy(x, dy, out_dtype):
+        seen.append(real(x, dy, out_dtype))
+        return seen[-1]
+
+    monkeypatch.setattr(conv_backward, "pointwise_wgrad", spy)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 32, 6, 5, generator=gen).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    fmt = torch.channels_last if weight_format == "channels_last" else torch.contiguous_format
+    w = torch.randn(16, 32, 1, 1, generator=gen).to(dtype).contiguous(
+        memory_format=fmt).requires_grad_()
+    dy = torch.randn(2, 16, 6, 5, generator=gen).to(dtype)
+    (dw,) = torch.autograd.grad(conv2d_fast_wgrad(x, w, impl="cuda"), (w,), dy)
+    assert len(seen) == 1 and seen[0].dtype == dtype and tuple(seen[0].shape) == (16, 32)
+    assert dw.data_ptr() == seen[0].data_ptr()
+    assert dw.dtype == dtype and dw.shape == w.shape and dw.stride() == w.stride()
+    want = torch.autograd.grad(blocks.conv2d_same(x.float(), w.float()), (w,), dy.float())[0]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(dw.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_envelope_and_input_contract():
@@ -268,33 +321,45 @@ def test_gate_leaves_names_shapes_and_forward_and_gradients_agree():
 
 
 def test_model_routes_its_dense_convs_through_the_gate(monkeypatch):
-    """Under 'cuda' the small model's forward reaches `conv2d_fast_wgrad` once
-    per dense conv (ConvBN, SepConvBN pointwise, the decoder's output conv)
-    and never for a depthwise conv; under 'aten' never."""
+    """A dense conv reaches `conv2d_fast_wgrad` only where the gate gives its
+    weight gradient another route: under 'dot' every 1x1 stride-1 dense conv
+    (ConvBN, SepConvBN pointwise, the decoder's output conv), under 'cuda'
+    those inside the kernels' envelope (backbone-block0-project and
+    backbone-block1-expand), under 'aten' none; never a depthwise conv.  The
+    forward is the same under every gate."""
     from ssdseglib_torch.config import ModelConfig
     from ssdseglib_torch.models.builder import SsdSegModel
 
     model = SsdSegModel(ModelConfig(input_image_shape=(64, 64, 3), boxes_per_point=(4, 4, 4, 4)),
                         torch.Generator().manual_seed(0)).eval()
-    dense = [m for m in model.modules()
-             if isinstance(m, blocks.SameConv2d) and m.groups == 1]
+    dense = {id(m.weight): name for name, m in model.named_modules()
+             if isinstance(m, blocks.SameConv2d) and m.groups == 1}
+    pointwise = [name for name, m in model.named_modules()
+                 if isinstance(m, blocks.SameConv2d)
+                 and conv_backward.reformulated(m.weight, m.stride[0], m.groups)]
     calls = []
     real = conv_backward.conv2d_fast_wgrad
 
     def spy(x, weight, bias, stride, dilation, groups, impl):
-        calls.append((groups, impl))
+        calls.append((dense[id(weight)], impl))
         return real(x, weight, bias, stride, dilation, groups, impl)
 
     monkeypatch.setattr(conv_backward, "conv2d_fast_wgrad", spy)
     x = torch.zeros(1, 64, 64, 3)
+    got = {}
     try:
         with torch.no_grad():
             want = model(x)
             assert calls == []
-            blocks.set_wgrad_impl("cuda")
-            got = model(x)
+            for impl in ("dot", "cuda"):
+                blocks.set_wgrad_impl(impl)
+                got[impl] = model(x)
     finally:
         blocks.set_wgrad_impl("aten")
-    assert calls == [(1, "cuda")] * len(dense) and len(dense) > 40
-    for k in want:
-        assert torch.equal(got[k], want[k]), k
+    assert len(dense) > 40 and len(pointwise) > 30
+    assert calls[:len(pointwise)] == [(name, "dot") for name in pointwise]
+    assert calls[len(pointwise):] == [("backbone.backbone-block0-project.conv", "cuda"),
+                                      ("backbone.backbone-block1-expand.conv", "cuda")]
+    for impl in got:
+        for k in want:
+            assert torch.equal(got[impl][k], want[k]), (impl, k)

@@ -47,6 +47,41 @@ def test_decode_predictions_matches_jax(anchors_centroids):
     assert torch.equal(layer(torch.from_numpy(offsets)), got)
 
 
+# A process that runs a parallel op first (the weight init that used to
+# precede the decode test), then its first torch.exp over several threads.
+_FIRST_EXP = """
+import numpy as np, torch
+import tests.torch_parity  # noqa: F401 (its import makes the first vector-math call)
+g = torch.Generator().manual_seed(0)
+for shape in [(960, 160), (160, 960), (576, 96), (384, 64)] * 3:
+    torch.empty(shape).uniform_(-0.9, 0.9, generator=g).mul_(0.3)
+x = torch.from_numpy((np.random.default_rng(5).normal(size=(2, 9600)) * 0.1).astype(np.float32))
+want = np.exp(x.numpy().astype(np.float64))
+print(float(np.max(np.abs(torch.exp(x).numpy() - want) / want)))
+"""
+
+
+@pytest.mark.parametrize("run", range(3))
+def test_first_multithreaded_exp_is_exact_after_the_helpers_import(run):
+    """Pins the repair of the order-dependent `test_decode_predictions_matches_jax`:
+    with `tests.torch_parity.initialise_vector_math` run at import, a fresh
+    process's first multi-threaded torch.exp is within one f32 ulp of the
+    f64 exp on every element (without it, one thread's chunk could be off by
+    1e-4 relative)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _FIRST_EXP], cwd=root, capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "8", "PYTHONPATH": os.pathsep.join(
+                              [root] + os.environ.get("PYTHONPATH", "").split(os.pathsep)).rstrip(
+                                  os.pathsep)})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert float(proc.stdout.split()[-1]) < 1.2e-7
+
+
 def test_decode_offsets_zero_background_matches_jax(anchors_centroids):
     offsets = np.random.default_rng(6).normal(size=(2, 9600, 4)).astype(np.float32)
     offsets[:, ::3] = 0.0  # the encoder's background rows

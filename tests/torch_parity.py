@@ -21,6 +21,26 @@ SMALL_CFG = ModelConfig(
 )
 
 
+def initialise_vector_math() -> None:
+    """Makes this process's first call into PyTorch's CPU vector math (MKL's
+    VML, behind ``torch.exp`` and its kin) on ONE thread.  When that first
+    call runs on several threads of the intra-op pool at once, one thread's
+    chunk can come back wrong by up to 1.4e-4 relative (``torch.exp`` right
+    after a weight init: in 2 to 7 of 8 processes; never after a first call
+    on one thread, nor on a second call): what a race in the library's
+    one-time set-up would do.  Run when this module is imported, so before
+    any test of a module that imports it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        torch.exp(torch.zeros(4096))
+    finally:
+        torch.set_num_threads(threads)
+
+
+initialise_vector_math()
+
+
 @pytest.fixture(autouse=True, scope="module")
 def two_torch_threads():
     """For a test module that imports it: PyTorch on two intra-op threads while
