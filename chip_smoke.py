@@ -21,21 +21,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    keep masks must be equal; median of 20 CUDA-event timings of each at
    (16, 4, 256);
    3c. the fused stem + block 1 kernel vs its plain version at
-   (16, 480, 640, 3) and the ragged (3, 36, 52, 3), in bf16 (2 ulps) and f32
-   (1e-5, TF32 off); timings at (16, 480, 640, 3) in bf16 of the kernel, the
-   plain version and, as information, the six cuDNN convs (with their bias
-   and clamp passes) that the default path runs for the same function;
+   (16, 480, 640, 3) and the ragged (3, 36, 52, 3), in bf16 and f32 (1e-5,
+   TF32 off).  bf16 is held at 1.6e-2 of 1 + |twin| (2 ulps at 1) to the
+   plain version that sums in the kernel's tensor-core order
+   (``k_groups=True``: 16-deep steps, each step's exact sum rounded toward
+   zero), and its ulp histograms against that twin and the JAX-order one
+   are printed.  Timings at (16, 480, 640, 3) in bf16 of the wrapper, the
+   kernel alone (20 launches between two CUDA events), the plain version
+   and, as information, the six cuDNN convs (with their bias and clamp
+   passes) that the default path runs for the same function;
 4. the two backward kernels (depthwise 3x3 backward, dw + BN + ReLU6 chain
    backward) vs their plain versions, in bf16 and f32, at the training
    path's shape (16, 240, 320, 32) and at two shapes outside the model's
-   envelope, (16, 120, 160, 144) and the ragged (4, 15, 20, 960).
+   envelope, (16, 120, 160, 144) and the ragged (4, 15, 20, 960); the chain
+   also at (4, 60, 80, 12), a C that is not a multiple of 8.  The chain is
+   called as its autograd unit calls it (the forward's coefficients, the
+   weight's view) and must give the same bits on two calls; that one call
+   issues exactly two device kernels is counted in phase 4b.
    Tolerances: dx 1e-5 in f32 and 2 bf16 ulps (1.6e-2) in bf16, relative
    and absolute; dk, dgamma, dbeta (f32 sums of up to 1.2 M terms taken in
    another order) 1e-4 of the largest reference magnitude.  Timings: median
-   of 20 CUDA events of the kernel, of the plain version, of the library
-   call (``aten.convolution_backward``) for the depthwise backward and, as
-   information, of the ATen autograd route for the chain.  The chain unit's
-   forward is compared with the ATen route (conv, ``F.batch_norm``, clamp);
+   of 20 CUDA events of the kernel (for the chain: the wrapper, and its two
+   launches alone, 20 calls between two events), of the plain version, of
+   the library call (``aten.convolution_backward``) for the depthwise
+   backward and, as information, of the ATen autograd route for the chain.
+   The chain's bound counts 6 n elem bytes: pass 1 reads u and dy, pass 2
+   reads x, u, dy and writes dx (dbeta and dgamma are needed before any du,
+   and u and dy do not stay in the 50 MB L2 between the passes).  The chain
+   unit's forward is compared with the ATen route (conv, ``F.batch_norm``,
+   clamp);
    4b. the three 1x1 weight-gradient kernels (tensor-core product, CUDA-core
    product, loads alone) vs their plain versions at the training path's two
    layers, (16, 240, 320, 32 -> 16) and (16, 240, 320, 16 -> 96), at the same
@@ -47,8 +61,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (16, 240, 320, 32 -> 16) bf16: the tensor-core kernel within 2e-2
    (relative to the largest magnitude) of the f32 product, and the five
    routes timed by CUDA events; one device kernel and one allocation (the
-   returned gradient) per `wgrad_mma` call after the first; the three
-   kernels alone at the two layers;
+   returned gradient) per `wgrad_mma` call after the first, and two device
+   kernels and nothing else per chain backward call at its path's shape
+   (with each one's device time), from the process's one torch.profiler
+   session; the three kernels alone at the two layers;
 5. whole-path serving parity: the BN-folded serving model (fused kernel)
    against the unfused eval-mode model + post-processing, batch 2, 480x640,
    f32;
@@ -110,8 +126,14 @@ the loader costs alone, and
 ``python3 chip_smoke.py --wgrad-variants`` times the three weight-gradient
 kernels alone, the tensor-core one at other (rows per slab, CTAs), and
 ``python3 chip_smoke.py --mbconv-variants`` the bf16 MBConv kernel at other
-(tile, chunk of E, column tiles per warp); none of these prints result
-lines.
+(tile, chunk of E, column tiles per warp), ``python3 chip_smoke.py
+--stem-variants`` the bf16 stem kernel at other (tile, chunk of block 1's
+channels, warps), ``python3 chip_smoke.py
+--chain-variants`` the chain backward at other (tile rows, tile columns),
+all through the launchers' runtime arguments, and
+``python3 chip_smoke.py --ab PARENT_ROOT`` the stem and chain kernels of an
+unpacked parent tree and of this one in turns (parent, change, change,
+parent; one process each); none of these prints result lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
@@ -157,6 +179,14 @@ BATCH = 16
 # (B, H, W, C): the training path's shape (backbone-block0-depthwise at batch
 # 16), then two shapes outside the model's envelope
 BACKWARD_SHAPES = [(16, 240, 320, 32), (16, 120, 160, 144), (4, 15, 20, 960)]
+# the chain kernels also at a C that is not a multiple of 8 (their scalar
+# path in bf16; a ragged channel chunk in f32)
+CHAIN_SHAPES = BACKWARD_SHAPES + [(4, 60, 80, 12)]
+# The previous design's figures at the training path's shape (PERF.md §6: the
+# two-pass chain kernels with their reduction launches and the PyTorch
+# operations between them), printed beside this run's for reference
+CHAIN_PARENT = ("wrapper 0.594-0.705 ms, bound 0.094 ms as then counted (4 n elem bytes), "
+                "NVIDIA H100 80GB HBM3, 700 W")
 SUM_TOLERANCE = 1e-4  # f32 sums of up to 1.2 M terms, relative to the largest
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -411,14 +441,60 @@ STEM_CONVS = (("backbone-block0-expand", (32, 3, 3, 3)),
               ("backbone-block1-project", (24, 96, 1, 1)))
 
 
+# The previous design's figures at the serving shape (PERF.md §6: the
+# CUDA-core stem kernel), printed beside this run's for reference
+STEM_PARENT = ("wrapper 0.990-1.023 ms, kernel alone 0.916 ms, NVIDIA H100 80GB HBM3, "
+               "700 W")
+
+
+def _stem_weights(gen, dtype):
+    """Random folded convs of the stem and block 1, and the kernel's twelve
+    arguments made from them (`stem_block1_args`)."""
+    from ssdseglib_torch.ops.s2d_stem import stem_block1_args
+
+    folded = {}
+    for name, shape in STEM_CONVS:
+        fan_in = shape[1] * shape[2] * shape[3]
+        kernel = (torch.randn(*shape, generator=gen) * 2.0 * fan_in ** -0.5).to("cuda", dtype)
+        folded[name] = (kernel.contiguous(memory_format=torch.channels_last),
+                        (torch.randn(shape[0], generator=gen) * 0.1).to("cuda", dtype))
+    return folded, stem_block1_args(folded)
+
+
+def _ulp_histogram(got, want) -> str:
+    """How many bf16 ulps apart got and want are, element by element: counts
+    at 0, 1, 2, 3, 4 and more."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7fff), bits)
+
+    ulps = (ordered(got) - ordered(want)).abs()
+    counts = [int((ulps == i).sum()) for i in range(5)] + [int((ulps > 4).sum())]
+    return " ".join(f"{label}:{n}" for label, n in zip(("0", "1", "2", "3", "4", ">4"), counts))
+
+
+def _events_ms(fn, launches: int = 20, warmup: int = 3) -> float:
+    """``fn`` called ``launches`` times between two CUDA events, per call:
+    the device time of back-to-back launches, the host's gaps hidden."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
 def phase_stem_kernel_vs_plain():
-    """Phase 3c.  Returns the stem kernel's report at (16, 480, 640, 3) bf16."""
+    """Phase 3c.  Returns the stem kernel's report at (16, 480, 640, 3) bf16.
+    bf16 is held to the plain version that sums in the kernel's tensor-core
+    order (``k_groups=True``; its largest difference is the reported error)
+    and compared with the JAX-order plain version for information; f32 (the
+    CUDA-core kernel) to the plain version."""
     from ssdseglib_torch.models.fused_inference import _block_convs, _conv
-    from ssdseglib_torch.ops.s2d_stem import (
-        fused_stem_block1,
-        fused_stem_block1_reference,
-        stem_block1_args,
-    )
+    from ssdseglib_torch.ops import s2d_stem
 
     def six_convs(folded, x):
         """Stem and block 1 as the default path runs them: six cuDNN convs
@@ -433,30 +509,38 @@ def phase_stem_kernel_vs_plain():
     gen = torch.Generator().manual_seed(3)
     report = {"max_abs_err": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        folded = {}
-        for name, shape in STEM_CONVS:
-            fan_in = shape[1] * shape[2] * shape[3]
-            kernel = (torch.randn(*shape, generator=gen) * 2.0 * fan_in ** -0.5).to("cuda", dtype)
-            folded[name] = (kernel.contiguous(memory_format=torch.channels_last),
-                            (torch.randn(shape[0], generator=gen) * 0.1).to("cuda", dtype))
-        args = stem_block1_args(folded)
+        folded, args = _stem_weights(gen, dtype)
         for shape in ((BATCH, 480, 640, 3), (3, 36, 52, 3)):
             x = (torch.rand(*shape, generator=gen) * 2.0 - 1.0).to("cuda", dtype)
-            got = fused_stem_block1(x, args)
+            got = s2d_stem.fused_stem_block1(x, args)
             torch.cuda.synchronize()
-            want = fused_stem_block1_reference(x, args)
             tag = f"{str(dtype)[6:]:8s} {shape}"
-            err = _check_close(f"stem + block 1 {tag}", got, want, TOLERANCE[dtype])
+            plain = s2d_stem.fused_stem_block1_reference(x, args)
+            if dtype == torch.bfloat16:
+                twin = s2d_stem.fused_stem_block1_reference(x, args, k_groups=True)
+                err = _check_close(f"stem + block 1 {tag} against the k-group twin", got, twin,
+                                   TOLERANCE[dtype])
+                jax_order = float(((got.float() - plain.float()).abs()
+                                   / (1.0 + plain.float().abs())).max())
+                log(f"[stem] {tag} bf16 ulps from the k-group twin {_ulp_histogram(got, twin)} "
+                    f"| from the JAX-order twin {_ulp_histogram(got, plain)}, largest "
+                    f"|diff| / (1 + |twin|) {jax_order:.3g} (information: the two twins differ "
+                    f"by {_ulp_histogram(twin, plain)})")
+            else:
+                err = _check_close(f"stem + block 1 {tag}", got, plain, TOLERANCE[dtype])
             report["max_abs_err"] = max(report["max_abs_err"], err)
             convs = six_convs(folded, x)
             log(f"[stem] {tag} -> {tuple(got.shape)} max_abs_err {err:.3g} (max |output| "
-                f"{float(want.float().abs().max()):.3g}); six-conv route differs by at most "
-                f"{float((convs.float() - want.float()).abs().max()):.3g}")
-            del want, convs
+                f"{float(plain.float().abs().max()):.3g}, limit {TOLERANCE[dtype]} of 1 + |twin|); "
+                f"six-conv route differs by at most "
+                f"{float((convs.float() - plain.float()).abs().max()):.3g}")
+            del plain, convs
             if dtype != torch.bfloat16 or shape[0] != BATCH:
                 continue
-            ms = cuda_median_ms(lambda: fused_stem_block1(x, args))
-            plain_ms = cuda_median_ms(lambda: fused_stem_block1_reference(x, args))
+            to, tw, ec, warps, smem = s2d_stem.kernel_config(480, 640)
+            ms = cuda_median_ms(lambda: s2d_stem.fused_stem_block1(x, args))
+            alone_ms = _events_ms(lambda: s2d_stem._launch(x, args))
+            plain_ms = cuda_median_ms(lambda: s2d_stem.fused_stem_block1_reference(x, args))
             convs_ms = cuda_median_ms(lambda: six_convs(folded, x))
             b, h, w, _ = shape
             half, quarter = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
@@ -465,17 +549,19 @@ def phase_stem_kernel_vs_plain():
             nbytes = 2 * (x.numel() + got.numel() + sum(a.numel() for a in args))
             least, by = bound_ms(nbytes, (products, PEAK_FLOPS[torch.bfloat16]),
                                  (stencils, PEAK_FLOPS[torch.float32]))
-            log(f"[stem] {tag}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | six cuDNN "
-                f"convs with bias and clamp passes (information) {convs_ms:.4f} ms | bound "
-                f"{least:.4f} ms ({by}; {(products + stencils) / 1e9:.2f} GFLOP, "
-                f"{nbytes / 1e6:.1f} MB)")
+            log(f"[stem] {tag}: tile {to}x{tw} at H/4, chunk {ec} of 96, {warps * 32} threads, "
+                f"{smem} B shared | wrapper {ms:.4f} ms | kernel alone {alone_ms:.4f} ms (20 "
+                f"launches between CUDA events) | plain {plain_ms:.4f} ms | six cuDNN convs with "
+                f"bias and clamp passes (information) {convs_ms:.4f} ms | bound {least:.4f} ms "
+                f"({by}; {(products + stencils) / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | "
+                f"previous design: {STEM_PARENT}")
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=least, bound_by=by,
                           library_ms=None)
         torch.cuda.empty_cache()
     return report
 
 
-def phase_backward_kernels_vs_plain():
+def phase_backward_kernels_vs_plain(card: str):
     """Phase 4.  Returns {"depthwise_backward": report, "chain_backward":
     report} with the timings of the path's shape in bf16."""
     import torch.nn.functional as F
@@ -484,16 +570,18 @@ def phase_backward_kernels_vs_plain():
     from ssdseglib_torch.ops import fused_chain_backward as fcb
 
     gen = torch.Generator().manual_seed(1)
+    chain_gen = torch.Generator().manual_seed(6)  # the chain-only shape's own stream
     reports = {name: {"max_abs_err": 0.0} for name in ("depthwise_backward",
                                                        "chain_backward")}
     for dtype in (torch.bfloat16, torch.float32):
         elem = 2 if dtype == torch.bfloat16 else 4
-        for shape in BACKWARD_SHAPES:
+        for shape in CHAIN_SHAPES:
             b, h, w, c = shape
             n = b * h * w * c
+            source = gen if shape in BACKWARD_SHAPES else chain_gen
 
             def draw(*dims, scale=1.0, shift=0.0):
-                return (torch.randn(*dims, generator=gen) * scale + shift).to("cuda")
+                return (torch.randn(*dims, generator=source) * scale + shift).to("cuda")
 
             x = draw(*shape, scale=2.0).to(dtype)
             dy = draw(*shape).to(dtype)
@@ -505,41 +593,52 @@ def phase_backward_kernels_vs_plain():
             tag = f"{str(dtype)[6:]:8s} {shape}"
 
             # -- depthwise 3x3 backward
-            dx, dk = dwb.depthwise3x3_backward(x, dy, kernel)
-            torch.cuda.synchronize()
-            dx_ref, dk_ref = dwb.depthwise3x3_backward_reference(x, dy, kernel)
-            errs = [_check_close(f"depthwise backward dx {tag}", dx, dx_ref, TOLERANCE[dtype]),
-                    _check_close(f"depthwise backward dk {tag}", dk, dk_ref, SUM_TOLERANCE,
-                                 scale_by_max=True)]
-            ms = cuda_median_ms(lambda: dwb.depthwise3x3_backward(x, dy, kernel))
-            plain_ms = cuda_median_ms(
-                lambda: dwb.depthwise3x3_backward_reference(x, dy, kernel))
-            library_ms = cuda_median_ms(lambda: torch.ops.aten.convolution_backward(
-                dy_nchw, x_nchw, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], c,
-                [True, True, False]))
-            least, by = bound_ms(3 * n * elem + 2 * 9 * c * 4,
-                                   (36 * n, PEAK_FLOPS[torch.float32]))
-            log(f"[dw-bwd] {tag} max_abs_err dx {errs[0]:.3g} dk {errs[1]:.3g} | kernel "
-                f"{ms:.4f} ms | plain {plain_ms:.4f} ms | aten.convolution_backward "
-                f"{library_ms:.4f} ms | bound {least:.4f} ms ({by})")
-            rep = reports["depthwise_backward"]
-            rep["max_abs_err"] = max(rep["max_abs_err"], *errs)
-            if dtype == torch.bfloat16 and shape == BACKWARD_SHAPES[0]:
-                rep.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=least, bound_by=by)
+            if shape in BACKWARD_SHAPES:
+                dx, dk = dwb.depthwise3x3_backward(x, dy, kernel)
+                torch.cuda.synchronize()
+                dx_ref, dk_ref = dwb.depthwise3x3_backward_reference(x, dy, kernel)
+                errs = [_check_close(f"depthwise backward dx {tag}", dx, dx_ref,
+                                     TOLERANCE[dtype]),
+                        _check_close(f"depthwise backward dk {tag}", dk, dk_ref, SUM_TOLERANCE,
+                                     scale_by_max=True)]
+                ms = cuda_median_ms(lambda: dwb.depthwise3x3_backward(x, dy, kernel))
+                plain_ms = cuda_median_ms(
+                    lambda: dwb.depthwise3x3_backward_reference(x, dy, kernel))
+                library_ms = cuda_median_ms(lambda: torch.ops.aten.convolution_backward(
+                    dy_nchw, x_nchw, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], c,
+                    [True, True, False]))
+                least, by = bound_ms(3 * n * elem + 2 * 9 * c * 4,
+                                     (36 * n, PEAK_FLOPS[torch.float32]))
+                log(f"[dw-bwd] {tag} max_abs_err dx {errs[0]:.3g} dk {errs[1]:.3g} | kernel "
+                    f"{ms:.4f} ms | plain {plain_ms:.4f} ms | aten.convolution_backward "
+                    f"{library_ms:.4f} ms | bound {least:.4f} ms ({by})")
+                rep = reports["depthwise_backward"]
+                rep["max_abs_err"] = max(rep["max_abs_err"], *errs)
+                if dtype == torch.bfloat16 and shape == BACKWARD_SHAPES[0]:
+                    rep.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                               bound_ms=least, bound_by=by)
 
-            # -- dw + BN + ReLU6 chain backward
-            y, u_nchw, mean, var = fcb._forward_math(x_nchw, weight, gamma, beta)
+            # -- dw + BN + ReLU6 chain backward, called as the autograd unit
+            #    calls it: the forward's coefficients, the weight's HWIO view
+            y, u_nchw, mean, var, coefficients = fcb._forward_math(x_nchw, weight, gamma, beta)
             u = u_nchw.permute(0, 2, 3, 1)
-            args = (x, u, dy, kernel, gamma, beta, mean, var)
+            taps = weight.permute(2, 3, 1, 0)
+            args = (x, u, dy, taps, gamma, beta, mean, var, coefficients)
             got = fcb.dw_bn_relu6_backward(*args)
             torch.cuda.synchronize()
-            want = fcb.dw_bn_relu6_backward_reference(*args)
+            again = fcb.dw_bn_relu6_backward(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"chain backward {tag}: two calls give other bits")
+            want = fcb.dw_bn_relu6_backward_reference(x, u, dy, kernel, gamma, beta, mean, var)
             errs = [_check_close(f"chain backward dx {tag}", got[0], want[0], TOLERANCE[dtype])]
             errs += [_check_close(f"chain backward {name} {tag}", g, r, SUM_TOLERANCE,
                                   scale_by_max=True)
                      for name, g, r in zip(("dk", "dgamma", "dbeta"), got[1:], want[1:])]
             ms = cuda_median_ms(lambda: fcb.dw_bn_relu6_backward(*args))
+            outs = (torch.empty_like(x), torch.empty((9, c), dtype=torch.float32, device="cuda"),
+                    torch.empty((2, c), dtype=torch.float32, device="cuda"))
+            alone_ms = _events_ms(lambda: fcb._launch(x, u, dy, taps, coefficients, out=outs))
             plain_ms = cuda_median_ms(lambda: fcb.dw_bn_relu6_backward_reference(*args))
 
             # the ATen route of the same unit: forward compared, backward timed
@@ -556,21 +655,63 @@ def phase_backward_kernels_vs_plain():
                     f"chain forward differs from the ATen route by {fwd_diff} at {tag}")
             aten_ms = cuda_median_ms(lambda: torch.autograd.grad(
                 y_aten, leaves, dy_nchw, retain_graph=True))
-            least, by = bound_ms(4 * n * elem + 2 * 9 * c * 4,
-                                   (56 * n, PEAK_FLOPS[torch.float32]))
+            # bytes: pass 1 reads u and dy, pass 2 reads x, u, dy and writes dx
+            # (dbeta and dgamma must be known before any du, and u and dy do
+            # not stay in L2 between the passes)
+            least, by = bound_ms(6 * n * elem + 2 * 9 * c * 4,
+                                 (56 * n, PEAK_FLOPS[torch.float32]))
             log(f"[chain-bwd] {tag} max_abs_err dx {errs[0]:.3g} dk {errs[1]:.3g} dgamma "
-                f"{errs[2]:.3g} dbeta {errs[3]:.3g} | kernel {ms:.4f} ms | plain "
-                f"{plain_ms:.4f} ms | ATen autograd route {aten_ms:.4f} ms | bound "
-                f"{least:.4f} ms ({by}) | forward vs ATen route max diff {fwd_diff:.3g}"
+                f"{errs[2]:.3g} dbeta {errs[3]:.3g}, same bits on two calls | wrapper {ms:.4f} ms "
+                f"| kernels alone {alone_ms:.4f} ms (20 calls of the two launches between CUDA "
+                f"events) | plain {plain_ms:.4f} ms | ATen autograd route {aten_ms:.4f} ms | "
+                f"bound {least:.4f} ms ({by}) | forward vs ATen route max diff {fwd_diff:.3g}"
                 f"{' (bit for bit)' if fwd_diff == 0.0 else ''}")
             rep = reports["chain_backward"]
             rep["max_abs_err"] = max(rep["max_abs_err"], *errs)
             if dtype == torch.bfloat16 and shape == BACKWARD_SHAPES[0]:
                 rep.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=least,
                            bound_by=by)
-            del leaves, y_aten, y, u_nchw, u, args, got, want
+                # counted in phase 4b, in the process's one profiling session
+                rep["call"] = lambda call_args=args: fcb.dw_bn_relu6_backward(*call_args)
+            del leaves, y_aten, y, u_nchw, u, args, got, again, want, outs
             torch.cuda.empty_cache()
     return reports
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler kernel key without its namespace, template and signature."""
+    return key.replace("(anonymous namespace)::", "").replace("void ", "").split("<")[0] \
+        .split("(")[0]
+
+
+def _device_kernels(fns, calls: int = 10):
+    """[(kernel name, launches, device ms)] of ``calls`` calls of each of
+    ``fns``, in turns, from torch.profiler, after a first call of each that
+    may allocate cached scratch.  The profiler records a warm-up step of the
+    same calls and drops it, then counts the next step.  A process runs one
+    profiling session: a second one has been seen to miss some or all of the
+    kernels it should count."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    counted = []
+
+    def count(prof) -> None:
+        counted.append([(e.key, e.count, e.self_device_time_total / 1e3)
+                        for e in prof.key_averages() if e.device_type.name == "CUDA"])
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=count,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+            prof.step()
+    assert len(counted) == 1, counted
+    return counted[0]
 
 
 # (leading axes, Ci, Co): the two layers of the flagship model inside the
@@ -583,7 +724,7 @@ WGRAD_PATH = {"wgrad_mma": (torch.bfloat16, (0, 1)), "wgrad_fma": (torch.float32
               "wgrad_copy": (torch.bfloat16, (0,))}
 
 
-def phase_wgrad_kernels_vs_plain(card: str):
+def phase_wgrad_kernels_vs_plain(card: str, chain_call):
     """Phase 4b.  Returns {"wgrad_mma": report, "wgrad_fma": report,
     "wgrad_copy": report}: timings summed over the shapes of WGRAD_PATH, and
     the launches of `wgrad_copy` in the study (its main path)."""
@@ -666,7 +807,7 @@ def phase_wgrad_kernels_vs_plain(card: str):
     for arm in ("aten", "dot", "mma", "copy", "fma"):
         log(f"[wgrad-study] {arm:5s} {study[arm + '_ms']:.4f} ms (CUDA events, median of 20) "
             f"| {card}")
-    _wgrad_launches_and_allocations(gen)
+    _launches_and_allocations(gen, chain_call, card)
     for lead, ci, co in WGRAD_SHAPES[:2]:
         x = torch.randn(*lead, ci, generator=gen).to("cuda", torch.bfloat16)
         dy = torch.randn(*lead, co, generator=gen).to("cuda", torch.bfloat16)
@@ -678,13 +819,13 @@ def phase_wgrad_kernels_vs_plain(card: str):
     return reports
 
 
-def _wgrad_launches_and_allocations(gen, calls: int = 10) -> None:
-    """`wgrad_mma` at the training path's first layer: device kernels a call
-    launches (torch.profiler) and allocations a call makes after the first
-    (the caching allocator's count): one launch, and one allocation -- the
-    gradient it returns -- with no scratch."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _launches_and_allocations(gen, chain_call, card: str, calls: int = 10) -> None:
+    """Device kernels a call launches, from one torch.profiler session over
+    both: `wgrad_mma` at the training path's first layer (one launch) and
+    ``chain_call``, the chain backward at its path's shape (two launches,
+    with each one's device time); no other kernel may run.  And the
+    allocations a `wgrad_mma` call makes after the first (the caching
+    allocator's count): one -- the gradient it returns -- with no scratch."""
     from ssdseglib_torch.ops import pointwise_wgrad as pw
 
     lead, ci, co = WGRAD_SHAPES[0]
@@ -695,15 +836,20 @@ def _wgrad_launches_and_allocations(gen, calls: int = 10) -> None:
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
     kept = [pw.wgrad_mma(x, dy, torch.bfloat16) for _ in range(calls)]
     allocations = (torch.cuda.memory_stats()["allocation.all.allocated"] - before) / calls
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            pw.wgrad_mma(x, dy, torch.bfloat16)
-        torch.cuda.synchronize()
-    kernels = sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
-    log(f"[wgrad] wgrad_mma {lead} {ci} -> {co} bf16 -> (Co, Ci) bf16: {kernels / calls:g} "
+    rows = _device_kernels([lambda: pw.wgrad_mma(x, dy, torch.bfloat16), chain_call], calls)
+    wgrad = sum(n for key, n, _ in rows if "wgrad_mma" in key)
+    chain = [(_kernel_name(key), n, ms) for key, n, ms in rows if "chain_" in key]
+    others = sum(n for _, n, _ in rows) - wgrad - sum(n for _, n, _ in chain)
+    log(f"[wgrad] wgrad_mma {lead} {ci} -> {co} bf16 -> (Co, Ci) bf16: {wgrad / calls:g} "
         f"device kernel(s) and {allocations:g} allocation(s) per call after the first "
         f"(the returned gradient); scratch buffers cached: {len(pw._SCRATCH)}")
-    assert kernels == calls and allocations == 1, (kernels, allocations)
+    log(f"[chain-bwd] bfloat16 {BACKWARD_SHAPES[0]}: "
+        f"{sum(n for _, n, _ in chain) / calls:g} device kernel(s) per call, device time "
+        + ", ".join(f"{name} {ms / calls:.4f} ms" for name, _, ms in chain)
+        + f" (torch.profiler); other kernels in the window: {others} | previous design: "
+        f"{CHAIN_PARENT} | {card}")
+    assert wgrad == calls and allocations == 1, (wgrad, allocations)
+    assert sum(n for _, n, _ in chain) == 2 * calls and others == 0, (chain, others)
     del kept
 
 
@@ -1449,6 +1595,192 @@ def mbconv_variants(card: str, rounds: int = 2, launches: int = 20) -> None:
                 f"{' | '.join(cells)} | {card}")
 
 
+# Candidate (tile rows, tile columns at H/4, chunk of block 1's 96 channels,
+# warps) of the bf16 stem kernel, the source's choice (0s) first, for
+# `--stem-variants`
+STEM_VARIANTS = [(0, 0, 0, 0), (15, 16, 32, 16), (15, 16, 96, 16), (15, 16, 48, 8),
+                 (12, 16, 48, 16), (10, 16, 48, 16), (20, 16, 48, 16), (15, 20, 48, 16),
+                 (8, 16, 48, 8), (8, 16, 32, 8), (8, 16, 16, 8), (8, 16, 48, 16), (6, 16, 48, 8),
+                 (8, 32, 48, 16), (4, 16, 48, 8)]
+
+
+def stem_variants(card: str, rounds: int = 2) -> None:
+    """``python3 chip_smoke.py --stem-variants``: the bf16 stem + block 1
+    kernel ALONE (20 launches between two CUDA events) at (16, 480, 640, 3)
+    with each configuration of STEM_VARIANTS, every one first held against
+    the plain version in the kernel's order (the phase-3c gate), in turns
+    over ``rounds`` rounds."""
+    from ssdseglib_torch.ops import s2d_stem
+
+    gen = torch.Generator().manual_seed(3)
+    _, args = _stem_weights(gen, torch.bfloat16)
+    x = (torch.rand(BATCH, 480, 640, 3, generator=gen) * 2.0 - 1.0).to("cuda", torch.bfloat16)
+    twin = s2d_stem.fused_stem_block1_reference(x, args, k_groups=True)
+    runnable = []
+    for config in STEM_VARIANTS:
+        try:
+            resolved = s2d_stem.kernel_config(480, 640, config)
+        except RuntimeError:
+            log(f"[stem-variants] {config}: does not fit the card (shared memory)")
+            continue
+        _check_close(f"stem variant {config}", s2d_stem._launch(x, args, config), twin,
+                     TOLERANCE[torch.bfloat16])
+        runnable.append((config, resolved))
+    for r in range(rounds):
+        cells = [f"{resolved[:4]} {resolved[4]} B "
+                 f"{_events_ms(lambda: s2d_stem._launch(x, args, config)):.4f}"
+                 for config, resolved in runnable]
+        log(f"[stem-variants] round {r} (tile rows, cols, chunk, warps) shared bytes ms: "
+            f"{' | '.join(cells)} | {card}")
+
+
+# Candidate (tile rows, tile columns) of the chain backward's pass 2, the
+# source's choice (0s) first, for `--chain-variants`
+CHAIN_VARIANTS = [(0, 0), (8, 32), (16, 16), (8, 16), (6, 32), (4, 32), (10, 32), (24, 16),
+                  (12, 32), (4, 64)]
+
+
+def chain_variants(card: str, rounds: int = 2) -> None:
+    """``python3 chip_smoke.py --chain-variants``: the two chain backward
+    launches ALONE (20 calls between two CUDA events) at the training path's
+    shape in bf16 and f32 with each pass-2 tile (rows, columns) of
+    CHAIN_VARIANTS, every one first held against the plain version
+    (phase 4's limits), in turns over ``rounds`` rounds."""
+    from ssdseglib_torch.ops import fused_chain_backward as fcb
+
+    gen = torch.Generator().manual_seed(1)
+    b, h, w, c = BACKWARD_SHAPES[0]
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(b, h, w, c, generator=gen) * 2.0).to("cuda", dtype)
+        dy = torch.randn(b, h, w, c, generator=gen).to("cuda", dtype)
+        weight = (torch.randn(c, 1, 3, 3, generator=gen) * 0.5).to("cuda", dtype)
+        gamma = (torch.randn(c, generator=gen) * 0.1 + 1.0).cuda()
+        beta = (torch.randn(c, generator=gen) * 0.1).cuda()
+        _, u_nchw, mean, var, coefficients = fcb._forward_math(
+            x.permute(0, 3, 1, 2), weight, gamma, beta)
+        u, taps = u_nchw.permute(0, 2, 3, 1), weight.permute(2, 3, 1, 0)
+        want = fcb.dw_bn_relu6_backward_reference(x, u, dy, taps, gamma, beta, mean, var)
+        for config in CHAIN_VARIANTS:
+            try:
+                got = fcb._launch(x, u, dy, taps, coefficients, config)
+            except RuntimeError:
+                log(f"[chain-variants] {str(dtype)[6:]} {config}: does not fit the card")
+                continue
+            _check_close(f"chain variant dx {config}", got[0], want[0], TOLERANCE[dtype])
+            _check_close(f"chain variant dk {config}", got[1].reshape(3, 3, 1, c), want[1],
+                         SUM_TOLERANCE, scale_by_max=True)
+            for g, r in zip(got[2].flip(0), want[2:]):
+                _check_close(f"chain variant sums {config}", g, r, SUM_TOLERANCE,
+                             scale_by_max=True)
+            cases.append((dtype, config, (x, u, dy, taps, coefficients), got))
+    for r in range(rounds):
+        for dtype in (torch.bfloat16, torch.float32):
+            cells = [f"{config} {_events_ms(lambda: fcb._launch(*ops, config, out=outs)):.4f}"
+                     for dt, config, ops, outs in cases if dt == dtype]
+            log(f"[chain-variants] round {r} {str(dtype)[6:]} {(b, h, w, c)} (tile rows, cols) "
+                f"ms: {' | '.join(cells)} | {card}")
+
+
+def ab_arm(card: str) -> None:
+    """``python3 chip_smoke.py --ab-arm ROOT``: one arm of `--ab`, on the
+    ``ssdseglib_torch`` package under ROOT: at the serving and training
+    paths' shapes in bf16, the stem kernel's wrapper and kernel-alone time,
+    the six cuDNN convs of the same function, the chain backward's wrapper
+    and kernels-alone time and the ATen route of the unit; one JSON line."""
+    import torch.nn.functional as F
+
+    from ssdseglib_torch.ops import _cuda_build
+    from ssdseglib_torch.ops import fused_chain_backward as fcb
+    from ssdseglib_torch.ops import s2d_stem
+
+    lib = _cuda_build.load_library()
+    new = hasattr(s2d_stem, "_launch")
+    row = {"package": str(_cuda_build._PKG), "card": card}
+    gen = torch.Generator().manual_seed(3)
+    _, args = _stem_weights(gen, torch.bfloat16)
+    x = (torch.rand(BATCH, 480, 640, 3, generator=gen) * 2.0 - 1.0).to("cuda", torch.bfloat16)
+    out = torch.empty((BATCH, 120, 160, 24), dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def stem_alone():
+        if new:
+            return s2d_stem._launch(x, args)
+        assert lib.stem_block1_launch(1, x.data_ptr(), *(t.data_ptr() for t in args),
+                                      out.data_ptr(), BATCH, 480, 640, stream) == 0
+
+    row["stem_ms"] = cuda_median_ms(lambda: s2d_stem.fused_stem_block1(x, args))
+    row["stem_alone_ms"] = _events_ms(stem_alone)
+
+    b, h, w, c = BACKWARD_SHAPES[0]
+    gen = torch.Generator().manual_seed(1)
+    xc = (torch.randn(b, h, w, c, generator=gen) * 2.0).to("cuda", torch.bfloat16)
+    dy = torch.randn(b, h, w, c, generator=gen).to("cuda", torch.bfloat16)
+    weight = (torch.randn(c, 1, 3, 3, generator=gen) * 0.5).to("cuda", torch.bfloat16)
+    gamma = (torch.randn(c, generator=gen) * 0.1 + 1.0).cuda()
+    beta = (torch.randn(c, generator=gen) * 0.1).cuda()
+    forward = fcb._forward_math(xc.permute(0, 3, 1, 2), weight, gamma, beta)
+    u, mean, var = forward[1].permute(0, 2, 3, 1), forward[2], forward[3]
+    taps = weight.permute(2, 3, 1, 0)
+    if new:  # as each tree's autograd unit calls it
+        coefficients = forward[4]
+        row["chain_ms"] = cuda_median_ms(lambda: fcb.dw_bn_relu6_backward(
+            xc, u, dy, taps, gamma, beta, mean, var, coefficients))
+        row["chain_alone_ms"] = _events_ms(lambda: fcb._launch(xc, u, dy, taps, coefficients))
+    else:
+        row["chain_ms"] = cuda_median_ms(lambda: fcb.dw_bn_relu6_backward(
+            xc, u, dy, taps, gamma, beta, mean, var))
+        # the parent's two C launchers (each pass and its reduction kernel),
+        # without the PyTorch operations its wrapper runs between them
+        mean32, inv, a_coef, beta32 = fcb._coefficients(gamma, beta, mean, var)
+        coef = torch.stack((mean32, inv, a_coef, beta32, a_coef, a_coef))
+        taps32 = taps.reshape(9, c).float().contiguous()
+        partials = torch.empty((lib.dw_bwd_partial_rows(b, h, w, c), 9, c), device="cuda")
+        sums, dk = torch.empty((2, c), device="cuda"), torch.empty((9, c), device="cuda")
+        dx = torch.empty_like(xc)
+
+        def chain_alone():
+            assert lib.chain_bn_sums_launch(1, *(t.data_ptr() for t in (u, dy, coef, partials,
+                                                                        sums)),
+                                            b, h, w, c, stream) == 0
+            assert lib.chain_backward_launch(1, *(t.data_ptr() for t in (
+                xc, u, dy, taps32, coef, dx, partials, dk)), b, h, w, c, stream) == 0
+
+        row["chain_alone_ms"] = _events_ms(chain_alone)
+    leaves = [t.detach().requires_grad_() for t in (xc.permute(0, 3, 1, 2), weight, gamma,
+                                                    beta)]
+    y_aten = F.batch_norm(F.conv2d(leaves[0], leaves[1], None, 1, 1, 1, c), None, None,
+                          leaves[2].to(torch.bfloat16), leaves[3].to(torch.bfloat16), True, 0.01,
+                          fcb.BN_EPSILON).clamp(0.0, 6.0)
+    row["chain_aten_route_ms"] = cuda_median_ms(lambda: torch.autograd.grad(
+        y_aten, leaves, dy.permute(0, 3, 1, 2), retain_graph=True))
+    print(json.dumps(row), flush=True)
+
+
+def ab_in_turns(card: str, parent_root: str) -> None:
+    """``python3 chip_smoke.py --ab PARENT_ROOT``: `--ab-arm` on the parent's
+    package (an unpacked tree at PARENT_ROOT) and on this one, in turns
+    (parent, change, change, parent), each arm a process of its own on the
+    same card."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for arm, root in (("parent", parent_root), ("change", here), ("change", here),
+                      ("parent", parent_root)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-arm", root],
+                              capture_output=True, text=True, check=True)
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        rows.append((arm, row))
+        log(f"[ab] {arm}: " + " | ".join(f"{k} {v:.4f}" for k, v in row.items()
+                                          if isinstance(v, float)) + f" | {row['package']}")
+    for key in ("stem_ms", "stem_alone_ms", "chain_ms", "chain_alone_ms"):
+        parent = [r[key] for arm, r in rows if arm == "parent"]
+        change = [r[key] for arm, r in rows if arm == "change"]
+        log(f"[ab] {key}: change / parent = {max(change) / min(parent):.3f} at worst, "
+            f"{min(change) / max(parent):.3f} at best | {card}")
+
+
 def profile_fit(card: str, steps: int = 8) -> None:
     """``python3 chip_smoke.py --profile-fit``: what each stage of a `fit`
     epoch over the loader costs at bf16 b16 (default gates), each timed alone
@@ -1556,7 +1888,7 @@ def profile_serving(card: str, steps: int = 8) -> None:
         return out["output-mask"], postprocess(out, "topk")
 
     inputs, _ = _serving_inputs()
-    own = ("mbconv_bf16_kernel", "stem_block1_kernel", "nms_scan_kernel")
+    own = ("mbconv_bf16_kernel", "stem_block1", "nms_scan_kernel")
     for tag, serve in (("default path", infer), ("option path", serve_option)):
         for i in range(3):
             serve(inputs[i])[1].cpu()
@@ -1601,6 +1933,8 @@ def profile_training(card: str, route: str, steps: int = 6) -> None:
 
 
 def main() -> None:
+    if "--ab-arm" in sys.argv:  # the arm's package comes first on the path
+        sys.path.insert(0, sys.argv[sys.argv.index("--ab-arm") + 1])
     card = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1617,6 +1951,18 @@ def main() -> None:
     if "--mbconv-variants" in sys.argv:
         mbconv_variants(card)
         return
+    if "--stem-variants" in sys.argv:
+        stem_variants(card)
+        return
+    if "--chain-variants" in sys.argv:
+        chain_variants(card)
+        return
+    if "--ab-arm" in sys.argv:
+        ab_arm(card)
+        return
+    if "--ab" in sys.argv:
+        ab_in_turns(card, sys.argv[sys.argv.index("--ab") + 1])
+        return
     if "--profile-train" in sys.argv:
         routes = [a for a in sys.argv[1:] if a in ROUTES] or list(ROUTES)
         for route in routes:
@@ -1625,8 +1971,8 @@ def main() -> None:
     mbconv = phase_kernel_vs_twin()
     scan = phase_scan_kernel_vs_plain()
     stem = phase_stem_kernel_vs_plain()
-    backward = phase_backward_kernels_vs_plain()
-    wgrad = phase_wgrad_kernels_vs_plain(card)
+    backward = phase_backward_kernels_vs_plain(card)
+    wgrad = phase_wgrad_kernels_vs_plain(card, backward["chain_backward"].pop("call"))
     phase_whole_path_parity()
     mbconv["launches"], default_rate = phase_serving(card)
     train_launches = phase_training(card)

@@ -57,6 +57,13 @@ using ssdseg::cp_async16;
 using ssdseg::cp_async_commit;
 using ssdseg::cp_async_wait;
 using ssdseg::from_f;
+using ssdseg::ldsm_x2_trans;
+using ssdseg::ldsm_x4;
+using ssdseg::ldsm_x4_trans;
+using ssdseg::mma_16816;
+using ssdseg::padded_ld;
+using ssdseg::relu6_rounded;
+using ssdseg::round_up;
 using ssdseg::to_f;
 
 // f32 path: 512 threads x 8 pixels of register blocking per thread in the
@@ -241,12 +248,6 @@ constexpr int kMaxWarps = 16;
 // per warp), smallest first.
 constexpr int kNreps[] = {1, 2, 3, 4, 5, 6, 8, 10};
 
-// Row stride, in bf16 elements, of a shared tile whose rows hold n (a
-// multiple of 8) values: padded so that the stride is an odd number of 16-byte
-// units and the eight rows an ldmatrix reads fall in eight different bank
-// groups.
-__host__ __device__ inline int padded_ld(int n) { return (n / 8) % 2 == 0 ? n + 8 : n + 16; }
-
 // Everything the bf16 kernel derives from (shape, tile): sizes, strides and
 // the byte offsets of its shared-memory regions.  Built on the host.
 struct Geo {
@@ -260,8 +261,6 @@ struct Geo {
   int w1_buf, w3_buf, aux_buf;    // bytes of one buffer of each
   int smem;
 };
-
-__host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 struct Bf16Config {
   int th, tw, ec, nrep;
@@ -330,45 +329,6 @@ bool make_geo(int H, int W, int Cin, int E, int Cout, Bf16Config c, int smem_max
   const int out_end = g->off_e + g->mt_tiles * 16 * g->ldo * b;
   g->smem = tiles_end > out_end ? tiles_end : out_end;
   return g->smem <= smem_max;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// ldmatrix: four (or two) 8 x 8 b16 matrices from shared memory, each lane
-// giving the address of one row; .trans hands out the transposes.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, "col"), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                          unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float relu6_rounded(float v) {
-  return fminf(fmaxf(__bfloat162float(__float2bfloat16_rn(v)), 0.0f), 6.0f);
 }
 
 // Starts the copies of chunk `c`'s slices -- w1[:, c0:c0+EC], w3[c0:c0+EC, :],

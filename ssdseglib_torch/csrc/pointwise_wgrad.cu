@@ -24,7 +24,7 @@
 // one to the next, so all three are split-K reductions: a CTA owns a contiguous
 // range of rows of K, reduces it to a (Co, Ci) f32 partial and writes it to a
 // (CTAs, Co, Ci) scratch buffer.  The sum over the partials happens in the same
-// launch (`finish` below): each CTA takes a ticket from a device counter after
+// launch (`finish`, common.cuh): each CTA takes a ticket from a device counter after
 // writing its partial; the last CTA of a group of consecutive CTAs adds the
 // group's partials in CTA order, and the last group to finish adds the group
 // sums in group order and writes dW in the output dtype.  The order of every
@@ -76,13 +76,12 @@ inline Split make_split(long long K, int max_ctas) {
   Split s;
   s.rows_per_cta = int(rows);
   s.ctas = int((K + rows - 1) / rows);
-  s.group = 1;
-  while (s.group * s.group < s.ctas) ++s.group;  // ceil(sqrt(ctas))
+  s.group = finish_group(s.ctas);
   return s;
 }
 
 // Counters the in-launch reduction uses: one per group and one for the groups.
-inline int counters_needed(const Split& s) { return (s.ctas + s.group - 1) / s.group + 1; }
+inline int counters_needed(const Split& s) { return finish_counters(s.ctas, s.group); }
 
 // 16 bytes of `a` starting at element `idx`, or zeros when `inside` is false.
 template <typename T>
@@ -140,47 +139,17 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ a, T* s, long l
   }
 }
 
-// The end of every kernel below.  Each CTA has written its (Co, Ci) partial to
-// partials[blockIdx.x]; the last CTA of each group of `group` consecutive CTAs
-// sums the group's partials in CTA order into the slot of the group's first
-// CTA, and the last group to finish sums those in group order into `out`
-// ((Co, Ci), f32 when out_bf16 is 0, else bf16).  The winners reset their
-// counters to 0.  `ticket` is a shared int.
-__device__ __forceinline__ void finish(float* __restrict__ partials, int* __restrict__ counters,
-                                       void* __restrict__ out, int out_bf16, int M, int group,
-                                       int& ticket) {
-  const int n = gridDim.x, g = blockIdx.x / group;
-  const int g0 = g * group, members = min(group, n - g0);
-  const int groups = (n + group - 1) / group;
-  __threadfence();  // this CTA's partial is visible before its ticket is taken
-  __syncthreads();
-  if (threadIdx.x == 0) ticket = atomicAdd(counters + g, 1);
-  __syncthreads();
-  if (ticket != members - 1) return;
-  __threadfence();
-  for (int e = threadIdx.x; e < M; e += blockDim.x) {
-    float s = 0.0f;
-    for (int p = 0; p < members; ++p) s += __ldcg(partials + size_t(g0 + p) * M + e);
-    __stcg(partials + size_t(g0) * M + e, s);
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    counters[g] = 0;
-    ticket = atomicAdd(counters + groups, 1);
-  }
-  __syncthreads();
-  if (ticket != groups - 1) return;
-  __threadfence();
-  for (int e = threadIdx.x; e < M; e += blockDim.x) {
-    float s = 0.0f;
-    for (int q = 0; q < groups; ++q) s += __ldcg(partials + size_t(q) * group * M + e);
+// The end of every kernel below: `finish` (common.cuh) over the grid, writing
+// dW ((Co, Ci), f32 when out_bf16 is 0, else bf16).
+__device__ __forceinline__ void finish_dw(float* __restrict__ partials, int* __restrict__ counters,
+                                          void* __restrict__ out, int out_bf16, int M, int group,
+                                          int& ticket) {
+  finish(partials, counters, gridDim.x, blockIdx.x, M, group, ticket, [&](int e, float s) {
     if (out_bf16)
       static_cast<__nv_bfloat16*>(out)[e] = __float2bfloat16_rn(s);
     else
       static_cast<float*>(out)[e] = s;
-  }
-  if (threadIdx.x == 0) counters[groups] = 0;
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -296,7 +265,7 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
     const int o = e / Ci, i = e - o * Ci;
     mine[e] = blk[i * Co + o];
   }
-  finish(partials, counters, out, out_bf16, Ci * Co, group, ticket);
+  finish_dw(partials, counters, out, out_bf16, Ci * Co, group, ticket);
 }
 
 template <int TI, int TO, int ROWS>
@@ -393,7 +362,7 @@ wgrad_fma_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __res
     for (int g = 0; g < groups; ++g) s += red[(g * Ci + i) * Co + o];
     mine[e] = s;
   }
-  finish(partials, counters, out, out_bf16, Ci * Co, group, ticket);
+  finish_dw(partials, counters, out, out_bf16, Ci * Co, group, ticket);
 }
 
 template <typename T>
@@ -463,7 +432,7 @@ wgrad_copy_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __re
   column_sums(dy, Co, r0, r1, red, sy);
   float* mine = partials + size_t(blockIdx.x) * Ci * Co;
   for (int e = threadIdx.x; e < Ci * Co; e += kThreads) mine[e] = sy[e / Ci] + sx[e % Ci];
-  finish(partials, counters, out, out_bf16, Ci * Co, group, ticket);
+  finish_dw(partials, counters, out, out_bf16, Ci * Co, group, ticket);
 }
 
 template <typename T>

@@ -138,24 +138,31 @@ def load_library() -> ctypes.CDLL:
         [ctypes.c_int] + [ptr] * 6 + [ctypes.c_int] * 4 + [ptr]
     )
     lib.depthwise_backward_launch.restype = ctypes.c_int
-    # (dtype, u, dy, coef, partials, sums, B, H, W, C, stream)
-    lib.chain_bn_sums_launch.argtypes = (
-        [ctypes.c_int] + [ptr] * 5 + [ctypes.c_int] * 4 + [ptr]
-    )
-    lib.chain_bn_sums_launch.restype = ctypes.c_int
-    # (dtype, x, u, dy, k, coef, dx, partials, dk, B, H, W, C, stream)
+    # (dtype, B, H, W, C, tr, tw, *floats, *counters)
+    lib.chain_backward_scratch.argtypes = [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+    lib.chain_backward_scratch.restype = ctypes.c_int
+    # (dtype, x, u, dy, k, k_bf16, kts, kcs, mean, inv, A, beta, dx, dk, sums,
+    #  scratch, counters, B, H, W, C, tr, tw, stream)
     lib.chain_backward_launch.argtypes = (
-        [ctypes.c_int] + [ptr] * 8 + [ctypes.c_int] * 4 + [ptr]
+        [ctypes.c_int] + [ptr] * 4 + [ctypes.c_int] * 3 + [ptr] * 9 + [ctypes.c_int] * 6
+        + [ptr]
     )
     lib.chain_backward_launch.restype = ctypes.c_int
     # (iou, valid, threshold, keep, rows, K, max_keep, stream)
     lib.nms_scan_launch.argtypes = [ptr] * 4 + [ctypes.c_int] * 3 + [ptr]
     lib.nms_scan_launch.restype = ctypes.c_int
-    # (dtype, images, six (weight, bias) pairs, out, B, H, W, stream)
+    # (dtype, images, six (weight, bias) pairs, out, B, H, W, to, tw, ec, warps,
+    #  stream)
     lib.stem_block1_launch.argtypes = (
-        [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 3 + [ptr]
+        [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 7 + [ptr]
     )
     lib.stem_block1_launch.restype = ctypes.c_int
+    # (H, W, *to, *tw, *ec, *warps, *smem)
+    lib.stem_block1_config.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int)
+    ] * 5
+    lib.stem_block1_config.restype = ctypes.c_int
     # (kernel, K, Ci, Co, ctas, *ctas_out, *counters_out)
     lib.pointwise_wgrad_grid.argtypes = (
         [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3

@@ -4,7 +4,9 @@ Counterpart of ``ssdseglib_tpu/ops/s2d_stem.py``.  The stem (3x3 stride-2
 conv 3 -> 32, depthwise 3x3, 1x1 32 -> 16) and block 1 (1x1 16 -> 96,
 depthwise 3x3 stride 2, 1x1 96 -> 24) run as one hand-written Hopper kernel
 (``csrc/s2d_stem.cu``) that keeps all five intermediates on chip: device
-memory sees the image read and the (H/4, W/4, 24) output write.
+memory sees the image read and the (H/4, W/4, 24) output write.  In bf16 its
+four products run on the tensor cores and block 1's 96 channels are walked
+in chunks; f32 runs on the CUDA cores.
 
 The JAX package's kernel first re-indexes the image by space-to-depth and
 packs four images into one vector, both answers to its hardware's vector
@@ -18,7 +20,7 @@ OIHW convs into the kernel's layouts once.
 ``fused_stem_block1`` launches the kernel on a CUDA tensor and runs the
 plain version ``fused_stem_block1_reference`` on a CPU tensor; a CUDA call
 the kernel cannot take raises.  ``fused_stem_block1.launches`` counts kernel
-launches.
+launches.  `kernel_config` reports the bf16 kernel's tile and chunk.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def stem_block1_args(
     for name, (w_shape, _) in zip(_NAMES, _SHAPES):
         kernel, bias = folded[name]
         # OIHW -> (kh, kw, I, O) flattened to (kh * kw * I, O)
-        args += [kernel.permute(2, 3, 1, 0).reshape(w_shape).contiguous(), bias]
+        args += [kernel.permute(2, 3, 1, 0).reshape(w_shape).contiguous(), bias.contiguous()]
     return tuple(args)
 
 
@@ -93,15 +95,35 @@ def fused_stem_block1(images: torch.Tensor, folded: Sequence[torch.Tensor]) -> t
         images: (B, H, W, 3) NHWC, contiguous, already rescaled to [-1, 1],
             float32 or bfloat16; H and W multiples of 4
         folded: the twelve tensors of `stem_block1_args`, in the images'
-            dtype and on their device
+            dtype and on their device (16-byte aligned on the card)
     Returns:
         the block-1 output (B, H/4, W/4, 24) in the images' dtype.
     """
     _check(images, folded)
     if images.device.type == "cpu":
         return fused_stem_block1_reference(images, folded)
+    out = _launch(images, folded)
+    fused_stem_block1.launches += 1
+    return out
+
+
+fused_stem_block1.launches = 0
+
+# (output tile rows, columns at H/4, chunk of block 1's 96 channels, warps) of
+# the bf16 kernel; 0 takes the source's choice
+BUILT_IN = (0, 0, 0, 0)
+
+
+def _launch(images: torch.Tensor, folded: Sequence[torch.Tensor],
+            config: Tuple[int, int, int, int] = BUILT_IN) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors that passed `_check`, with
+    the bf16 kernel's ``config`` (ignored in f32); counts nothing."""
     if images.device.type != "cuda":
         raise ValueError(f"fused_stem_block1 runs on cuda or cpu, not {images.device}")
+    if images.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (images, *folded)):
+        raise ValueError("fused_stem_block1: bf16 images and weights must be 16-byte "
+                         "aligned (stem_block1_args makes the weights so)")
 
     from ssdseglib_torch.ops._cuda_build import load_library
 
@@ -113,19 +135,32 @@ def fused_stem_block1(images: torch.Tensor, folded: Sequence[torch.Tensor]) -> t
     with torch.cuda.device(images.device):
         err = lib.stem_block1_launch(
             _DTYPE_CODES[images.dtype], images.data_ptr(),
-            *(t.data_ptr() for t in folded), out.data_ptr(), batch, h, w,
+            *(t.data_ptr() for t in folded), out.data_ptr(), batch, h, w, *config,
             torch.cuda.current_stream(images.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
             f"stem + block 1 kernel launch failed with cudaError {err} "
-            f"(B={batch}, H={h}, W={w}, {images.dtype})"
+            f"(B={batch}, H={h}, W={w}, {images.dtype}, config {config})"
         )
-    fused_stem_block1.launches += 1
     return out
 
 
-fused_stem_block1.launches = 0
+def kernel_config(h: int, w: int, config: Tuple[int, int, int, int] = BUILT_IN
+                  ) -> Tuple[int, ...]:
+    """What the bf16 kernel runs at (H, W) under ``config`` (0: the source's
+    choice), on the current card: (tile rows, tile columns, chunk, warps,
+    bytes of shared memory)."""
+    import ctypes
+
+    from ssdseglib_torch.ops._cuda_build import load_library
+
+    values = [ctypes.c_int(v) for v in config] + [ctypes.c_int(0)]
+    err = load_library().stem_block1_config(h, w, *(ctypes.byref(v) for v in values))
+    if err != 0:
+        raise RuntimeError(f"no bf16 stem configuration for H={h}, W={w}, {config}: "
+                           f"cudaError {err}")
+    return tuple(v.value for v in values)
 
 
 def _round_relu6(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -149,19 +184,43 @@ def _depthwise3x3(x: torch.Tensor, taps: torch.Tensor, stride: int) -> torch.Ten
     return acc
 
 
+def tensor_core_step(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (N, k) @ w (k, O), k <= 16, as one step of the bf16 kernel's tensor
+    cores (mma.sync m16n8k16 into a zero accumulator): the products are
+    exact and their sum is rounded toward zero to f32.  This model of the
+    H100's step is what `chip_smoke.py` phase 3c holds the kernel to."""
+    exact = x.double() @ w.double()
+    rounded = exact.float()
+    return torch.where(rounded.double().abs() > exact.abs(),
+                       torch.nextafter(rounded, torch.zeros_like(rounded)), rounded)
+
+
 def fused_stem_block1_reference(
-    images: torch.Tensor, folded: Sequence[torch.Tensor]
+    images: torch.Tensor, folded: Sequence[torch.Tensor], k_groups: bool = False
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with the same six rounding
     points: f32 accumulation, rounding to the images' dtype after each conv
-    + bias (before its ReLU6).  Same arguments as `fused_stem_block1`."""
+    + bias (before its ReLU6).  Same arguments as `fused_stem_block1`.
+
+    With ``k_groups`` the four matrix products sum in the bf16 kernel's
+    order: each 16-deep group of the K axis as one partial
+    (`tensor_core_step`), the partials added in k order to an f32 sum that
+    starts at 0, then the bias."""
     w1, b1, wd1, bd1, wp1, bp1, w2, b2, wd2, bd2, wp2, bp2 = folded
     dt = images.dtype
     batch, h, w, _ = images.shape
     h2, w2dim = h // 2, w // 2
 
     def pointwise(x, weight, bias):
-        y = x.reshape(-1, x.shape[-1]).float() @ weight.float() + bias.float()
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        if k_groups:
+            y = torch.zeros((x2.shape[0], weight.shape[1]), dtype=torch.float32,
+                            device=x.device)
+            for k0 in range(0, x2.shape[1], 16):
+                y = y + tensor_core_step(x2[:, k0:k0 + 16], weight[k0:k0 + 16])
+            y = y + bias.float()
+        else:
+            y = x2 @ weight.float() + bias.float()
         return y.reshape(*x.shape[:-1], -1)
 
     # stem conv: SAME at stride 2 pads 0 before and 1 after; output (r, c)
