@@ -32,39 +32,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    passes) that the default path runs for the same function;
 4. the two backward kernels (depthwise 3x3 backward, dw + BN + ReLU6 chain
    backward) vs their plain versions, in bf16 and f32, at the training
-   path's shape (16, 240, 320, 32) and at two shapes outside the model's
-   envelope, (16, 120, 160, 144) and the ragged (4, 15, 20, 960); the chain
-   also at (4, 60, 80, 12), a C that is not a multiple of 8.  The chain is
-   called as its autograd unit calls it (the forward's coefficients, the
-   weight's view) and must give the same bits on two calls; that one call
-   issues exactly two device kernels is counted in phase 4b.
+   path's shape (16, 240, 320, 32), at two shapes outside the model's
+   envelope, (16, 120, 160, 144) and the ragged (4, 15, 20, 960), and at
+   (4, 60, 80, 12), a C that is not a multiple of 8 (the scalar paths).  The
+   chain is called as its autograd unit calls it (the forward's
+   coefficients, the weight's view); both must give the same bits on two
+   calls; that one call issues exactly one (depthwise) or two (chain) device
+   kernels is counted in phase 4b.
    Tolerances: dx 1e-5 in f32 and 2 bf16 ulps (1.6e-2) in bf16, relative
    and absolute; dk, dgamma, dbeta (f32 sums of up to 1.2 M terms taken in
    another order) 1e-4 of the largest reference magnitude.  Timings: median
-   of 20 CUDA events of the kernel (for the chain: the wrapper, and its two
-   launches alone, 20 calls between two events), of the plain version, of
-   the library call (``aten.convolution_backward``) for the depthwise
-   backward and, as information, of the ATen autograd route for the chain.
-   The chain's bound counts 6 n elem bytes: pass 1 reads u and dy, pass 2
-   reads x, u, dy and writes dx (dbeta and dgamma are needed before any du,
-   and u and dy do not stay in the 50 MB L2 between the passes).  The chain
-   unit's forward is compared with the ATen route (conv, ``F.batch_norm``,
-   clamp);
+   of 20 CUDA events of the wrapper, the kernel(s) alone (the launcher
+   called 20 times between two events), the plain version, the library call
+   (``aten.convolution_backward``) for the depthwise backward and, as
+   information, the ATen autograd route for the chain; the depthwise
+   kernel's tile, chunk, CTAs and shared memory.  The depthwise bound counts
+   3 n elem bytes (x and dy read, dx written); the chain's 6 n elem: pass 1
+   reads u and dy, pass 2 reads x, u, dy and writes dx (dbeta and dgamma are
+   needed before any du, and u and dy do not stay in the 50 MB L2 between
+   the passes).  The chain unit's forward is compared with the ATen route
+   (conv, ``F.batch_norm``, clamp);
    4b. the three 1x1 weight-gradient kernels (tensor-core product, CUDA-core
    product, loads alone) vs their plain versions at the training path's two
    layers, (16, 240, 320, 32 -> 16) and (16, 240, 320, 16 -> 96), at the same
    two at batch 2 and at the ragged (3, 37, 53, 48 -> 32), in bf16 (all three)
    and f32 (CUDA-core product, loads alone): f32 sums of up to 1.2 M terms
-   within 1e-4 of the largest reference magnitude.  Timings: kernel, plain
-   version and the library call (``aten.convolution_backward``, weight
-   only, timed before and after the kernels).  Then `wgrad_study` at
-   (16, 240, 320, 32 -> 16) bf16: the tensor-core kernel within 2e-2
-   (relative to the largest magnitude) of the f32 product, and the five
-   routes timed by CUDA events; one device kernel and one allocation (the
-   returned gradient) per `wgrad_mma` call after the first, and two device
-   kernels and nothing else per chain backward call at its path's shape
-   (with each one's device time), from the process's one torch.profiler
-   session; the three kernels alone at the two layers;
+   within 1e-4 of the largest reference magnitude, and the CUDA-core kernel
+   the same bits on two calls.  Timings: kernel, plain version and the
+   library call (``aten.convolution_backward``, weight only, timed before
+   and after the kernels).  Then `wgrad_study` at (16, 240, 320, 32 -> 16)
+   bf16: the tensor-core kernel within 2e-2 (relative to the largest
+   magnitude) of the f32 product, and the five routes timed by CUDA events;
+   from the process's one torch.profiler session, the device kernels a call
+   launches: one per `wgrad_mma` call (with one allocation, the returned
+   gradient, after the first), one per `wgrad_fma` call at f32 b16, one per
+   depthwise backward call and two per chain backward call at its path's
+   shape (with each one's device time), and nothing else; the three kernels
+   alone at the two layers in bf16, and the CUDA-core one in f32 at batch 2
+   and 16 with its register block, chunk rows and ring stages;
 5. whole-path serving parity: the BN-folded serving model (fused kernel)
    against the unfused eval-mode model + post-processing, batch 2, 480x640,
    f32;
@@ -124,16 +129,21 @@ serving step goes on the default path and on the option path, and
 ``python3 chip_smoke.py --profile-fit`` what each stage of a `fit` epoch over
 the loader costs alone, and
 ``python3 chip_smoke.py --wgrad-variants`` times the three weight-gradient
-kernels alone, the tensor-core one at other (rows per slab, CTAs), and
+kernels alone, the tensor-core one at other (rows per slab, CTAs) and the
+CUDA-core one in f32 at other (rows a chunk, ring stages, CTAs an SM,
+register block), and
 ``python3 chip_smoke.py --mbconv-variants`` the bf16 MBConv kernel at other
 (tile, chunk of E, column tiles per warp), ``python3 chip_smoke.py
 --stem-variants`` the bf16 stem kernel at other (tile, chunk of block 1's
 channels, warps), ``python3 chip_smoke.py
 --chain-variants`` the chain backward at other (tile rows, tile columns),
+``python3 chip_smoke.py --dw-variants`` the depthwise backward at other
+(tile rows, tile columns, chunk),
 all through the launchers' runtime arguments, and
-``python3 chip_smoke.py --ab PARENT_ROOT`` the stem and chain kernels of an
-unpacked parent tree and of this one in turns (parent, change, change,
-parent; one process each); none of these prints result lines.
+``python3 chip_smoke.py --ab PARENT_ROOT`` the stem, chain and depthwise
+backward kernels and `wgrad_fma` of an unpacked parent tree and of this one
+in turns (parent, change, change, parent; one process each); none of these
+prints result lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
@@ -149,8 +159,9 @@ dtype and output, and ``ms``, ``plain_ms``, ``library_ms``
 and ``bound_ms`` are at the main path's shapes in bf16 at batch 16 (the ten
 launches of one forward for the MBConv kernel, whose bound counts its 1x1s
 at the tensor cores' rate and its depthwise taps at the f32 rate; the two launches of one train
-step for the tensor-core weight-gradient kernel; f32 at batch 2, the two
-launches of phase 9a's step, for the CUDA-core one).  ``library_ms`` of the
+step for the tensor-core weight-gradient kernel; f32 at batch 16, the two
+layers of the training default's dtype at its flagship batch, for the
+CUDA-core one, whose phase-9a step runs them at batch 2).  ``library_ms`` of the
 loads-alone kernel is the library's weight gradient, whose loads it
 reproduces.  ``bound_ms`` is the larger
 of bytes / 3.35 TB/s (every input read once, every output written once) and
@@ -161,6 +172,7 @@ ignores the latency of its dependent steps.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -177,11 +189,10 @@ MBCONV_SHAPES = [(24, 120, 160, 144, 1), (32, 60, 80, 192, 2), (64, 30, 40, 384,
 TOLERANCE = {torch.bfloat16: 1.6e-2, torch.float32: 1e-5}  # bf16: 2 ulps
 BATCH = 16
 # (B, H, W, C): the training path's shape (backbone-block0-depthwise at batch
-# 16), then two shapes outside the model's envelope
-BACKWARD_SHAPES = [(16, 240, 320, 32), (16, 120, 160, 144), (4, 15, 20, 960)]
-# the chain kernels also at a C that is not a multiple of 8 (their scalar
-# path in bf16; a ragged channel chunk in f32)
-CHAIN_SHAPES = BACKWARD_SHAPES + [(4, 60, 80, 12)]
+# 16), then two shapes outside the model's envelope, then a C that is not a
+# multiple of 8 (the kernels' scalar paths in bf16; a ragged channel chunk in
+# f32)
+BACKWARD_SHAPES = [(16, 240, 320, 32), (16, 120, 160, 144), (4, 15, 20, 960), (4, 60, 80, 12)]
 # The previous design's figures at the training path's shape (PERF.md §6: the
 # two-pass chain kernels with their reduction launches and the PyTorch
 # operations between them), printed beside this run's for reference
@@ -566,19 +577,21 @@ def phase_backward_kernels_vs_plain(card: str):
     report} with the timings of the path's shape in bf16."""
     import torch.nn.functional as F
 
+    from ssdseglib_torch.ops import _cuda_build
     from ssdseglib_torch.ops import depthwise_backward as dwb
     from ssdseglib_torch.ops import fused_chain_backward as fcb
 
+    lib = _cuda_build.load_library()
     gen = torch.Generator().manual_seed(1)
-    chain_gen = torch.Generator().manual_seed(6)  # the chain-only shape's own stream
+    scalar_gen = torch.Generator().manual_seed(6)  # the scalar-path shape's own stream
     reports = {name: {"max_abs_err": 0.0} for name in ("depthwise_backward",
                                                        "chain_backward")}
     for dtype in (torch.bfloat16, torch.float32):
         elem = 2 if dtype == torch.bfloat16 else 4
-        for shape in CHAIN_SHAPES:
+        for shape in BACKWARD_SHAPES:
             b, h, w, c = shape
             n = b * h * w * c
-            source = gen if shape in BACKWARD_SHAPES else chain_gen
+            source = scalar_gen if shape == BACKWARD_SHAPES[3] else gen
 
             def draw(*dims, scale=1.0, shift=0.0):
                 return (torch.randn(*dims, generator=source) * scale + shift).to("cuda")
@@ -593,30 +606,39 @@ def phase_backward_kernels_vs_plain(card: str):
             tag = f"{str(dtype)[6:]:8s} {shape}"
 
             # -- depthwise 3x3 backward
-            if shape in BACKWARD_SHAPES:
-                dx, dk = dwb.depthwise3x3_backward(x, dy, kernel)
-                torch.cuda.synchronize()
-                dx_ref, dk_ref = dwb.depthwise3x3_backward_reference(x, dy, kernel)
-                errs = [_check_close(f"depthwise backward dx {tag}", dx, dx_ref,
-                                     TOLERANCE[dtype]),
-                        _check_close(f"depthwise backward dk {tag}", dk, dk_ref, SUM_TOLERANCE,
-                                     scale_by_max=True)]
-                ms = cuda_median_ms(lambda: dwb.depthwise3x3_backward(x, dy, kernel))
-                plain_ms = cuda_median_ms(
-                    lambda: dwb.depthwise3x3_backward_reference(x, dy, kernel))
-                library_ms = cuda_median_ms(lambda: torch.ops.aten.convolution_backward(
-                    dy_nchw, x_nchw, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], c,
-                    [True, True, False]))
-                least, by = bound_ms(3 * n * elem + 2 * 9 * c * 4,
-                                     (36 * n, PEAK_FLOPS[torch.float32]))
-                log(f"[dw-bwd] {tag} max_abs_err dx {errs[0]:.3g} dk {errs[1]:.3g} | kernel "
-                    f"{ms:.4f} ms | plain {plain_ms:.4f} ms | aten.convolution_backward "
-                    f"{library_ms:.4f} ms | bound {least:.4f} ms ({by})")
-                rep = reports["depthwise_backward"]
-                rep["max_abs_err"] = max(rep["max_abs_err"], *errs)
-                if dtype == torch.bfloat16 and shape == BACKWARD_SHAPES[0]:
-                    rep.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                               bound_ms=least, bound_by=by)
+            dx, dk = dwb.depthwise3x3_backward(x, dy, kernel)
+            torch.cuda.synchronize()
+            again = dwb.depthwise3x3_backward(x, dy, kernel)
+            torch.cuda.synchronize()
+            if not (torch.equal(dx, again[0]) and torch.equal(dk, again[1])):
+                raise AssertionError(f"depthwise backward {tag}: two calls give other bits")
+            dx_ref, dk_ref = dwb.depthwise3x3_backward_reference(x, dy, kernel)
+            errs = [_check_close(f"depthwise backward dx {tag}", dx, dx_ref, TOLERANCE[dtype]),
+                    _check_close(f"depthwise backward dk {tag}", dk, dk_ref, SUM_TOLERANCE,
+                                 scale_by_max=True)]
+            ms = cuda_median_ms(lambda: dwb.depthwise3x3_backward(x, dy, kernel))
+            outs = (torch.empty_like(x), torch.empty((9, c), dtype=torch.float32, device="cuda"))
+            alone_ms = _events_ms(lambda: dwb._launch(x, dy, kernel, out=outs))
+            plain_ms = cuda_median_ms(lambda: dwb.depthwise3x3_backward_reference(x, dy, kernel))
+            library_ms = cuda_median_ms(lambda: torch.ops.aten.convolution_backward(
+                dy_nchw, x_nchw, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], c,
+                [True, True, False]))
+            least, by = bound_ms(3 * n * elem + 2 * 9 * c * 4, (36 * n, PEAK_FLOPS[torch.float32]))
+            geo = dwb.kernel_geometry(lib, dwb._DTYPE_CODES[dtype], shape)[2]
+            log(f"[dw-bwd] {tag} max_abs_err dx {errs[0]:.3g} dk {errs[1]:.3g}, same bits on two "
+                f"calls | wrapper {ms:.4f} ms | kernel alone {alone_ms:.4f} ms (20 launches "
+                f"between CUDA events) | plain {plain_ms:.4f} ms | aten.convolution_backward "
+                f"{library_ms:.4f} ms | bound {least:.4f} ms ({by}) | tile {geo[0]}x{geo[1]}, "
+                f"chunk {geo[2]}, {geo[3]} CTAs a chunk, {geo[4]} shared bytes")
+            rep = reports["depthwise_backward"]
+            rep["max_abs_err"] = max(rep["max_abs_err"], *errs)
+            if dtype == torch.bfloat16 and shape == BACKWARD_SHAPES[0]:
+                rep.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=least,
+                           bound_by=by)
+                # counted in phase 4b, in the process's one profiling session
+                rep["call"] = lambda call_args=(x, dy, kernel): dwb.depthwise3x3_backward(
+                    *call_args)
+            del dx, dk, again, dx_ref, dk_ref, outs
 
             # -- dw + BN + ReLU6 chain backward, called as the autograd unit
             #    calls it: the forward's coefficients, the weight's HWIO view
@@ -690,7 +712,9 @@ def _device_kernels(fns, calls: int = 10):
     may allocate cached scratch.  The profiler records a warm-up step of the
     same calls and drops it, then counts the next step.  A process runs one
     profiling session: a second one has been seen to miss some or all of the
-    kernels it should count."""
+    kernels it should count.  The host idles for a while at each end of a
+    step, so that no kernel lies near a step's edge: a step that began with
+    its launches has been seen to lose its first call of each function."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     counted = []
@@ -705,10 +729,12 @@ def _device_kernels(fns, calls: int = 10):
     with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=count,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         for _ in range(2):
+            time.sleep(0.05)
             for _ in range(calls):
                 for fn in fns:
                     fn()
             torch.cuda.synchronize()
+            time.sleep(0.05)
             prof.step()
     assert len(counted) == 1, counted
     return counted[0]
@@ -719,15 +745,18 @@ def _device_kernels(fns, calls: int = 10):
 # expand) at batch 16 and at batch 2, then a ragged shape outside the model
 WGRAD_SHAPES = [((16, 240, 320), 32, 16), ((16, 240, 320), 16, 96),
                 ((2, 240, 320), 32, 16), ((2, 240, 320), 16, 96), ((3, 37, 53), 48, 32)]
-# the shapes a kernel's main path gives it: (dtype, indices into WGRAD_SHAPES)
-WGRAD_PATH = {"wgrad_mma": (torch.bfloat16, (0, 1)), "wgrad_fma": (torch.float32, (2, 3)),
+# the shapes of a kernel's row in the report: (dtype, indices into
+# WGRAD_SHAPES); the CUDA-core kernel at the f32 training default's flagship
+# batch (its phase-9a step runs batch 2, printed beside)
+WGRAD_PATH = {"wgrad_mma": (torch.bfloat16, (0, 1)), "wgrad_fma": (torch.float32, (0, 1)),
               "wgrad_copy": (torch.bfloat16, (0,))}
 
 
-def phase_wgrad_kernels_vs_plain(card: str, chain_call):
+def phase_wgrad_kernels_vs_plain(card: str, chain_call, dw_call):
     """Phase 4b.  Returns {"wgrad_mma": report, "wgrad_fma": report,
     "wgrad_copy": report}: timings summed over the shapes of WGRAD_PATH, and
     the launches of `wgrad_copy` in the study (its main path)."""
+    from ssdseglib_torch.ops import _cuda_build
     from ssdseglib_torch.ops import pointwise_wgrad as pw
 
     kernels = {"wgrad_mma": (pw.wgrad_mma, pw.wgrad_mma_reference),
@@ -764,6 +793,11 @@ def phase_wgrad_kernels_vs_plain(card: str, chain_call):
                 torch.cuda.synchronize()
                 tag = f"{name} {str(dtype)[6:]:8s} {lead} {ci} -> {co}"
                 err = _check_close(tag, got, plain(x, dy), SUM_TOLERANCE, scale_by_max=True)
+                same = ""
+                if name == "wgrad_fma":
+                    if not torch.equal(got, kernel(x, dy)):
+                        raise AssertionError(f"{tag}: two calls give other bits")
+                    same = ", same bits on two calls"
                 ms = timed[name]
                 plain_ms = cuda_median_ms(lambda: plain(x, dy))
                 # products on the tensor cores (mma) or the CUDA cores (fma);
@@ -774,7 +808,7 @@ def phase_wgrad_kernels_vs_plain(card: str, chain_call):
                     "wgrad_copy": (k * (ci + co), PEAK_FLOPS[torch.float32])}[name]
                 nbytes = k * (ci + co) * elem + ci * co * 4
                 least, by = bound_ms(nbytes, (flops, rate))
-                log(f"[wgrad] {tag} max_abs_err {err:.3g} | kernel {ms:.4f} ms | plain "
+                log(f"[wgrad] {tag} max_abs_err {err:.3g}{same} | kernel {ms:.4f} ms | plain "
                     f"{plain_ms:.4f} ms | aten.convolution_backward (weight only) "
                     f"{library_ms:.4f} ms (mean of {library_first:.4f} before and the reading "
                     f"after the kernels) | bound {least:.4f} ms ({by})")
@@ -807,7 +841,7 @@ def phase_wgrad_kernels_vs_plain(card: str, chain_call):
     for arm in ("aten", "dot", "mma", "copy", "fma"):
         log(f"[wgrad-study] {arm:5s} {study[arm + '_ms']:.4f} ms (CUDA events, median of 20) "
             f"| {card}")
-    _launches_and_allocations(gen, chain_call, card)
+    _launches_and_allocations(gen, chain_call, dw_call, card)
     for lead, ci, co in WGRAD_SHAPES[:2]:
         x = torch.randn(*lead, ci, generator=gen).to("cuda", torch.bfloat16)
         dy = torch.randn(*lead, co, generator=gen).to("cuda", torch.bfloat16)
@@ -816,48 +850,73 @@ def phase_wgrad_kernels_vs_plain(card: str, chain_call):
         log(f"[wgrad] kernels alone (launchers called directly, 50 launches between two "
             f"CUDA events) bf16 {lead} {ci} -> {co}: "
             + " | ".join(f"{name} {ms:.4f} ms" for name, ms in alone.items()) + f" | {card}")
+    lib = _cuda_build.load_library()
+    for index in (0, 1, 2, 3):  # the CUDA-core kernel on its f32 route, b16 and b2
+        lead, ci, co = WGRAD_SHAPES[index]
+        x = torch.randn(*lead, ci, generator=gen).to("cuda")
+        dy = torch.randn(*lead, co, generator=gen).to("cuda")
+        config = (ctypes.c_int * 5)()
+        assert lib.wgrad_fma_config(0, ci, co, 0, 0, 0, config) == 0
+        k = x.numel() // ci
+        least, by = bound_ms(k * (ci + co) * 4 + ci * co * 4,
+                             (2 * k * ci * co, PEAK_FLOPS[torch.float32]))
+        log(f"[wgrad] wgrad_fma alone (launcher called directly, 50 launches between two CUDA "
+            f"events) f32 {lead} {ci} -> {co}: {_wgrad_alone_ms(pw._FMA, x, dy):.4f} ms | bound "
+            f"{least:.4f} ms ({by}) | {config[0]}x{config[1]} register blocks, {config[2]} rows "
+            f"a chunk, {config[3]} chunks in the ring, {config[4]} shared bytes | {card}")
     return reports
 
 
-def _launches_and_allocations(gen, chain_call, card: str, calls: int = 10) -> None:
+def _launches_and_allocations(gen, chain_call, dw_call, card: str, calls: int = 10) -> None:
     """Device kernels a call launches, from one torch.profiler session over
-    both: `wgrad_mma` at the training path's first layer (one launch) and
-    ``chain_call``, the chain backward at its path's shape (two launches,
-    with each one's device time); no other kernel may run.  And the
-    allocations a `wgrad_mma` call makes after the first (the caching
-    allocator's count): one -- the gradient it returns -- with no scratch."""
+    all four: `wgrad_mma` at the training path's first layer in bf16 and
+    `wgrad_fma` there in f32 (one launch each), ``dw_call``, the depthwise
+    backward at its path's shape (one launch), and ``chain_call``, the chain
+    backward there (two launches, with each one's device time); no other
+    kernel may run.  And the allocations a `wgrad_mma` call makes after the
+    first (the caching allocator's count): one -- the gradient it returns --
+    with no scratch."""
     from ssdseglib_torch.ops import pointwise_wgrad as pw
 
     lead, ci, co = WGRAD_SHAPES[0]
     x = torch.randn(*lead, ci, generator=gen).to("cuda", torch.bfloat16)
     dy = torch.randn(*lead, co, generator=gen).to("cuda", torch.bfloat16)
+    x32, dy32 = x.float(), dy.float()
     pw.wgrad_mma(x, dy, torch.bfloat16)  # the first call allocates the scratch
     torch.cuda.synchronize()
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
     kept = [pw.wgrad_mma(x, dy, torch.bfloat16) for _ in range(calls)]
     allocations = (torch.cuda.memory_stats()["allocation.all.allocated"] - before) / calls
-    rows = _device_kernels([lambda: pw.wgrad_mma(x, dy, torch.bfloat16), chain_call], calls)
-    wgrad = sum(n for key, n, _ in rows if "wgrad_mma" in key)
+    rows = _device_kernels([lambda: pw.wgrad_mma(x, dy, torch.bfloat16),
+                            lambda: pw.wgrad_fma(x32, dy32), dw_call, chain_call], calls)
+    counted = {name: sum(n for key, n, _ in rows if name in key)
+               for name in ("wgrad_mma_kernel", "wgrad_fma_kernel", "dw_bwd_kernel")}
     chain = [(_kernel_name(key), n, ms) for key, n, ms in rows if "chain_" in key]
-    others = sum(n for _, n, _ in rows) - wgrad - sum(n for _, n, _ in chain)
-    log(f"[wgrad] wgrad_mma {lead} {ci} -> {co} bf16 -> (Co, Ci) bf16: {wgrad / calls:g} "
-        f"device kernel(s) and {allocations:g} allocation(s) per call after the first "
-        f"(the returned gradient); scratch buffers cached: {len(pw._SCRATCH)}")
+    dw_ms = sum(ms for key, _, ms in rows if "dw_bwd_kernel" in key)
+    others = sum(n for _, n, _ in rows) - sum(counted.values()) - sum(n for _, n, _ in chain)
+    log(f"[wgrad] wgrad_mma {lead} {ci} -> {co} bf16 -> (Co, Ci) bf16: "
+        f"{counted['wgrad_mma_kernel'] / calls:g} device kernel(s) and {allocations:g} "
+        f"allocation(s) per call after the first (the returned gradient); wgrad_fma f32: "
+        f"{counted['wgrad_fma_kernel'] / calls:g} device kernel(s) per call; scratch buffers "
+        f"cached: {len(pw._SCRATCH)}")
+    log(f"[dw-bwd] bfloat16 {BACKWARD_SHAPES[0]}: {counted['dw_bwd_kernel'] / calls:g} device "
+        f"kernel(s) per call, device time {dw_ms / calls:.4f} ms (torch.profiler) | {card}")
     log(f"[chain-bwd] bfloat16 {BACKWARD_SHAPES[0]}: "
         f"{sum(n for _, n, _ in chain) / calls:g} device kernel(s) per call, device time "
         + ", ".join(f"{name} {ms / calls:.4f} ms" for name, _, ms in chain)
         + f" (torch.profiler); other kernels in the window: {others} | previous design: "
         f"{CHAIN_PARENT} | {card}")
-    assert wgrad == calls and allocations == 1, (wgrad, allocations)
+    assert allocations == 1 and all(n == calls for n in counted.values()), (counted, allocations)
     assert sum(n for _, n, _ in chain) == 2 * calls and others == 0, (chain, others)
     del kept
 
 
-def _wgrad_alone_ms(kernel: int, x, dy, rows: int = 0, ctas: int = 0,
-                    launches: int = 50, check: bool = False) -> float:
+def _wgrad_alone_ms(kernel: int, x, dy, rows: int = 0, ctas: int = 0, stages: int = 0,
+                    block: int = 0, launches: int = 50, check: bool = False) -> float:
     """One weight-gradient kernel alone: its C launcher called ``launches``
     times between two CUDA events (the wrapper's host time out of the
-    reading), with the (rows, CTAs) given, 0 for the built-in choice.  With
+    reading), with the (rows, CTAs) given -- and, for the CUDA-core kernel,
+    (ring stages, register block) -- 0 for the built-in choice.  With
     ``check``, the result is held against the plain version first."""
     from ssdseglib_torch.ops import _cuda_build
     from ssdseglib_torch.ops import pointwise_wgrad as pw
@@ -866,23 +925,29 @@ def _wgrad_alone_ms(kernel: int, x, dy, rows: int = 0, ctas: int = 0,
     ci, co = x.shape[-1], dy.shape[-1]
     k = x.numel() // ci
     stream = torch.cuda.current_stream().cuda_stream
-    partials, counters = pw._scratch(x.device, stream, ci, co,
-                                     *pw._grid(lib, kernel, k, ci, co, ctas))
+    # (a parent tree's `_grid` takes no rows: `--ab` passes none)
+    grid = pw._grid(lib, kernel, k, ci, co, ctas, **({"rows": rows} if rows else {}))
+    partials, counters = pw._scratch(x.device, stream, ci, co, *grid)
     out = torch.empty((co, ci), dtype=torch.float32, device="cuda")
     dtype = pw._DTYPE_CODES[x.dtype]
+    pointers = (x.data_ptr(), dy.data_ptr(), partials.data_ptr(), counters.data_ptr(),
+                out.data_ptr())
 
     def launch():
-        err = lib.pointwise_wgrad_launch(kernel, dtype, x.data_ptr(), dy.data_ptr(),
-                                         partials.data_ptr(), counters.data_ptr(),
-                                         out.data_ptr(), 0, k, ci, co, rows, ctas, stream)
-        assert err == 0, (kernel, rows, ctas, err)
+        if stages or block:
+            err = lib.wgrad_fma_launch(dtype, *pointers, 0, k, ci, co, rows, ctas, stages, block,
+                                       stream)
+        else:
+            err = lib.pointwise_wgrad_launch(kernel, dtype, *pointers, 0, k, ci, co, rows, ctas,
+                                             stream)
+        assert err == 0, (kernel, rows, ctas, stages, block, err)
 
     for _ in range(5):
         launch()
     if check:
         plain = (pw.wgrad_copy_reference if kernel == pw._COPY else pw.wgrad_mma_reference)
-        _check_close(f"wgrad kernel {kernel} rows {rows} CTAs {ctas}", out, plain(x, dy),
-                     SUM_TOLERANCE, scale_by_max=True)
+        _check_close(f"wgrad kernel {kernel} rows {rows} CTAs {ctas} stages {stages} block "
+                     f"{block}", out, plain(x, dy), SUM_TOLERANCE, scale_by_max=True)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(launches):
@@ -1509,22 +1574,33 @@ def phase_fit(card: str):
 # (0: the source's choice), for `--wgrad-variants`
 WGRAD_VARIANTS = [(0, 0), (16, 132), (16, 264), (16, 396), (16, 528), (32, 132), (32, 264),
                   (32, 396), (32, 528)]
+# (rows a chunk, chunks in the ring, CTAs an SM, register block: 1-based in the
+# source's kFmaBlocks) of the CUDA-core kernel, the source's choice (0s) first
+FMA_VARIANTS = [(0, 0, 0, 0), (32, 3, 2, 0), (64, 3, 2, 0), (128, 3, 2, 0), (64, 2, 2, 0),
+                (128, 2, 2, 0), (0, 4, 2, 0), (0, 3, 1, 0), (0, 3, 3, 0), (128, 2, 1, 0),
+                (0, 3, 2, 1), (0, 3, 2, 3), (0, 3, 2, 4)]
 
 
 def wgrad_variants(card: str, rounds: int = 2) -> None:
     """``python3 chip_smoke.py --wgrad-variants``: the weight-gradient kernels
-    ALONE (`_wgrad_alone_ms`) at the two layers of the envelope in bf16 at
-    batch 16: the tensor-core kernel with each (rows per slab, CTAs) of
-    WGRAD_VARIANTS, checked against its plain version, and the CUDA-core and
-    loads-alone kernels as built, in turns over ``rounds`` rounds."""
+    ALONE (`_wgrad_alone_ms`) at the two layers of the envelope: in bf16 at
+    batch 16, the tensor-core kernel with each (rows per slab, CTAs) of
+    WGRAD_VARIANTS and the CUDA-core and loads-alone kernels as built; the
+    CUDA-core kernel on its f32 route at batch 16 and 2 with each (rows a
+    chunk, ring stages, CTAs an SM, register block) of FMA_VARIANTS; every
+    variant checked against its plain version, in turns over ``rounds``
+    rounds."""
     from ssdseglib_torch.ops import pointwise_wgrad as pw
 
     gen = torch.Generator().manual_seed(4)
-    layers = []
-    for lead, ci, co in WGRAD_SHAPES[:2]:
-        layers.append((f"{ci}->{co}",
-                       torch.randn(*lead, ci, generator=gen).to("cuda", torch.bfloat16),
-                       torch.randn(*lead, co, generator=gen).to("cuda", torch.bfloat16)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    layers, f32_layers = [], []
+    for index, (lead, ci, co) in enumerate(WGRAD_SHAPES[:4]):
+        x = torch.randn(*lead, ci, generator=gen).to("cuda")
+        dy = torch.randn(*lead, co, generator=gen).to("cuda")
+        f32_layers.append((f"b{lead[0]} {ci}->{co}", x, dy))
+        if index < 2:
+            layers.append((f"{ci}->{co}", x.bfloat16(), dy.bfloat16()))
     for r in range(rounds):
         for rows, ctas in WGRAD_VARIANTS:
             cells = [f"{name} {_wgrad_alone_ms(pw._MMA, x, dy, rows, ctas, check=r == 0):.4f}"
@@ -1533,8 +1609,15 @@ def wgrad_variants(card: str, rounds: int = 2) -> None:
                 f"{ctas or 'built-in'}: {' | '.join(cells)} ms, kernel alone | {card}")
         for kernel, label in ((pw._FMA, "fma"), (pw._COPY, "copy")):
             cells = [f"{name} {_wgrad_alone_ms(kernel, x, dy):.4f}" for name, x, dy in layers]
-            log(f"[wgrad-variants] round {r} {label} as built: {' | '.join(cells)} ms, kernel "
-                f"alone | {card}")
+            log(f"[wgrad-variants] round {r} {label} bf16 as built: {' | '.join(cells)} ms, "
+                f"kernel alone | {card}")
+        for rows, stages, per_sm, block in FMA_VARIANTS:
+            times = [_wgrad_alone_ms(pw._FMA, x, dy, rows, per_sm * sms, stages, block,
+                                     check=r == 0) for _, x, dy in f32_layers]
+            cells = [f"{name} {ms:.4f}" for (name, _, _), ms in zip(f32_layers, times)]
+            log(f"[wgrad-variants] round {r} fma f32 rows/chunk {rows or 'built-in'}, stages "
+                f"{stages or 'built-in'}, CTAs/SM {per_sm or 'built-in'}, block "
+                f"{block or 'built-in'}: {' | '.join(cells)} ms, kernel alone | {card}")
 
 
 # Candidate (th, tw, EC, NREP) of the bf16 MBConv kernel per width (Cin, E),
@@ -1682,35 +1765,80 @@ def chain_variants(card: str, rounds: int = 2) -> None:
                 f"ms: {' | '.join(cells)} | {card}")
 
 
+# Candidate (tile rows, tile columns, channels of a chunk) of the depthwise
+# backward, the source's choice (0s) first, for `--dw-variants`
+DW_VARIANTS = [(0, 0, 0), (8, 16, 32), (16, 16, 32), (10, 16, 32), (20, 16, 32), (12, 32, 32),
+               (8, 32, 32), (6, 32, 32), (24, 16, 32), (12, 16, 16), (12, 32, 16), (24, 32, 16),
+               (8, 16, 64), (12, 16, 64), (6, 16, 64)]
+
+
+def dw_variants(card: str, rounds: int = 2) -> None:
+    """``python3 chip_smoke.py --dw-variants``: the depthwise backward's
+    launch ALONE (20 launches between two CUDA events) at the training
+    path's shape in bf16 and f32 with each (tile rows, tile columns, chunk)
+    of DW_VARIANTS, every one first held against the plain version (phase
+    4's limits), in turns over ``rounds`` rounds."""
+    from ssdseglib_torch.ops import _cuda_build
+    from ssdseglib_torch.ops import depthwise_backward as dwb
+
+    lib = _cuda_build.load_library()
+    gen = torch.Generator().manual_seed(1)
+    b, h, w, c = BACKWARD_SHAPES[0]
+    cases, operands = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(b, h, w, c, generator=gen) * 2.0).to("cuda", dtype)
+        dy = torch.randn(b, h, w, c, generator=gen).to("cuda", dtype)
+        kernel = (torch.randn(3, 3, 1, c, generator=gen) * 0.5).to("cuda", dtype)
+        operands[dtype] = (x, dy, kernel)
+        want = dwb.depthwise3x3_backward_reference(x, dy, kernel)
+        for config in DW_VARIANTS:
+            try:
+                geo = dwb.kernel_geometry(lib, dwb._DTYPE_CODES[dtype], (b, h, w, c), config)[2]
+            except RuntimeError:
+                log(f"[dw-variants] {str(dtype)[6:]} {config}: does not fit the card")
+                continue
+            got = dwb._launch(x, dy, kernel, config)
+            _check_close(f"dw variant dx {config}", got[0], want[0], TOLERANCE[dtype])
+            _check_close(f"dw variant dk {config}", got[1].reshape(3, 3, 1, c), want[1],
+                         SUM_TOLERANCE, scale_by_max=True)
+            cases.append((dtype, config, geo, got))
+    for r in range(rounds):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy, kernel = operands[dtype]
+            cells = []
+            for dt, config, geo, outs in cases:
+                if dt != dtype:
+                    continue
+                ms = _events_ms(lambda: dwb._launch(x, dy, kernel, config, out=outs))
+                cells.append(f"{geo[0]}x{geo[1]}/{geo[2]} ({geo[3]} CTAs, {geo[4]} B) {ms:.4f}")
+            log(f"[dw-variants] round {r} {str(dtype)[6:]} {(b, h, w, c)} (tile rows x cols / "
+                f"chunk) ms: {' | '.join(cells)} | {card}")
+
+
 def ab_arm(card: str) -> None:
     """``python3 chip_smoke.py --ab-arm ROOT``: one arm of `--ab`, on the
     ``ssdseglib_torch`` package under ROOT: at the serving and training
-    paths' shapes in bf16, the stem kernel's wrapper and kernel-alone time,
-    the six cuDNN convs of the same function, the chain backward's wrapper
-    and kernels-alone time and the ATen route of the unit; one JSON line."""
+    paths' shapes, the wrapper's and the kernel's alone time (its launcher
+    called directly) of the bf16 stem kernel (with the six cuDNN convs of the
+    same function), the bf16 chain backward (with the ATen route of the
+    unit), the bf16 depthwise backward and `wgrad_fma` at f32 batch 16 (both
+    layers summed; the library's weight gradient beside); one JSON line."""
     import torch.nn.functional as F
 
     from ssdseglib_torch.ops import _cuda_build
+    from ssdseglib_torch.ops import depthwise_backward as dwb
     from ssdseglib_torch.ops import fused_chain_backward as fcb
+    from ssdseglib_torch.ops import pointwise_wgrad as pw
     from ssdseglib_torch.ops import s2d_stem
 
     lib = _cuda_build.load_library()
-    new = hasattr(s2d_stem, "_launch")
     row = {"package": str(_cuda_build._PKG), "card": card}
     gen = torch.Generator().manual_seed(3)
     _, args = _stem_weights(gen, torch.bfloat16)
     x = (torch.rand(BATCH, 480, 640, 3, generator=gen) * 2.0 - 1.0).to("cuda", torch.bfloat16)
-    out = torch.empty((BATCH, 120, 160, 24), dtype=torch.bfloat16, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-
-    def stem_alone():
-        if new:
-            return s2d_stem._launch(x, args)
-        assert lib.stem_block1_launch(1, x.data_ptr(), *(t.data_ptr() for t in args),
-                                      out.data_ptr(), BATCH, 480, 640, stream) == 0
-
     row["stem_ms"] = cuda_median_ms(lambda: s2d_stem.fused_stem_block1(x, args))
-    row["stem_alone_ms"] = _events_ms(stem_alone)
+    row["stem_alone_ms"] = _events_ms(lambda: s2d_stem._launch(x, args))
 
     b, h, w, c = BACKWARD_SHAPES[0]
     gen = torch.Generator().manual_seed(1)
@@ -1720,33 +1848,11 @@ def ab_arm(card: str) -> None:
     gamma = (torch.randn(c, generator=gen) * 0.1 + 1.0).cuda()
     beta = (torch.randn(c, generator=gen) * 0.1).cuda()
     forward = fcb._forward_math(xc.permute(0, 3, 1, 2), weight, gamma, beta)
-    u, mean, var = forward[1].permute(0, 2, 3, 1), forward[2], forward[3]
+    u, mean, var, coefficients = forward[1].permute(0, 2, 3, 1), forward[2], forward[3], forward[4]
     taps = weight.permute(2, 3, 1, 0)
-    if new:  # as each tree's autograd unit calls it
-        coefficients = forward[4]
-        row["chain_ms"] = cuda_median_ms(lambda: fcb.dw_bn_relu6_backward(
-            xc, u, dy, taps, gamma, beta, mean, var, coefficients))
-        row["chain_alone_ms"] = _events_ms(lambda: fcb._launch(xc, u, dy, taps, coefficients))
-    else:
-        row["chain_ms"] = cuda_median_ms(lambda: fcb.dw_bn_relu6_backward(
-            xc, u, dy, taps, gamma, beta, mean, var))
-        # the parent's two C launchers (each pass and its reduction kernel),
-        # without the PyTorch operations its wrapper runs between them
-        mean32, inv, a_coef, beta32 = fcb._coefficients(gamma, beta, mean, var)
-        coef = torch.stack((mean32, inv, a_coef, beta32, a_coef, a_coef))
-        taps32 = taps.reshape(9, c).float().contiguous()
-        partials = torch.empty((lib.dw_bwd_partial_rows(b, h, w, c), 9, c), device="cuda")
-        sums, dk = torch.empty((2, c), device="cuda"), torch.empty((9, c), device="cuda")
-        dx = torch.empty_like(xc)
-
-        def chain_alone():
-            assert lib.chain_bn_sums_launch(1, *(t.data_ptr() for t in (u, dy, coef, partials,
-                                                                        sums)),
-                                            b, h, w, c, stream) == 0
-            assert lib.chain_backward_launch(1, *(t.data_ptr() for t in (
-                xc, u, dy, taps32, coef, dx, partials, dk)), b, h, w, c, stream) == 0
-
-        row["chain_alone_ms"] = _events_ms(chain_alone)
+    row["chain_ms"] = cuda_median_ms(lambda: fcb.dw_bn_relu6_backward(
+        xc, u, dy, taps, gamma, beta, mean, var, coefficients))
+    row["chain_alone_ms"] = _events_ms(lambda: fcb._launch(xc, u, dy, taps, coefficients))
     leaves = [t.detach().requires_grad_() for t in (xc.permute(0, 3, 1, 2), weight, gamma,
                                                     beta)]
     y_aten = F.batch_norm(F.conv2d(leaves[0], leaves[1], None, 1, 1, 1, c), None, None,
@@ -1754,6 +1860,37 @@ def ab_arm(card: str) -> None:
                           fcb.BN_EPSILON).clamp(0.0, 6.0)
     row["chain_aten_route_ms"] = cuda_median_ms(lambda: torch.autograd.grad(
         y_aten, leaves, dy.permute(0, 3, 1, 2), retain_graph=True))
+
+    # the depthwise backward, its wrapper as the autograd unit calls it (the
+    # weight's HWIO view), and its launcher alone
+    row["dw_ms"] = cuda_median_ms(lambda: dwb.depthwise3x3_backward(xc, dy, taps))
+    dx, dk = torch.empty_like(xc), torch.empty((9, c), device="cuda")
+    if hasattr(dwb, "_launch"):
+        row["dw_alone_ms"] = _events_ms(lambda: dwb._launch(xc, dy, taps, out=(dx, dk)))
+    else:  # the parent's launcher: its tile pass and its reduction kernel
+        taps32 = taps.reshape(9, c).float().contiguous()
+        partials = torch.empty((lib.dw_bwd_partial_rows(b, h, w, c), 9, c), device="cuda")
+
+        def dw_alone():
+            assert lib.depthwise_backward_launch(1, *(t.data_ptr() for t in (
+                xc, dy, taps32, dx, partials, dk)), b, h, w, c, stream) == 0
+
+        row["dw_alone_ms"] = _events_ms(dw_alone)
+    del xc, dy, u, forward, leaves, y_aten, dx
+
+    # wgrad_fma on its f32 route at batch 16, both layers
+    gen = torch.Generator().manual_seed(4)
+    for key in ("fma_ms", "fma_alone_ms", "fma_aten_ms"):
+        row[key] = 0.0
+    for lead, ci, co in WGRAD_SHAPES[:2]:
+        x = torch.randn(*lead, ci, generator=gen).to("cuda")
+        g = torch.randn(*lead, co, generator=gen).to("cuda")
+        zero = torch.zeros((co, ci, 1, 1), device="cuda")
+        row["fma_ms"] += cuda_median_ms(lambda: pw.wgrad_fma(x, g))
+        row["fma_alone_ms"] += _wgrad_alone_ms(pw._FMA, x, g)
+        row["fma_aten_ms"] += cuda_median_ms(lambda: torch.ops.aten.convolution_backward(
+            g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), zero, None, [1, 1], [0, 0], [1, 1],
+            False, [0, 0], 1, [False, True, False]))
     print(json.dumps(row), flush=True)
 
 
@@ -1774,7 +1911,8 @@ def ab_in_turns(card: str, parent_root: str) -> None:
         rows.append((arm, row))
         log(f"[ab] {arm}: " + " | ".join(f"{k} {v:.4f}" for k, v in row.items()
                                           if isinstance(v, float)) + f" | {row['package']}")
-    for key in ("stem_ms", "stem_alone_ms", "chain_ms", "chain_alone_ms"):
+    for key in ("stem_ms", "stem_alone_ms", "chain_ms", "chain_alone_ms", "dw_ms",
+                "dw_alone_ms", "fma_ms", "fma_alone_ms"):
         parent = [r[key] for arm, r in rows if arm == "parent"]
         change = [r[key] for arm, r in rows if arm == "change"]
         log(f"[ab] {key}: change / parent = {max(change) / min(parent):.3f} at worst, "
@@ -1927,8 +2065,8 @@ def profile_training(card: str, route: str, steps: int = 6) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     finally:
         _set_route("aten")
-    own = ("chain_bwd_kernel", "chain_sums_kernel", "dw_bwd_kernel", "reduce_partials_kernel",
-           "wgrad_mma_kernel", "wgrad_fma_kernel", "wgrad_copy_kernel")
+    own = ("chain_bwd_kernel", "chain_sums_kernel", "dw_bwd_kernel", "wgrad_mma_kernel",
+           "wgrad_fma_kernel", "wgrad_copy_kernel")
     _log_device_profile(f"route {route}", prof, wall_ms, steps, card, own)
 
 
@@ -1957,6 +2095,9 @@ def main() -> None:
     if "--chain-variants" in sys.argv:
         chain_variants(card)
         return
+    if "--dw-variants" in sys.argv:
+        dw_variants(card)
+        return
     if "--ab-arm" in sys.argv:
         ab_arm(card)
         return
@@ -1972,7 +2113,8 @@ def main() -> None:
     scan = phase_scan_kernel_vs_plain()
     stem = phase_stem_kernel_vs_plain()
     backward = phase_backward_kernels_vs_plain(card)
-    wgrad = phase_wgrad_kernels_vs_plain(card, backward["chain_backward"].pop("call"))
+    wgrad = phase_wgrad_kernels_vs_plain(card, backward["chain_backward"].pop("call"),
+                                         backward["depthwise_backward"].pop("call"))
     phase_whole_path_parity()
     mbconv["launches"], default_rate = phase_serving(card)
     train_launches = phase_training(card)

@@ -72,7 +72,9 @@ using ssdseg::finish;
 using ssdseg::finish_counters;
 using ssdseg::finish_group;
 using ssdseg::from_f;
+using ssdseg::next_pow2;
 using ssdseg::to_f;
+using ssdseg::Vec;
 
 constexpr int kThreads = 256;
 constexpr int kMaxChunk = 32;    // channels of a pass-2 CTA
@@ -98,27 +100,6 @@ __device__ __forceinline__ void dz_xhat(float u, float dy, const ChannelCoef& k,
   *dz = (z > 0.0f && z <= 6.0f) ? dy : 0.0f;
   *xhat = __fmul_rn(d, k.inv);
 }
-
-// V values of a 16-byte vector as f32.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int n = 4;
-  static __device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
-    f[0] = __uint_as_float(v.x), f[1] = __uint_as_float(v.y);
-    f[2] = __uint_as_float(v.z), f[3] = __uint_as_float(v.w);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  static __device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {  // a bf16 is the upper half of an f32
-      f[2 * j] = __uint_as_float(w[j] << 16);
-      f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  }
-};
 
 // V channels (V = 1: one) of element `idx` of u and dy, as f32.
 template <typename T, int V>
@@ -226,12 +207,6 @@ __host__ __device__ inline size_t x_bytes(size_t elems, size_t elem) {
 
 // Bytes of the chunk's six coefficient rows, rounded up to 16.
 __host__ __device__ inline size_t coef_bytes(int cc) { return (size_t(6) * cc * 4 + 15) / 16 * 16; }
-
-inline int next_pow2(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
 
 // Pass 2: a persistent CTA walks the tiles of one channel chunk.  For each,
 // du on the tile + halo in shared memory, then dx and this CTA's running dk

@@ -40,6 +40,18 @@
 // while wmma 16x16x16 bf16 -> f32 runs on one slab, `cp.async` (16 bytes a
 // lane, zero-filled past K) fills the other with the warp's next rows.  Its
 // TI x TO accumulator tiles live in registers for its whole share of K.
+//
+// The CUDA-core kernel is the f32 route of the training step: at f32 batch 16
+// its bound is bytes (32 -> 16: 1.23 M rows x 48 x 4 bytes, 0.070 ms; 16 -> 96:
+// x 112 x 4, 0.165 ms) against 2 K Ci Co FMA operations at the 67 TFLOP/s f32
+// rate (0.019 and 0.056 ms).  Its grid is kFmaCtasPerSm CTAs an SM; each CTA
+// walks its range in chunks of R rows (128 at 32 -> 16, 64 at 16 -> 96: about
+// the same bytes a chunk) through a ring of S shared-memory slots that
+// 16-byte cp.async copies fill S - 1 chunks ahead, so the loads overlap
+// the FMAs with one barrier a chunk.  A thread owns a BI x BO register block
+// of dW (4 x 4 at 32 -> 16, 8 x 6 at 16 -> 96: 32 blocks, so a warp holds one
+// copy of dW and every thread is busy; BI + BO shared loads for BI * BO
+// FMAs); the CTA's copies of dW are summed in group order.
 
 #include <mma.h>
 
@@ -50,11 +62,21 @@ namespace {
 using namespace ssdseg;
 using namespace nvcuda;
 
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 16;          // wmma tile edge; channels come in multiples
-constexpr int kChunkRows = 64;     // rows of K a CTA stages per step (fma); split granularity
+constexpr int kChunkRows = 64;     // split granularity of the mma and copy kernels
 constexpr int kPad = 8;            // bf16 elements of padding per staged row (mma)
-constexpr int kFmaCtas = 528;      // grid of the fma and copy kernels (4 per SM)
+constexpr int kCopyCtas = 528;     // grid of the copy kernel (4 per SM)
+
+// The CUDA-core kernel's chunks (rows of K: the most, up to kFmaMaxRows, whose
+// x and dy hold at most kFmaChunkElems values), chunks in its ring and CTAs an
+// SM: an A/B of the kernel alone on the H100 at f32 batch 16 and 2 (PERF.md,
+// `chip_smoke.py --wgrad-variants`: 128 rows at 32 -> 16, 64 at 16 -> 96).
+constexpr int kFmaChunkElems = 8192;
+constexpr int kFmaMaxRows = 128;
+constexpr int kFmaStages = 3;
+constexpr int kFmaCtasPerSm = 2;
 
 // The tensor-core kernel's rows a warp stages per slab and its grid: an A/B
 // of the kernel alone on the H100 over 16 / 32 rows and 132-528 CTAs picked
@@ -70,9 +92,10 @@ struct Split {
   int group;  // CTAs per group of the in-launch reduction
 };
 
-inline Split make_split(long long K, int max_ctas) {
+// Rows a CTA are a multiple of `granularity`.
+inline Split make_split(long long K, int max_ctas, int granularity) {
   long long rows = (K + max_ctas - 1) / max_ctas;
-  rows = (rows + kChunkRows - 1) / kChunkRows * kChunkRows;
+  rows = (rows + granularity - 1) / granularity * granularity;
   Split s;
   s.rows_per_cta = int(rows);
   s.ctas = int((K + rows - 1) / rows);
@@ -87,56 +110,6 @@ inline int counters_needed(const Split& s) { return finish_counters(s.ctas, s.gr
 template <typename T>
 __device__ __forceinline__ uint4 load16(const T* __restrict__ a, size_t idx, bool inside) {
   return inside ? *reinterpret_cast<const uint4*>(a + idx) : make_uint4(0u, 0u, 0u, 0u);
-}
-
-template <typename T> struct Vec;  // elements in 16 bytes, and their f32 values
-template <> struct Vec<float> {
-  static constexpr int n = 4;
-  static __device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
-    f[0] = __uint_as_float(v.x);
-    f[1] = __uint_as_float(v.y);
-    f[2] = __uint_as_float(v.z);
-    f[3] = __uint_as_float(v.w);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  static __device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {  // a bf16 is the upper half of an f32
-      f[2 * j] = __uint_as_float(w[j] << 16);
-      f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  }
-};
-
-// Four consecutive elements of shared memory as f32.
-__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  f[0] = __uint_as_float(v.x << 16);
-  f[1] = __uint_as_float(v.x & 0xffff0000u);
-  f[2] = __uint_as_float(v.y << 16);
-  f[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-
-// Copies rows [r, r + rows) of the (K, C) array `a` into shared memory with a
-// row stride of `ld` elements, zeros for rows at or past `K`, by the `n`
-// threads whose index among them is `t`.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ a, T* s, long long r, int rows,
-                                           long long K, int C, int ld, int t, int n) {
-  constexpr int V = Vec<T>::n;
-  const int vpr = C / V;  // 16-byte vectors per row
-  for (int v = t; v < rows * vpr; v += n) {
-    const int row = v / vpr, cv = v - row * vpr;
-    *reinterpret_cast<uint4*>(s + row * ld + cv * V) =
-        load16(a, size_t(r + row) * C + cv * V, r + row < K);
-  }
 }
 
 // The end of every kernel below: `finish` (common.cuh) over the grid, writing
@@ -300,82 +273,228 @@ cudaError_t launch_mma_rows(int rows, const void* x, const void* dy, float* part
 // wgrad_fma: CUDA cores, operands cast to f32 in registers
 // ---------------------------------------------------------------------------
 
-// A thread owns a 4 x 4 block of dW; the (Ci/4) * (Co/4) blocks of one copy of
-// dW make a group, and the CTA's groups take the rows of a staged chunk in
-// turn.  Per row a thread reads 4 + 4 operands and does 16 FMAs.
-template <typename T>
+// N consecutive values of a staged row as f32, by the widest loads the
+// offsets allow (a block's offset is a multiple of N, a row 16-byte aligned).
+template <int N>
+__device__ __forceinline__ void load_vals(const float* p, float (&f)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + j);
+      f[j] = v.x, f[j + 1] = v.y, f[j + 2] = v.z, f[j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p + j);
+      f[j] = v.x, f[j + 1] = v.y;
+    }
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_vals(const __nv_bfloat16* p, float (&f)[N]) {
+  // a bf16 is the upper half of an f32
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int j = 0; j < N; j += 8) {
+      float v[8];
+      Vec<__nv_bfloat16>::unpack(*reinterpret_cast<const uint4*>(p + j), v);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) f[j + q] = v[q];
+    }
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p + j);
+      f[j] = __uint_as_float(v.x << 16), f[j + 1] = __uint_as_float(v.x & 0xffff0000u);
+      f[j + 2] = __uint_as_float(v.y << 16), f[j + 3] = __uint_as_float(v.y & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      const unsigned v = *reinterpret_cast<const unsigned*>(p + j);
+      f[j] = __uint_as_float(v << 16), f[j + 1] = __uint_as_float(v & 0xffff0000u);
+    }
+  }
+}
+
+// Waits until at most n (< 3) of this thread's committed copy groups are in
+// flight.
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  if (n <= 0)
+    cp_async_wait<0>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<2>();
+}
+
+// A thread owns a BI x BO block of dW; the (Ci / BI) * (Co / BO) blocks of one
+// copy of dW make a group, and the CTA's groups take the rows of a chunk in
+// turn (per row BI + BO operands from shared memory, BI * BO FMAs).  The CTA
+// walks its contiguous range of K in chunks of R rows through a ring of S
+// slots: 16-byte cp.async copies (zero fill past K) keep the next S - 1
+// chunks in flight while the FMAs run on this one, one barrier a chunk.
+template <typename T, int BI, int BO>
 __global__ void __launch_bounds__(kThreads)
 wgrad_fma_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ partials,
                  int* __restrict__ counters, void* __restrict__ out, int out_bf16, long long K,
-                 int rows_per_cta, int group, int Ci, int Co) {
-  extern __shared__ __align__(32) unsigned char smem[];
+                 int rows_per_cta, int group, int Ci, int Co, int R, int S) {
+  constexpr int V = Vec<T>::n;
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int ticket;
-  T* xs = reinterpret_cast<T*>(smem);   // (kChunkRows, Ci)
-  T* ys = xs + kChunkRows * Ci;         // (kChunkRows, Co)
+  const int ldx = Ci + V, ldy = Co + V;  // rows padded by 16 bytes: other banks
+  const int slot = R * (ldx + ldy);      // elements of a chunk's x and dy
+  T* ring = reinterpret_cast<T*>(smem);
   const int tid = threadIdx.x;
-  const int blocks_o = Co / 4, blocks = (Ci / 4) * blocks_o;
+  const int blocks_o = Co / BO, blocks = (Ci / BI) * blocks_o;
   const int groups = kThreads / blocks;
   const int grp = tid / blocks, blk = tid - grp * blocks;
-  const int i0 = (blk / blocks_o) * 4, o0 = (blk % blocks_o) * 4;
+  const int i0 = (blk / blocks_o) * BI, o0 = (blk % blocks_o) * BO;
   const bool active = grp < groups;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int o = 0; o < 4; ++o) acc[i][o] = 0.0f;
-
   const long long r0 = (long long)blockIdx.x * rows_per_cta;
-  long long r1 = r0 + rows_per_cta;
-  if (r1 > K) r1 = K;
-  for (long long r = r0; r < r1; r += kChunkRows) {
-    stage_rows(x, xs, r, kChunkRows, K, Ci, Ci, tid, kThreads);
-    stage_rows(dy, ys, r, kChunkRows, K, Co, Co, tid, kThreads);
-    __syncthreads();
+  const long long r1 = r0 + rows_per_cta < K ? r0 + rows_per_cta : K;
+  const int chunks = r1 > r0 ? int((r1 - r0 + R - 1) / R) : 0;
+  const int vx = Ci / V, vy = Co / V;  // 16-byte vectors of a row
+  // starts the copy of chunk s into its slot; a chunk never reaches into the
+  // next CTA's range (rows_per_cta is a multiple of R)
+  auto stage = [&](int s) {
+    T* xs = ring + (s % S) * slot;
+    T* ys = xs + R * ldx;
+    const long long r = r0 + (long long)s * R;
+    for (int v = tid; v < R * vx; v += kThreads) {
+      const int row = v / vx, cv = v - row * vx;
+      const bool inside = r + row < K;
+      cp_async16(xs + row * ldx + cv * V, x + (inside ? size_t(r + row) * Ci + cv * V : 0),
+                 inside);
+    }
+    for (int v = tid; v < R * vy; v += kThreads) {
+      const int row = v / vy, cv = v - row * vy;
+      const bool inside = r + row < K;
+      cp_async16(ys + row * ldy + cv * V, dy + (inside ? size_t(r + row) * Co + cv * V : 0),
+                 inside);
+    }
+  };
+
+  float acc[BI][BO];
+#pragma unroll
+  for (int i = 0; i < BI; ++i)
+#pragma unroll
+    for (int o = 0; o < BO; ++o) acc[i][o] = 0.0f;
+
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < chunks) stage(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < chunks; ++s) {
+    cp_async_wait_pending(S - 2);  // chunk s has landed
+    __syncthreads();               // ... for every thread; chunk s - 1's slot is free
+    if (s + S - 1 < chunks) stage(s + S - 1);
+    cp_async_commit();
+    const T* xs = ring + (s % S) * slot;
+    const T* ys = xs + R * ldx;
     if (active) {
-      for (int row = grp; row < kChunkRows; row += groups) {
-        float xv[4], gv[4];
-        load4(xs + row * Ci + i0, xv);
-        load4(ys + row * Co + o0, gv);
+#pragma unroll 2
+      for (int row = grp; row < R; row += groups) {
+        float xv[BI], gv[BO];
+        load_vals<BI>(xs + row * ldx + i0, xv);
+        load_vals<BO>(ys + row * ldy + o0, gv);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < BI; ++i)
 #pragma unroll
-          for (int o = 0; o < 4; ++o) acc[i][o] = fmaf(xv[i], gv[o], acc[i][o]);
+          for (int o = 0; o < BO; ++o) acc[i][o] = fmaf(xv[i], gv[o], acc[i][o]);
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is dead: its memory takes the sum
 
-  // the groups' copies of dW, summed in group order
+  // the groups' copies of dW, summed in group order into this CTA's partial
   float* red = reinterpret_cast<float*>(smem);  // (groups, Ci, Co)
   if (active) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < BI; ++i)
 #pragma unroll
-      for (int o = 0; o < 4; ++o) red[(grp * Ci + i0 + i) * Co + o0 + o] = acc[i][o];
+      for (int o = 0; o < BO; ++o) red[(grp * Ci + i0 + i) * Co + o0 + o] = acc[i][o];
   }
   __syncthreads();
-  float* mine = partials + size_t(blockIdx.x) * Ci * Co;
+  // e walks red's (Ci, Co) order, so a warp reads consecutive words
+  float* mine = partials + size_t(blockIdx.x) * Ci * Co;  // (Co, Ci)
   for (int e = tid; e < Ci * Co; e += kThreads) {
-    const int o = e / Ci, i = e - o * Ci;
+    const int i = e / Co, o = e - i * Co;
     float s = 0.0f;
-    for (int g = 0; g < groups; ++g) s += red[(g * Ci + i) * Co + o];
-    mine[e] = s;
+    for (int g = 0; g < groups; ++g) s += red[g * Ci * Co + e];
+    mine[o * Ci + i] = s;
   }
   finish_dw(partials, counters, out, out_bf16, Ci * Co, group, ticket);
 }
 
+// The register blocks (BI, BO) the kernel is built for, the larger first.
+constexpr int kFmaBlocks[][2] = {{8, 8}, {8, 6}, {8, 4}, {4, 4}};
+constexpr int kFmaBlockCount = 4;
+
+// The register block of (Ci, Co): number `block` (1-based) of kFmaBlocks when
+// positive, else the first of those that cut dW into 32 blocks (a warp holds
+// one copy of dW, so its lanes read one staged row: 4 x 4 at 32 -> 16, 8 x 6
+// at 16 -> 96, the fastest in the A/B on the H100, PERF.md) or, where none
+// does, the first of those that keep the most threads busy; -1 when it does
+// not divide the channels.
+inline int fma_block(int Ci, int Co, int block) {
+  int best = -1, best_score = 0;
+  for (int b = 0; b < kFmaBlockCount; ++b) {
+    const int bi = kFmaBlocks[b][0], bo = kFmaBlocks[b][1];
+    if (Ci % bi != 0 || Co % bo != 0 || (block > 0 && b != block - 1)) continue;
+    const int blocks = (Ci / bi) * (Co / bo);
+    if (blocks > kThreads) continue;
+    const int score = (blocks == 32 ? kThreads + 1 : 0) + kThreads / blocks * blocks;
+    if (score > best_score) best = b, best_score = score;
+  }
+  return best;
+}
+
+// Shared memory of a launch: the ring, or the groups' copies of dW if larger.
+inline size_t fma_smem(int Ci, int Co, int bi, int bo, int R, int S, size_t elem) {
+  const int V = int(16 / elem);
+  const size_t ring = size_t(S) * R * (Ci + Co + 2 * V) * elem;
+  const size_t red = size_t(kThreads / ((Ci / bi) * (Co / bo))) * Ci * Co * sizeof(float);
+  return ring > red ? ring : red;
+}
+
+template <typename T, int BI, int BO>
+cudaError_t launch_fma_block(const void* x, const void* dy, float* partials, int* counters,
+                             void* out, int out_bf16, long long K, int Ci, int Co, int R, int S,
+                             const Split& s, cudaStream_t stream) {
+  const size_t smem = fma_smem(Ci, Co, BI, BO, R, S, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_fma_kernel<T, BI, BO>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  wgrad_fma_kernel<T, BI, BO><<<s.ctas, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), partials, counters, out, out_bf16, K,
+      s.rows_per_cta, s.group, Ci, Co, R, S);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_fma(const void* x, const void* dy, float* partials, int* counters, void* out,
-                       int out_bf16, long long K, int Ci, int Co, const Split& s,
-                       cudaStream_t stream) {
-  const int groups = kThreads / ((Ci / 4) * (Co / 4));
-  const size_t stage = size_t(kChunkRows) * (Ci + Co) * sizeof(T);
-  const size_t red = size_t(groups) * Ci * Co * sizeof(float);
-  wgrad_fma_kernel<T><<<s.ctas, kThreads, stage > red ? stage : red, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), partials, counters, out, out_bf16, K,
-      s.rows_per_cta, s.group, Ci, Co);
-  return cudaGetLastError();
+                       int out_bf16, long long K, int Ci, int Co, int R, int S, int block,
+                       const Split& s, cudaStream_t stream) {
+  switch (fma_block(Ci, Co, block)) {
+    case 0:
+      return launch_fma_block<T, 8, 8>(x, dy, partials, counters, out, out_bf16, K, Ci, Co, R, S,
+                                       s, stream);
+    case 1:
+      return launch_fma_block<T, 8, 6>(x, dy, partials, counters, out, out_bf16, K, Ci, Co, R, S,
+                                       s, stream);
+    case 2:
+      return launch_fma_block<T, 8, 4>(x, dy, partials, counters, out, out_bf16, K, Ci, Co, R, S,
+                                       s, stream);
+    case 3:
+      return launch_fma_block<T, 4, 4>(x, dy, partials, counters, out, out_bf16, K, Ci, Co, R, S,
+                                       s, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -453,46 +572,118 @@ inline bool channels_ok(int Ci, int Co) {
          Co <= 96 && (Ci / kTile) * (Co / kTile) <= 8;
 }
 
-// The split of a launch: `ctas` when positive, else kMmaCtas for the
-// tensor-core kernel and kFmaCtas for the other two.
-inline Split split_for(int kernel, long long K, int ctas) {
-  if (ctas <= 0) ctas = kernel == 0 ? kMmaCtas : kFmaCtas;
-  return make_split(K, ctas);
+// The CUDA-core kernel's rows a chunk: `rows` when positive, else the
+// built-in rule.
+inline int fma_rows(int Ci, int Co, int rows) {
+  if (rows > 0) return rows;
+  int r = kFmaMaxRows;
+  while (r > 1 && r * (Ci + Co) > kFmaChunkElems) r >>= 1;
+  return r;
+}
+
+// The split of a launch: `ctas` CTAs when positive, else kMmaCtas for the
+// tensor-core kernel, kFmaCtasPerSm an SM for the CUDA-core one and kCopyCtas
+// for the loads alone; the CUDA-core kernel's ranges are whole chunks.
+inline cudaError_t split_for(int kernel, long long K, int Ci, int Co, int rows, int ctas,
+                             Split* s) {
+  int granularity = kChunkRows;
+  if (kernel == 1) {
+    granularity = fma_rows(Ci, Co, rows);
+    if (ctas <= 0) {
+      int device = 0, sms = 0;
+      cudaError_t err = cudaGetDevice(&device);
+      if (err != cudaSuccess) return err;
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return err;
+      ctas = sms * kFmaCtasPerSm;
+    }
+  } else if (ctas <= 0) {
+    ctas = kernel == 0 ? kMmaCtas : kCopyCtas;
+  }
+  *s = make_split(K, ctas, granularity);
+  return cudaSuccess;
+}
+
+bool fma_args_ok(int rows, int stages) {
+  return rows >= 0 && rows <= 1024 && stages >= 0 && stages <= 4 && stages != 1;
 }
 
 }  // namespace
 
-// The grid a launch below uses for K rows, given `ctas` (0: the built-in
-// choice): *ctas_out, the first extent of the (CTAs, Co, Ci) f32 scratch, and
+// The grid a launch below uses for K rows, given `rows` (the CUDA-core
+// kernel's chunk; the others ignore it) and `ctas`, 0 for the built-in
+// choices: *ctas_out, the first extent of the (CTAs, Co, Ci) f32 scratch, and
 // *counters_out, the int32 counters it needs, zero before the first launch
 // (each launch leaves them zero).  Returns a cudaError_t (0 on success).
-extern "C" int pointwise_wgrad_grid(int kernel, long long K, int Ci, int Co, int ctas,
+extern "C" int pointwise_wgrad_grid(int kernel, long long K, int Ci, int Co, int rows, int ctas,
                                     int* ctas_out, int* counters_out) {
-  if (K < 1 || !channels_ok(Ci, Co)) return cudaErrorInvalidValue;
-  const Split s = split_for(kernel, K, ctas);
+  if (K < 1 || !channels_ok(Ci, Co) || !fma_args_ok(rows, 0)) return cudaErrorInvalidValue;
+  Split s;
+  const cudaError_t err = split_for(kernel, K, Ci, Co, rows, ctas, &s);
+  if (err != cudaSuccess) return err;
   *ctas_out = s.ctas;
   *counters_out = counters_needed(s);
   return cudaSuccess;
 }
 
+// The CUDA-core kernel at (rows a chunk, chunks in the ring, register block
+// number), 0 for the built-in choices: *out receives (BI, BO, rows, stages,
+// shared bytes a CTA) for operands of `dtype` (0 f32, 1 bf16).  Returns a
+// cudaError_t (0 on success).
+extern "C" int wgrad_fma_config(int dtype, int Ci, int Co, int rows, int stages, int block,
+                                int* out) {
+  if (!channels_ok(Ci, Co) || !fma_args_ok(rows, stages) || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
+  const int b = fma_block(Ci, Co, block);
+  if (b < 0) return cudaErrorInvalidValue;
+  const int R = fma_rows(Ci, Co, rows), S = stages > 0 ? stages : kFmaStages;
+  out[0] = kFmaBlocks[b][0], out[1] = kFmaBlocks[b][1], out[2] = R, out[3] = S;
+  out[4] = int(fma_smem(Ci, Co, out[0], out[1], R, S, dtype == 0 ? 4 : 2));
+  return cudaSuccess;
+}
+
+// The CUDA-core kernel, one launch, with its knobs: rows a chunk (the grid's
+// `rows`), chunks in the ring (2-4) and register block (1-based in
+// kFmaBlocks), 0 for the built-in choices; the other arguments as for
+// pointwise_wgrad_launch.
+extern "C" int wgrad_fma_launch(int dtype, const void* x, const void* dy, void* partials,
+                                void* counters, void* out, int out_bf16, long long K, int Ci,
+                                int Co, int rows, int ctas, int stages, int block, void* stream) {
+  if (K < 1 || !channels_ok(Ci, Co) || !fma_args_ok(rows, stages) || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
+  Split s;
+  const cudaError_t err = split_for(1, K, Ci, Co, rows, ctas, &s);
+  if (err != cudaSuccess) return err;
+  const int R = fma_rows(Ci, Co, rows), S = stages > 0 ? stages : kFmaStages;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pf = static_cast<float*>(partials);
+  auto ct = static_cast<int*>(counters);
+  return dtype == 0
+             ? launch_fma<float>(x, dy, pf, ct, out, out_bf16, K, Ci, Co, R, S, block, s, st)
+             : launch_fma<__nv_bfloat16>(x, dy, pf, ct, out, out_bf16, K, Ci, Co, R, S, block, s,
+                                         st);
+}
+
 // kernel: 0 = mma (bf16 only), 1 = fma, 2 = copy.  dtype: 0 = float32, 1 =
 // bfloat16.  x (K, Ci), dy (K, Co) contiguous, 16-byte aligned; partials and
 // counters as pointwise_wgrad_grid sizes them for the same (kernel, K, Ci,
-// Co, ctas); out (Co, Ci) in f32 (out_bf16 = 0) or bf16 (1).  rows (mma only)
-// and ctas: 0 for the built-in choice.  One launch.  Returns a cudaError_t (0
-// on success).
+// Co, rows, ctas); out (Co, Ci) in f32 (out_bf16 = 0) or bf16 (1).  rows (mma:
+// a warp's slab, fma: a chunk) and ctas: 0 for the built-in choice.  One
+// launch.  Returns a cudaError_t (0 on success).
 extern "C" int pointwise_wgrad_launch(int kernel, int dtype, const void* x, const void* dy,
                                       void* partials, void* counters, void* out, int out_bf16,
                                       long long K, int Ci, int Co, int rows, int ctas,
                                       void* stream) {
   if (K < 1 || !channels_ok(Ci, Co) || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
+  if (kernel == 1)
+    return wgrad_fma_launch(dtype, x, dy, partials, counters, out, out_bf16, K, Ci, Co, rows,
+                            ctas, 0, 0, stream);
   auto st = static_cast<cudaStream_t>(stream);
   auto pf = static_cast<float*>(partials);
   auto ct = static_cast<int*>(counters);
-  const Split s = split_for(kernel, K, ctas);
-  if (kernel == 1)
-    return dtype == 0 ? launch_fma<float>(x, dy, pf, ct, out, out_bf16, K, Ci, Co, s, st)
-                      : launch_fma<__nv_bfloat16>(x, dy, pf, ct, out, out_bf16, K, Ci, Co, s, st);
+  Split s;
+  const cudaError_t err = split_for(kernel, K, Ci, Co, rows, ctas, &s);
+  if (err != cudaSuccess) return err;
   if (kernel == 2)
     return dtype == 0 ? launch_copy<float>(x, dy, pf, ct, out, out_bf16, K, Ci, Co, s, st)
                       : launch_copy<__nv_bfloat16>(x, dy, pf, ct, out, out_bf16, K, Ci, Co, s, st);

@@ -131,11 +131,15 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int)
     ] * 5
     lib.fused_mbconv_tile.restype = ctypes.c_int
-    lib.dw_bwd_partial_rows.argtypes = [ctypes.c_int] * 4
-    lib.dw_bwd_partial_rows.restype = ctypes.c_int
-    # (dtype, x, dy, k, dx, partials, dk, B, H, W, C, stream)
+    # (dtype, B, H, W, C, tr, tw, chunk, *floats, *counters, *geometry[5])
+    lib.depthwise_backward_scratch.argtypes = [ctypes.c_int] * 8 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int), ptr]
+    lib.depthwise_backward_scratch.restype = ctypes.c_int
+    # (dtype, x, dy, k, k_bf16, kts, kcs, dx, dk, scratch, counters, B, H, W, C,
+    #  tr, tw, chunk, ctas, stream)
     lib.depthwise_backward_launch.argtypes = (
-        [ctypes.c_int] + [ptr] * 6 + [ctypes.c_int] * 4 + [ptr]
+        [ctypes.c_int] + [ptr] * 3 + [ctypes.c_int] * 3 + [ptr] * 4 + [ctypes.c_int] * 8
+        + [ptr]
     )
     lib.depthwise_backward_launch.restype = ctypes.c_int
     # (dtype, B, H, W, C, tr, tw, *floats, *counters)
@@ -163,12 +167,22 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int)
     ] * 5
     lib.stem_block1_config.restype = ctypes.c_int
-    # (kernel, K, Ci, Co, ctas, *ctas_out, *counters_out)
+    # (kernel, K, Ci, Co, rows, ctas, *ctas_out, *counters_out)
     lib.pointwise_wgrad_grid.argtypes = (
-        [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3
+        [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
         + [ctypes.POINTER(ctypes.c_int)] * 2
     )
     lib.pointwise_wgrad_grid.restype = ctypes.c_int
+    # (dtype, Ci, Co, rows, stages, block, *out[5])
+    lib.wgrad_fma_config.argtypes = [ctypes.c_int] * 6 + [ptr]
+    lib.wgrad_fma_config.restype = ctypes.c_int
+    # (dtype, x, dy, partials, counters, out, out_bf16, K, Ci, Co, rows, ctas,
+    #  stages, block, stream)
+    lib.wgrad_fma_launch.argtypes = (
+        [ctypes.c_int] + [ptr] * 5 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 6
+        + [ptr]
+    )
+    lib.wgrad_fma_launch.restype = ctypes.c_int
     # (kernel, dtype, x, dy, partials, counters, out, out_bf16, K, Ci, Co, rows,
     #  ctas, stream)
     lib.pointwise_wgrad_launch.argtypes = (

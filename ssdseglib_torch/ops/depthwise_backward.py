@@ -1,14 +1,15 @@
 """Fused backward of a SAME stride-1 3x3 depthwise convolution.
 
 Counterpart of ``ssdseglib_tpu/ops/depthwise_backward.py``.  Both gradients
-come from one pass over x and dy, as one hand-written Hopper kernel
-(``csrc/depthwise_backward.cu``):
+come from one pass over x and dy, in one launch of a hand-written Hopper
+kernel (``csrc/depthwise_backward.cu``):
 
     dx[t,w,c] = sum_{i,j} k[i,j,c] * dy[t+1-i, w+1-j, c]
     dk[i,j,c] = sum_{b,t,w} x[t+i-1, w+j-1, c] * dy[t,w,c]
 
-with f32 products and sums.  The library route (ATen/cuDNN) runs two more
-convolutions for the same result.
+with f32 products and sums, dk summed across the kernel's CTAs in an order
+fixed by its grid (the same bits on every run).  The library route
+(ATen/cuDNN) runs two more convolutions for the same result.
 
 ``depthwise3x3_backward`` launches the kernel on CUDA tensors and runs the
 plain version ``depthwise3x3_backward_reference`` on CPU tensors; a CUDA call
@@ -19,7 +20,8 @@ autograd unit the model uses: its forward is the plain convolution.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,16 +46,6 @@ def check_nhwc_operands(name: str, x: torch.Tensor, *others: torch.Tensor) -> No
             raise ValueError(f"{name}: operands must be contiguous (B, H, W, C)")
     if x.numel() == 0:
         raise ValueError(f"{name}: empty tensor {tuple(x.shape)}")
-
-
-def taps_f32(kernel: torch.Tensor, channels: int) -> torch.Tensor:
-    """A (3, 3, 1, C) depthwise kernel as the (9, C) contiguous f32 table
-    the kernels read (a copy of 9 * C values)."""
-    if tuple(kernel.shape) != (3, 3, 1, channels):
-        raise ValueError(
-            f"kernel has shape {tuple(kernel.shape)}, expected (3, 3, 1, {channels})"
-        )
-    return kernel.reshape(9, channels).float().contiguous()
 
 
 def nhwc_view(t: torch.Tensor, counter) -> torch.Tensor:
@@ -84,41 +76,96 @@ def depthwise3x3_backward(
     Args:
         x: (B, H, W, C) input of the forward conv, float32 or bfloat16.
         dy: (B, H, W, C) cotangent of the forward output, like x.
-        kernel: (3, 3, 1, C) HWIO depthwise kernel.
+        kernel: (3, 3, 1, C) HWIO depthwise kernel on x's device; on the card
+            read in place when it is f32 or bf16 and its two tap axes flatten
+            (a contiguous kernel, or the HWIO view of a (C, 1, 3, 3) weight),
+            else copied.
     Returns:
         dx with x's shape and dtype, dk (3, 3, 1, C) in f32.
     """
     check_nhwc_operands("depthwise3x3_backward", x, dy)
-    batch, h, w, c = x.shape
-    taps = taps_f32(kernel, c)
+    c = x.shape[3]
+    if tuple(kernel.shape) != (3, 3, 1, c):
+        raise ValueError(f"kernel has shape {tuple(kernel.shape)}, expected (3, 3, 1, {c})")
+    if kernel.device != x.device:
+        raise ValueError(f"depthwise3x3_backward: kernel on {kernel.device}, x on {x.device}")
     if x.device.type == "cpu":
         return depthwise3x3_backward_reference(x, dy, kernel)
     if x.device.type != "cuda":
         raise ValueError(f"depthwise3x3_backward runs on cuda or cpu, not {x.device}")
-
-    from ssdseglib_torch.ops._cuda_build import load_library
-
-    lib = load_library()
-    dx = torch.empty_like(x)
-    dk = torch.empty((9, c), dtype=torch.float32, device=x.device)
-    rows = lib.dw_bwd_partial_rows(batch, h, w, c)
-    partials = torch.empty((rows, 9, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.depthwise_backward_launch(
-            _DTYPE_CODES[x.dtype],
-            *(t.data_ptr() for t in (x, dy, taps, dx, partials, dk)),
-            batch, h, w, c, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"depthwise backward kernel launch failed with cudaError {err} "
-            f"(B={batch}, H={h}, W={w}, C={c}, {x.dtype})"
-        )
+    if x.data_ptr() % 16 or dy.data_ptr() % 16:
+        raise ValueError("depthwise3x3_backward: x and dy must be 16-byte aligned")
+    if kernel.dtype not in _DTYPE_CODES or kernel.stride(0) != 3 * kernel.stride(1):
+        kernel = kernel.float().contiguous()
+    dx, dk = _launch(x, dy, kernel)
     depthwise3x3_backward.launches += 1
     return dx, dk.reshape(3, 3, 1, c)
 
 
 depthwise3x3_backward.launches = 0
+
+# Scratch of the launch, allocated once per (device, stream, dtype, shape,
+# config) and kept: (f32 partial sums, int32 counters, CTAs a chunk).  Sharing
+# it between calls is safe because a buffer is only used on its own stream,
+# where launches run in order, and every launch leaves the counters at 0.
+_SCRATCH: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, int]] = {}
+# (tile rows, tile columns, channels of a chunk); 0 takes the source's
+BUILT_IN = (0, 0, 0)
+
+
+def kernel_geometry(lib, code: int, dims, config=BUILT_IN):
+    """(scratch floats, counters, (tile rows, tile columns, chunk, CTAs a
+    chunk, shared bytes a CTA)) of a launch on the current device."""
+    floats, counters, geo = ctypes.c_longlong(0), ctypes.c_int(0), (ctypes.c_int * 5)()
+    err = lib.depthwise_backward_scratch(code, *dims, *config, ctypes.byref(floats),
+                                         ctypes.byref(counters), geo)
+    if err != 0:
+        raise RuntimeError(f"depthwise backward: no tiling for {dims} {config}: cudaError {err}")
+    return floats.value, counters.value, tuple(geo)
+
+
+def _launch(x, dy, kernel, config=BUILT_IN, out=None):
+    """The launch on checked CUDA operands with (tile rows, tile columns,
+    chunk) ``config``; counts nothing.  Returns (dx, dk (9, C)), into ``out``
+    when given."""
+    from ssdseglib_torch.ops._cuda_build import load_library
+
+    lib = load_library()
+    device = x.device
+    dims = tuple(x.shape)
+    code = _DTYPE_CODES[x.dtype]
+    # the current stream's raw handle, without building a torch.cuda.Stream
+    # object on every call's host path
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if out is None:
+        out = (torch.empty_like(x), torch.empty((9, dims[3]), dtype=torch.float32, device=device))
+    dx, dk = out
+
+    def launch():
+        key = (device.index, stream, code, dims, tuple(config))
+        if key not in _SCRATCH:
+            floats, counters, geo = kernel_geometry(lib, code, dims, config)
+            # counters start at 0, and every launch leaves them at 0
+            _SCRATCH[key] = (torch.empty(floats, dtype=torch.float32, device=device),
+                             torch.zeros(counters, dtype=torch.int32, device=device), geo[3])
+        scratch, counters, ctas = _SCRATCH[key]
+        return lib.depthwise_backward_launch(
+            code, x.data_ptr(), dy.data_ptr(), kernel.data_ptr(), _DTYPE_CODES[kernel.dtype],
+            kernel.stride(1), kernel.stride(3), dx.data_ptr(), dk.data_ptr(), scratch.data_ptr(),
+            counters.data_ptr(), *dims, *config, ctas, stream,
+        )
+
+    if device.index == torch.cuda.current_device():
+        err = launch()
+    else:  # the geometry and the kernel's attributes are the device's own
+        with torch.cuda.device(device):
+            err = launch()
+    if err != 0:
+        raise RuntimeError(
+            f"depthwise backward kernel launch failed with cudaError {err} "
+            f"(B, H, W, C = {dims}, {x.dtype}, config {tuple(config)})"
+        )
+    return dx, dk
 
 
 def depthwise3x3_backward_reference(

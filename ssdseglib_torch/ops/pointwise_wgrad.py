@@ -89,11 +89,13 @@ def _check(name: str, x: torch.Tensor, dy: torch.Tensor) -> int:
 _SCRATCH: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _grid(lib, kernel: int, k: int, ci: int, co: int, ctas: int = 0) -> Tuple[int, int]:
+def _grid(lib, kernel: int, k: int, ci: int, co: int, ctas: int = 0,
+          rows: int = 0) -> Tuple[int, int]:
     """(CTAs, counters) of a launch as the library splits K; ``ctas`` 0 for
-    its built-in grid."""
+    its built-in grid, ``rows`` the CUDA-core kernel's rows a chunk (0 for
+    its built-in choice; the other kernels' split ignores it)."""
     n_ctas, n_counters = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.pointwise_wgrad_grid(kernel, k, ci, co, ctas, ctypes.byref(n_ctas),
+    err = lib.pointwise_wgrad_grid(kernel, k, ci, co, rows, ctas, ctypes.byref(n_ctas),
                                    ctypes.byref(n_counters))
     if err != 0:
         raise RuntimeError(f"no grid for K={k}, Ci={ci}, Co={co}: cudaError {err}")
@@ -129,7 +131,9 @@ def _launch(kernel: int, name: str, x: torch.Tensor, dy: torch.Tensor, k: int,
         raise ValueError(f"{name}: operands must be 16-byte aligned")
     lib = load_library()
     ci, co = x.shape[-1], dy.shape[-1]
-    stream = torch.cuda.current_stream(device).cuda_stream
+    # the current stream's raw handle, without building a torch.cuda.Stream
+    # object on every call's host path
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     key = (device.index, stream, kernel, k, ci, co)
     plan = _PLANS.get(key)
     if plan is None:

@@ -20,10 +20,6 @@ and the Pallas kernel.  G comes from the card's occupancy, so several are
 tried.
 """
 
-import math
-import os
-import re
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,7 +30,11 @@ from ssdseglib_tpu.ops import fused_chain_backward as tpu_chain
 from ssdseglib_torch.models import blocks
 from ssdseglib_torch.models.blocks import DepthwiseConvBN
 from ssdseglib_torch.ops import fused_chain_backward as chain
-from tests.torch_parity import two_torch_threads  # noqa: F401
+from tests.torch_parity import (  # noqa: F401 (two_torch_threads: autouse fixture)
+    source_constants,
+    ticket_sum,
+    two_torch_threads,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # non-square, channel counts that are not a power of two: a transposed tap or
@@ -257,42 +257,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         chain.dw_bn_relu6_backward(*args(gamma=torch.ones(4)))
 
 
-def _source_constants():
-    """The kernels' built-in geometry, read from csrc/fused_chain_backward.cu."""
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "ssdseglib_torch", "csrc", "fused_chain_backward.cu")
-    with open(path) as f:
-        source = f.read()
-
-    def const(name):
-        return int(re.search(rf"\b{name} = (\d+)", source).group(1))
-
-    return {name: const(name) for name in ("kMaxChunk", "kSumsCtas", "kSumsMinRows",
-                                           "kTileRows", "kTileCols")}
-
-
-def _ticket_sum(partials):
-    """`finish` (csrc/common.cuh): (n, M) per-CTA partials summed in groups
-    of ceil(sqrt(n)) consecutive CTAs in CTA order, then the groups in group
-    order."""
-    n = partials.shape[0]
-    group = math.isqrt(n - 1) + 1 if n > 1 else 1
-    sums = []
-    for g0 in range(0, n, group):
-        s = torch.zeros_like(partials[0])
-        for p in range(g0, min(g0 + group, n)):
-            s = s + partials[p]
-        sums.append(s)
-    total = torch.zeros_like(partials[0])
-    for s in sums:
-        total = total + s
-    return total
-
-
 def _emulate_kernels(x, u, dy, kernel, coefficients, ctas):
     """The two launches' order of work on NHWC CPU tensors, with ``ctas``
     pass-2 CTAs a channel chunk: (dx, dk (3, 3, 1, C), dgamma, dbeta)."""
-    k = _source_constants()
+    k = source_constants("fused_chain_backward.cu", "kMaxChunk", "kSumsCtas", "kSumsMinRows",
+                         "kTileRows", "kTileCols")
     batch, h, w, c = x.shape
     n_pix = batch * h * w
     mean, inv, a_coef, beta = coefficients
@@ -307,7 +276,7 @@ def _emulate_kernels(x, u, dy, kernel, coefficients, ctas):
     flat_dz, flat_t = dz.reshape(n_pix, c), (dz * xhat).reshape(n_pix, c)
     partials = torch.stack([torch.cat([flat_dz[p:p + rows].sum(0), flat_t[p:p + rows].sum(0)])
                             for p in range(0, n_pix, rows)])
-    sums = _ticket_sum(partials)
+    sums = ticket_sum(partials)
     dbeta, dgamma = sums[:c], sums[c:]
     bc, dcoef = a_coef * (dbeta / float(n_pix)), a_coef * (dgamma / float(n_pix))
     du = a_coef * dz - bc - dcoef * xhat
@@ -343,7 +312,7 @@ def _emulate_kernels(x, u, dy, kernel, coefficients, ctas):
             for t in range(i, len(tile_partials), walkers):
                 s = s + tile_partials[t]
             cta_partials.append(s)
-        dk[:, ch] = _ticket_sum(torch.stack(cta_partials))
+        dk[:, ch] = ticket_sum(torch.stack(cta_partials))
     return dx.to(dt), dk.reshape(3, 3, 1, c), dgamma, dbeta
 
 

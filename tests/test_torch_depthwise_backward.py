@@ -8,6 +8,14 @@ Tolerances: f32 rtol 2e-4 / atol 2e-5 (the JAX test's,
 tests/test_depthwise_backward.py); dk is a sum over B*H*W terms and is
 scaled by its largest reference magnitude.  bf16 inputs: all arithmetic is
 f32 in both, dx is rounded once (2 bf16 ulps, 1.6e-2).
+
+The kernel's decomposition -- persistent CTAs, each walking every G-th tile
+of one chunk of channels, x and dy staged with a one-pixel halo of zeros, dk
+summed over each CTA's tiles and the CTAs' partials summed by `finish` in
+groups of ceil(sqrt(G)) -- is emulated in plain PyTorch
+(`_emulate_kernel`) with the tile and chunk read from the source, and held
+against the plain version (dk within 1e-6 of its largest magnitude) and the
+Pallas kernel.  G comes from the card's occupancy, so several are tried.
 """
 
 import jax.numpy as jnp
@@ -20,6 +28,11 @@ from ssdseglib_tpu.ops import depthwise_backward as tpu_dwb
 from ssdseglib_torch.models import blocks
 from ssdseglib_torch.models.blocks import DepthwiseConvBN, SepConvBN
 from ssdseglib_torch.ops import depthwise_backward as dwb
+from tests.torch_parity import (  # noqa: F401 (two_torch_threads: autouse fixture)
+    source_constants,
+    ticket_sum,
+    two_torch_threads,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 SHAPES = [(2, 16, 24, 8), (1, 8, 40, 5), (3, 16, 8, 12)]
@@ -177,3 +190,82 @@ def test_envelope_and_rejections(gates):
         dwb.depthwise3x3_backward(x[0], dy[0], kernel)
     with pytest.raises(ValueError, match="weight has shape"):
         dwb.depthwise_conv3x3_fused_bwd(x.permute(0, 3, 1, 2), torch.zeros(3, 1, 5, 5))
+
+
+def _emulate_kernel(x, dy, kernel, ctas):
+    """The launch's order of work on NHWC CPU tensors with ``ctas`` CTAs a
+    channel chunk: (dx, dk (3, 3, 1, C)).  dx of a tile is three tap-row sums
+    added as (row above + centre row) + row below, as the kernel adds them."""
+    k = source_constants("depthwise_backward.cu", "kChunk", "kTileRows", "kTileCols")
+    tr, tw = k["kTileRows"], k["kTileCols"]
+    batch, h, w, c = x.shape
+    vector = 16 // x.element_size()  # channels of a 16-byte copy
+    cc = 1 << (min(c, k["kChunk"]) - 1).bit_length()
+    if c % vector == 0:
+        cc = max(cc, vector)
+    taps = kernel.float().reshape(3, 3, c)
+    # zeros outside the image: the halo's, and the ragged tiles' past the edge
+    g_p = F.pad(dy.float(), (0, 0, 1, tw + 1, 1, tr + 1))
+    x_p = F.pad(x.float(), (0, 0, 1, tw + 1, 1, tr + 1))
+    dx = torch.zeros(x.shape, dtype=torch.float32)
+    dk = torch.zeros(9, c)
+    for c0 in range(0, c, cc):
+        ch = slice(c0, min(c0 + cc, c))
+        tile_partials = []
+        for b in range(batch):  # tiles in the kernel's order: image, tile row, tile column
+            for y0 in range(0, h, tr):
+                for x0 in range(0, w, tw):
+                    g = g_p[b, y0:y0 + tr + 2, x0:x0 + tw + 2, ch]
+                    xs = x_p[b, y0:y0 + tr + 2, x0:x0 + tw + 2, ch]
+                    rows = []
+                    for i in range(3):  # tap row i reads dy one row below for i = 0
+                        s = torch.zeros((tr, tw, g.shape[-1]))
+                        for j in range(3):
+                            s = s + taps[i, j, ch] * g[2 - i:2 - i + tr, 2 - j:2 - j + tw]
+                        rows.append(s)
+                    out = (rows[0] + rows[1]) + rows[2]
+                    rows_, cols = min(tr, h - y0), min(tw, w - x0)
+                    dx[b, y0:y0 + rows_, x0:x0 + cols, ch] = out[:rows_, :cols]
+                    tile_partials.append(torch.stack([
+                        (xs[i:i + tr, j:j + tw] * g[1:1 + tr, 1:1 + tw]).sum((0, 1))
+                        for i in range(3) for j in range(3)]))
+        walkers = min(ctas, len(tile_partials))  # CTA i takes tiles i, i + walkers, ...
+        cta_partials = []
+        for i in range(walkers):
+            s = torch.zeros_like(tile_partials[0])
+            for t in range(i, len(tile_partials), walkers):
+                s = s + tile_partials[t]
+            cta_partials.append(s)
+        dk[:, ch] = ticket_sum(torch.stack(cta_partials))
+    return dx.to(x.dtype), dk.reshape(3, 3, 1, c)
+
+
+# the shapes above (C = 8, 5, 12: the 16-byte path, and the scalar path of a C
+# that is not a multiple of the vector), and one with two channel chunks;
+# every one has ragged tiles
+EMULATED_SHAPES = SHAPES + [(1, 20, 18, 40)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", EMULATED_SHAPES)
+def test_kernel_decomposition_matches_plain_version_and_pallas(shape, dtype):
+    """dk within 1e-6 of the plain version's largest magnitude, dx within the
+    module's tolerances; against the Pallas kernel the module's tolerances;
+    for one CTA a chunk, three, and more CTAs than tiles."""
+    jdt, tdt = DTYPES[dtype]
+    x, dy, kernel = _inputs(sum(shape) + 2, shape)
+    want_dx, want_dk = tpu_dwb.depthwise3x3_backward(
+        jnp.asarray(x, jdt), jnp.asarray(dy, jdt), jnp.asarray(kernel, jdt), interpret=True)
+    want_dx, want_dk = np.asarray(want_dx, np.float32), np.asarray(want_dk, np.float32)
+    xt, dyt, kt = (torch.tensor(a).to(tdt) for a in (x, dy, kernel))
+    plain_dx, plain_dk = dwb.depthwise3x3_backward_reference(xt, dyt, kt)
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "float32" else dict(rtol=1.6e-2, atol=1.6e-2)
+    for ctas in (1, 3, 264):
+        dx, dk = _emulate_kernel(xt, dyt, kt, ctas)
+        assert dx.dtype == tdt and dx.shape == tuple(shape)
+        np.testing.assert_allclose(dx.float().numpy(), plain_dx.float().numpy(), **tol)
+        np.testing.assert_allclose(dx.float().numpy(), want_dx, **tol)
+        scale = max(1.0, float(plain_dk.abs().max()))
+        assert float((dk - plain_dk).abs().max()) <= 1e-6 * scale, ctas
+        scale = max(1.0, float(np.abs(want_dk).max()))
+        np.testing.assert_allclose(dk.numpy() / scale, want_dk / scale, rtol=2e-4, atol=2e-5)

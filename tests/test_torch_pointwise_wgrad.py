@@ -16,11 +16,21 @@
   conv under every route.
 - The gate `set_wgrad_impl` leaves names, shapes and forward values as they
   are, and the three gates give the same gradients on a small stack (1e-4).
+- `wgrad_fma`'s decomposition -- contiguous ranges of K a CTA in whole
+  chunks of rows, the register blocks and their groups taking a chunk's rows
+  in turn, the groups' copies summed in group order, the CTAs' partials by
+  `finish` -- is emulated in plain PyTorch
+  (`_emulate_fma`) with the chunk rows and register blocks read from the
+  source, and held against the plain version (within 1e-6 of its largest
+  magnitude) and `vpu_kernel` in interpret mode (rtol 2e-4 / atol 2e-5 of
+  the largest magnitude, as the depthwise dk), at both layers of the
+  model's envelope and a ragged K outside it.
 """
 
 import importlib.util
 import inspect
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +43,11 @@ from ssdseglib_tpu.ops.conv_backward import conv2d_fast_wgrad as jax_conv2d_fast
 from ssdseglib_torch.models import blocks
 from ssdseglib_torch.ops import conv_backward, pointwise_wgrad
 from ssdseglib_torch.ops.conv_backward import conv2d_fast_wgrad
-from tests.torch_parity import two_torch_threads  # noqa: F401 (autouse fixture)
+from tests.torch_parity import (  # noqa: F401 (two_torch_threads: autouse fixture)
+    source_constants,
+    ticket_sum,
+    two_torch_threads,
+)
 
 PROBE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tpu_scripts",
                      "mosaic_reshape_probe.py")
@@ -363,3 +377,76 @@ def test_model_routes_its_dense_convs_through_the_gate(monkeypatch):
     for impl in got:
         for k in want:
             assert torch.equal(got[impl][k], want[k]), (impl, k)
+
+
+def _fma_blocks():
+    """kFmaBlocks of csrc/pointwise_wgrad.cu: the (BI, BO) register blocks."""
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "ssdseglib_torch", "csrc", "pointwise_wgrad.cu")) as f:
+        text = f.read()
+    table = re.search(r"kFmaBlocks\[\]\[2\] = \{(.*?)\};", text).group(1)
+    return [(int(a), int(b)) for a, b in re.findall(r"\{(\d+), (\d+)\}", table)]
+
+
+def _emulate_fma(x, dy, ctas):
+    """`wgrad_fma`'s order of work on CPU tensors with at most ``ctas`` CTAs:
+    (Co, Ci) f32."""
+    k = source_constants("pointwise_wgrad.cu", "kThreads", "kFmaChunkElems", "kFmaMaxRows")
+    threads = k["kThreads"]
+    ci, co = x.shape[-1], dy.shape[-1]
+    rows = k["kFmaMaxRows"]  # the most rows, a power of two, whose x and dy fit a chunk
+    while rows > 1 and rows * (ci + co) > k["kFmaChunkElems"]:
+        rows //= 2
+    x2, g2 = x.reshape(-1, ci).float(), dy.reshape(-1, co).float()
+    n_rows = x2.shape[0]
+    def score(block):  # 32 blocks (a warp a copy of dW) first, then the threads kept busy
+        blocks = (ci // block[0]) * (co // block[1])
+        return blocks == 32, threads // blocks * blocks
+
+    bi, bo = max(((bi, bo) for bi, bo in _fma_blocks() if ci % bi == 0 and co % bo == 0),
+                 key=score)  # the first of the best
+    blocks = (ci // bi) * (co // bo)
+    groups = threads // blocks
+    per_cta = -(-n_rows // ctas)
+    per_cta = -(-per_cta // rows) * rows  # whole chunks
+    partials = []
+    for r0 in range(0, n_rows, per_cta):
+        copies = torch.zeros(groups, ci, co)  # group g takes rows g, g + groups, ... of a chunk
+        for c0 in range(r0, min(r0 + per_cta, n_rows), rows):
+            xs, gs = x2[c0:c0 + rows], g2[c0:c0 + rows]  # rows past K: zeros, i.e. absent
+            for g in range(groups):
+                copies[g] = copies[g] + xs[g::groups].t() @ gs[g::groups]
+        total = torch.zeros(ci, co)
+        for g in range(groups):  # the groups' copies in group order
+            total = total + copies[g]
+        partials.append(total.t())
+    return ticket_sum(torch.stack(partials))
+
+
+# (leading axes, Ci, Co): the two layers of the envelope at the probe's
+# (2, 32, 320), and a ragged K outside the model
+FMA_CASES = [((2, 32, 320), 32, 16), ((2, 32, 320), 16, 96), ((3, 37, 53), 48, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("lead, ci, co", FMA_CASES, ids=["32-16", "16-96", "ragged"])
+def test_fma_decomposition_matches_plain_version_and_pallas(probe, lead, ci, co, dtype):
+    """For one CTA, three, and two an SM of a 132-SM card."""
+    x, dy = _operands(lead, ci, co, seed=ci + co)
+    xt, gt = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
+    plain = pointwise_wgrad.wgrad_fma_reference(xt, gt)
+    pallas = None
+    if lead[1:] == (32, 320):  # the probe's W; its Ci and Co are module constants
+        probe.CI, probe.CO = ci, co
+        jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        pallas = np.asarray(probe.pallas_vpu(jnp.asarray(xt.float().numpy(), jdt),
+                                             jnp.asarray(gt.float().numpy(), jdt))).T
+    for ctas in (1, 3, 264):
+        got = _emulate_fma(xt, gt, ctas)
+        assert tuple(got.shape) == (co, ci)
+        scale = max(1.0, float(plain.abs().max()))
+        assert float((got - plain).abs().max()) <= 1e-6 * scale, ctas
+        if pallas is not None:  # f32 sums of 20480 terms: scaled as the module's dk is
+            scale = max(1.0, float(np.abs(pallas).max()))
+            np.testing.assert_allclose(got.numpy() / scale, pallas / scale, rtol=2e-4,
+                                       atol=2e-5)

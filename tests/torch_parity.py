@@ -2,6 +2,10 @@
 reference) and ssdseglib_torch (the PyTorch port): the same weights and
 inputs, made with numpy from a seed, go through both packages."""
 
+import math
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -148,3 +152,34 @@ def random_detections(rng, batch=3, n=128, num_classes=4, spread=100.0):
     logits = rng.normal(size=(batch, n, num_classes)) * 3.0
     scores = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
     return boxes_yx, scores.astype(np.float32)
+
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "ssdseglib_torch", "csrc")
+
+
+def source_constants(source: str, *names: str) -> dict:
+    """Integer constants ``constexpr int NAME = value`` of a kernel source in
+    ``ssdseglib_torch/csrc``, so that a test emulating the kernel follows its
+    built-in geometry."""
+    with open(os.path.join(CSRC, source)) as f:
+        text = f.read()
+    return {name: int(re.search(rf"\b{name} = (\d+)", text).group(1)) for name in names}
+
+
+def ticket_sum(partials):
+    """`finish` (csrc/common.cuh): (n, M) per-CTA partials summed in groups
+    of ceil(sqrt(n)) consecutive CTAs in CTA order, then the groups in group
+    order."""
+    n = partials.shape[0]
+    group = math.isqrt(n - 1) + 1 if n > 1 else 1
+    sums = []
+    for g0 in range(0, n, group):
+        s = torch.zeros_like(partials[0])
+        for p in range(g0, min(g0 + group, n)):
+            s = s + partials[p]
+        sums.append(s)
+    total = torch.zeros_like(partials[0])
+    for s in sums:
+        total = total + s
+    return total
