@@ -121,6 +121,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    loader (no checkpoint in the timing), at the run's 2 steps and at 8 steps
    an epoch.
 
+10. notebook 03's path beyond the flagship model: (a) 32 synthetic 480x640
+   scenes written as PNG / CSV files and read and encoded by
+   `DataEncoderDecoder(..., augmentation_horizontal_flip=True)` on the card
+   and, with the same seed, on the CPU: images, masks and labels equal (the
+   same flips), offsets within 1e-5; (b) ShuffleNetV2 1.5x with extra
+   depthwise convs and residuals (notebook 03 cell 12's ShuffleNetV2 block)
+   at 480x640 and 9600 anchors, served unfused: bf16 against f32 raw outputs
+   within BF16_SERVE_TOLERANCE, then b16 images/s under phase 6's protocol
+   and b1 latency, ``fused_backbone=True`` refused; (c) its bf16 b16 `Trainer`
+   steps on one batch with the chain, depthwise and weight-gradient gates all
+   'cuda': losses finite and falling, no kernel launched (ShuffleNetV2's convs
+   are outside every kernel's envelope), step ms and peak memory.
+
 ``python3 chip_smoke.py --profile-train [aten|chain|depthwise|wgrad-dot|wgrad-cuda ...]`` instead
 builds the library and prints where the time of a bf16 b16 train step goes
 (torch.profiler, kernel time by name) under the named routes, and
@@ -979,14 +992,24 @@ def _builder():
         segmentation_dilation_rates=model_cfg.segmentation_dilation_rates,
         generator=gen,
     )
-    # random BatchNorm statistics and bias, so folding matters and the
-    # ReLUs stay alive through the heads
+    _randomize_batchnorm(model, gen)
+    return builder, model.to("cuda"), _nms_arguments(nms_cfg)
+
+
+def _randomize_batchnorm(model, gen) -> None:
+    """Random BatchNorm statistics and bias, so folding matters and the ReLUs
+    stay alive through the heads."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.BatchNorm2d):
                 for t in (m.running_mean, m.running_var, m.bias):
                     t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
-    nms = dict(
+
+
+def _nms_arguments(nms_cfg) -> dict:
+    """The NMS arguments of `get_model_for_inference` at ``nms_cfg``'s
+    operating point."""
+    return dict(
         max_number_of_boxes_per_class=nms_cfg.max_boxes_per_class,
         max_number_of_boxes_per_sample=nms_cfg.max_boxes_per_sample,
         boxes_iou_threshold=nms_cfg.iou_threshold,
@@ -994,7 +1017,6 @@ def _builder():
         suppress_background_boxes=nms_cfg.suppress_background_boxes,
         use_segmentation_suppression=nms_cfg.use_segmentation_suppression,
     )
-    return builder, model.to("cuda"), nms
 
 
 def _uint8_images(seed: int, batch: int) -> np.ndarray:
@@ -1570,6 +1592,209 @@ def phase_fit(card: str):
         shutil.rmtree(directory, ignore_errors=True)
 
 
+NOTEBOOK_SAMPLES = 32
+# notebook 03 cell 12's ShuffleNetV2 block: 1.5x with extra depthwise convs
+# and residual connections
+SHUFFLENET = dict(model_size="1.5x", use_additional_depthwise_convolution=True,
+                  use_residual_connections=True)
+# bf16 serving against f32 serving, raw outputs: test_torch_serving.py's 3e-2
+# on the mask, here of (1 + |f32|) on the probabilities and of (1 + the
+# largest |f32| corner) on the decoded boxes
+BF16_SERVE_TOLERANCE = 3e-2
+
+
+def _kernel_counters():
+    """The launch counters of the eight kernels' wrappers, by name."""
+    from ssdseglib_torch.ops import depthwise_backward as dwb
+    from ssdseglib_torch.ops import fused_chain_backward as fcb
+    from ssdseglib_torch.ops import fused_mbconv, nms_scan, s2d_stem
+    from ssdseglib_torch.ops import pointwise_wgrad as pw
+
+    return {"fused_mbconv": fused_mbconv.fused_mbconv,
+            "depthwise_backward": dwb.depthwise3x3_backward,
+            "chain_backward": fcb.dw_bn_relu6_backward, "nms_scan": nms_scan.greedy_select,
+            "stem_block1": s2d_stem.fused_stem_block1, "wgrad_mma": pw.wgrad_mma,
+            "wgrad_fma": pw.wgrad_fma, "wgrad_copy": pw.wgrad_copy}
+
+
+def _notebook_encoding(directory: str, devices=("cuda", "cpu")) -> None:
+    """Phase 10a: NOTEBOOK_SAMPLES scenes written as files and read and
+    encoded by `DataEncoderDecoder` with flips on the card and on the CPU
+    (``devices``)."""
+    from PIL import Image
+
+    from ssdseglib_torch.boxes import Anchors
+    from ssdseglib_torch.config import reference_warehouse_config
+    from ssdseglib_torch.datacoder import DataEncoderDecoder
+    from ssdseglib_torch.examples.train_multitask import write_split
+    from ssdseglib_torch.utils.sample_cache import global_sample_cache
+
+    anchors_cfg, enc_cfg, _, _, _ = reference_warehouse_config()
+    anchors = Anchors.from_config(anchors_cfg, enc_cfg.image_shape)
+    t0 = time.perf_counter()
+    files = write_split(directory, "train", NOTEBOOK_SAMPLES, 11, enc_cfg.image_shape)
+    written = time.perf_counter() - t0
+    results = {}
+    for device in devices:
+        global_sample_cache().clear()  # each coder decodes and encodes anew
+        coder = DataEncoderDecoder(
+            enc_cfg.num_classes, enc_cfg.image_shape, center_x_boxes_default=anchors.center_x,
+            center_y_boxes_default=anchors.center_y, width_boxes_default=anchors.width,
+            height_boxes_default=anchors.height, iou_threshold=enc_cfg.iou_threshold,
+            standard_deviations_centroids_offsets=enc_cfg.standard_deviations,
+            augmentation_horizontal_flip=True, seed=0, device=device)
+        t0 = time.perf_counter()
+        results[device] = [coder.read_and_encode(*t) for t in files]
+        results[device + "_ms"] = (time.perf_counter() - t0) * 1e3 / len(files)
+    flips = 0
+    offsets_err = 0.0
+    card_results, cpu_results = (results[device] for device in devices)
+    for (image, targets), (image_c, targets_c), triple in zip(card_results, cpu_results, files):
+        np.testing.assert_array_equal(image, image_c)  # the same flip
+        np.testing.assert_array_equal(targets["output-mask"], targets_c["output-mask"])
+        np.testing.assert_array_equal(targets["output-labels"], targets_c["output-labels"])
+        offsets_err = max(offsets_err, float(np.abs(targets["output-boxes"]
+                                                    - targets_c["output-boxes"]).max()))
+        flips += not np.array_equal(image, np.asarray(Image.open(triple[0]), np.float32))
+    positives = sum(int((t["output-labels"][:, 0] == 0).sum()) for _, t in card_results)
+    log(f"[notebook] DataEncoderDecoder(flip on) over {len(files)} 480x640 files "
+        f"(written in {written:.2f} s): card equal to the CPU, labels and masks exact, "
+        f"offsets max |diff| {offsets_err:.3g} (limit 1e-5), {flips} flipped, {positives} "
+        f"positive anchors; {results[devices[0] + '_ms']:.2f} ms a sample on the card, "
+        f"{results[devices[1] + '_ms']:.2f} on the CPU (read, decode and encode)")
+    assert offsets_err <= 1e-5, offsets_err
+    assert 0 < flips < len(files) and positives > 0, (flips, positives)
+
+
+def _shufflenet_serving(card: str):
+    """Phase 10b: ShuffleNetV2 (SHUFFLENET) served unfused at 480x640, bf16
+    against f32, then b16 images/s and b1 latency; the fused backbone
+    refused.  Returns (builder, model, anchors)."""
+    from ssdseglib_torch.boxes import Anchors
+    from ssdseglib_torch.config import reference_warehouse_config
+    from ssdseglib_torch.models import ShuffleNetV2SsdSegBuilder
+
+    anchors_cfg, enc_cfg, model_cfg, nms_cfg, _ = reference_warehouse_config()
+    anchors = Anchors.from_config(anchors_cfg, enc_cfg.image_shape)
+    builder = ShuffleNetV2SsdSegBuilder(
+        input_image_shape=model_cfg.input_image_shape, **SHUFFLENET,
+        number_of_boxes_per_point=list(model_cfg.boxes_per_point),
+        number_of_classes=model_cfg.number_of_classes,
+        center_x_boxes_default=anchors.center_x, center_y_boxes_default=anchors.center_y,
+        width_boxes_default=anchors.width, height_boxes_default=anchors.height,
+        standard_deviations_centroids_offsets=enc_cfg.standard_deviations)
+    gen = torch.Generator().manual_seed(0)
+    model = builder.get_model_for_training(
+        segmentation_dilation_rates=model_cfg.segmentation_dilation_rates, generator=gen)
+    _randomize_batchnorm(model, gen)
+    trainable, stats = model.parameter_counts()
+    nms = _nms_arguments(nms_cfg)
+    try:
+        builder.get_model_for_inference(model_trained=model, fused_backbone=True, **nms)
+        raise AssertionError("fused_backbone=True was accepted on ShuffleNetV2")
+    except ValueError as e:
+        refused = str(e)
+    f32 = builder.get_model_for_inference(model_trained=model, **nms)
+    bf16 = builder.get_model_for_inference(model_trained=model, compute_dtype="bfloat16",
+                                           mask_output="bfloat16", **nms)
+    for m in (f32, bf16):
+        m.set_nms_operating_point(boxes_iou_threshold=IOU_THRESHOLD,
+                                  labels_probability_threshold=SCORE_THRESHOLD)
+    counters = _kernel_counters()
+    for counter in counters.values():
+        counter.launches = 0  # this path starts here
+    images = _uint8_images(4, BATCH)
+    want = [t.float() for t in f32.raw_outputs(images)]
+    got = [t.float() for t in bf16.raw_outputs(images)]
+    for name, a, b in zip(("mask", "labels", "boxes"), got, want):
+        scale = 1.0 + (b.abs().max() if name == "boxes" else b.abs())
+        err = float(((a - b).abs() / scale).max())
+        log(f"[notebook] ShuffleNetV2 1.5x extra-dw+residual b16 {name} {tuple(a.shape)}: bf16 "
+            f"vs f32 serving, max |diff| / (1 + |f32|{' max' if name == 'boxes' else ''}) = "
+            f"{err:.3g} (limit {BF16_SERVE_TOLERANCE})")
+        assert bool(torch.isfinite(a).all()) and err <= BF16_SERVE_TOLERANCE, (name, err)
+    mask, det = bf16(images)
+    det = det.cpu()
+    assert tuple(mask.shape) == (BATCH, 480, 640, 4) and tuple(det.shape) == (BATCH, 10, 6)
+    base = np.random.default_rng(0).uniform(0, 255, (BATCH, 480, 640, 3))
+    inputs = [bf16.prepare_input(((base + float(i)) % 256.0).astype(np.uint8))
+              for i in range(8)]
+    single = bf16.prepare_input(_uint8_images(2, 1))
+    bf16(inputs[0])
+    bf16(single)[1].cpu()  # warm-up
+    rates = _images_per_second(bf16, inputs)
+    latencies = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        bf16(single)[1].cpu()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    launches = {name: c.launches for name, c in counters.items() if c.launches}
+    log(f"[notebook] ShuffleNetV2 1.5x extra-dw+residual, {trainable + stats:,} parameters "
+        f"({trainable:,} trainable), bf16 unfused serving: b16 rounds "
+        f"{[round(r, 2) for r in rates]} images/s, median {statistics.median(rates):.2f} | b1 "
+        f"latency {statistics.median(latencies):.3f} ms (median of 20, fetch-fenced) | kernel "
+        f"launches {launches or 'none (ATen route)'} | fused backbone refused: {refused!r} "
+        f"| {card}")
+    return model, anchors
+
+
+def _shufflenet_training(card: str, model, anchors) -> None:
+    """Phase 10c: TRAIN_STEPS bf16 b16 `Trainer` steps of the ShuffleNetV2
+    model on one batch, with every backward gate set to 'cuda': no layer of
+    the model is inside a kernel's envelope, so no kernel launches."""
+    from ssdseglib_torch.config import TrainConfig
+    from ssdseglib_torch.models import blocks
+    from ssdseglib_torch.train import Trainer
+
+    _, _, images, targets, _ = _train_batch(BATCH)
+    trainer = Trainer(model=model, anchors=anchors,
+                      config=TrainConfig(batch_size=BATCH, compute_dtype="bfloat16"))
+    counters = _kernel_counters()
+    try:
+        blocks.set_chain_bwd_impl("cuda")
+        blocks.set_depthwise_bwd_impl("cuda")
+        blocks.set_wgrad_impl("cuda")
+        state = trainer.init_state(variables=model.state_dict())
+        trainer.train_step(state, images, targets)[1]["loss"].item()  # warm-up
+        state = trainer.init_state(variables=model.state_dict())
+        for counter in counters.values():
+            counter.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(state, images, targets)[1]["loss"].item())  # fence
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        _set_route("aten")
+    launches = {name: c.launches for name, c in counters.items() if c.launches}
+    step = statistics.median(times)
+    log(f"[notebook] ShuffleNetV2 1.5x extra-dw+residual bf16 b16 train (gates chain, "
+        f"depthwise, wgrad all 'cuda'): loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{TRAIN_STEPS} steps, kernel launches {launches or 'none'}, step {step:.3f} ms "
+        f"(median, fetch-fenced), {BATCH / step * 1e3:.2f} images/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert not launches, f"a ShuffleNetV2 layer went through a kernel: {launches}"
+
+
+def phase_notebook_path(card: str) -> None:
+    """Phase 10: notebook 03's path beyond the flagship model: the coder on
+    the card, ShuffleNetV2 serving and training at full width."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="ssdseg_smoke_notebook_")
+    try:
+        _notebook_encoding(directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    model, anchors = _shufflenet_serving(card)
+    _shufflenet_training(card, model, anchors)
+    log(f"[notebook] phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
 # (rows a warp stages per slab, CTAs) of the tensor-core weight-gradient kernel
 # (0: the source's choice), for `--wgrad-variants`
 WGRAD_VARIANTS = [(0, 0), (16, 132), (16, 264), (16, 396), (16, 528), (32, 132), (32, 264),
@@ -2123,6 +2348,7 @@ def main() -> None:
     option_launches = phase_option_path(card, default_rate)
     scan["launches"], stem["launches"] = option_launches["scan"], option_launches["stem"]
     fit_launches = phase_fit(card)
+    phase_notebook_path(card)
     wgrad["wgrad_mma"]["launches"] = fit_launches["wgrad_mma"]
     wgrad["wgrad_fma"]["launches"] = fit_launches["wgrad_fma"]
     described = {

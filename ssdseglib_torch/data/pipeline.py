@@ -34,11 +34,10 @@ from ssdseglib_torch.boxes import Anchors
 from ssdseglib_torch.config import EncodingConfig
 from ssdseglib_torch.data.synthetic import SyntheticSample
 from ssdseglib_torch.datacoder import (
-    decode_png_mask,
-    decode_png_rgb,
+    decoded_cache_key,
     make_train_batch_transform,
     pad_ground_truth,
-    read_labels_boxes_csv,
+    read_sample,
 )
 from ssdseglib_torch.utils import sample_cache as _sample_cache
 
@@ -85,24 +84,19 @@ def load_dataset_json(path: str, root: Optional[str] = None) -> List[PathTriple]
 def _load_sample(sample: Sample, max_gt: int):
     """Host decode of one sample into fixed-shape arrays."""
     if isinstance(sample, SyntheticSample):
-        image, mask = sample.image, sample.mask
-        labels, boxes = sample.labels, sample.boxes
-    else:
-        image_path, mask_path, csv_path = sample
-        image = decode_png_rgb(open(image_path, "rb").read())
-        mask = decode_png_mask(open(mask_path, "rb").read())
-        labels, boxes = read_labels_boxes_csv(csv_path)
-    gl, gb, gv = pad_ground_truth(labels, boxes, max_gt)
-    return image, mask, gl, gb, gv
+        return (sample.image, sample.mask) + pad_ground_truth(
+            sample.labels, sample.boxes, max_gt)
+    return read_sample(*sample, max_gt)
 
 
 class HostBatcher:
     """Shuffling, threaded host loader producing numpy batches.
 
     Yields (images (B,H,W,3) u8, masks (B,H,W) u8, gt_labels (B,G),
-    gt_boxes (B,G,4), gt_valid (B,G)).  Drops the trailing partial batch
-    (Keras `fit` keeps it; the steps want static shapes — documented
-    deviation, irrelevant at the reference's 3611/16 ratio).
+    gt_boxes (B,G,4), gt_valid (B,G)).  Drops the trailing partial batch, as
+    the JAX package does (its steps want static shapes); with
+    ``drop_remainder=False`` it yields it, as the reference's ``tf.data``
+    ``batch`` does.
     """
 
     def __init__(
@@ -117,6 +111,7 @@ class HostBatcher:
         use_native: bool = False,
         image_shape: Optional[Tuple[int, int]] = None,
         use_sample_cache: bool = True,
+        drop_remainder: bool = True,
     ) -> None:
         if use_native:
             raise NotImplementedError(
@@ -129,6 +124,7 @@ class HostBatcher:
         self.shuffle = shuffle
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.drop_remainder = drop_remainder
         self._rng = np.random.default_rng(seed)
 
         all_paths = all(
@@ -148,12 +144,16 @@ class HostBatcher:
             self._cache = None
 
     def __len__(self) -> int:
-        return len(self.samples) // self.batch_size
+        if self.drop_remainder:
+            return len(self.samples) // self.batch_size
+        return -(-len(self.samples) // self.batch_size)
 
     def _batch_indices(self) -> List[np.ndarray]:
         order = np.arange(len(self.samples))
         if self.shuffle:
             self._rng.shuffle(order)
+        if not self.drop_remainder:
+            return [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         n_batches = len(order) // self.batch_size
         return np.split(order[: n_batches * self.batch_size], max(n_batches, 1))
 
@@ -199,12 +199,7 @@ class HostBatcher:
                             return decode_stacked(samples)
                         keys, vals = [], []
                         for s in samples:
-                            stat = cache.stat_key(*s)
-                            key = (
-                                ("decoded", self.max_gt, stat)
-                                if stat is not None
-                                else None
-                            )
+                            key = decoded_cache_key(self.max_gt, cache.stat_key(*s))
                             keys.append(key)
                             vals.append(cache.get(key) if key else None)
                         missing = [
@@ -274,6 +269,7 @@ class TrainDataLoader:
         seed: int = 0,
         num_workers: int = 8,
         use_sample_cache: bool = True,
+        drop_remainder: bool = True,
         device="cuda",
     ) -> None:
         self.device = torch.device(device)
@@ -286,6 +282,7 @@ class TrainDataLoader:
             num_workers=num_workers,
             image_shape=encoding.image_shape,
             use_sample_cache=use_sample_cache,
+            drop_remainder=drop_remainder,
         )
         # Trainer.fit runs the transform inside its fused step; __iter__
         # runs it standalone

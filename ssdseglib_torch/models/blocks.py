@@ -2,8 +2,9 @@
 
 conv -> batchnorm -> (capped) relu, the depthwise variant, and the
 Keras-style SeparableConv (depthwise then pointwise, batchnorm after the
-pointwise only).  Every conv pads TF/XLA "SAME" (`conv2d_same`): for a
-stride-2 conv on an even size that is 0 before and 1 after, which torch's
+pointwise only), plus ShuffleNetV2's channel shuffle and max pool.  Every
+conv and pool pads TF/XLA "SAME" (`conv2d_same`, `max_pool_same`): for a
+stride-2 window on an even size that is 0 before and 1 after, which torch's
 symmetric ``padding=`` cannot express.
 
 Tensors are NCHW in the channels-last memory format.  Module and parameter
@@ -191,15 +192,16 @@ def dense_conv(conv: "SameConv2d", x: torch.Tensor) -> torch.Tensor:
 
 
 class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` (no bias) with SAME padding."""
+    """``nn.Conv2d`` with SAME padding; no bias unless asked for (the
+    ShuffleNetV2 stem conv has one)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 1, stride: int = 1,
-                 dilation: int = 1, groups: int = 1) -> None:
+                 dilation: int = 1, groups: int = 1, bias: bool = False) -> None:
         super().__init__(cin, cout, kernel_size, stride=stride, dilation=dilation,
-                         groups=groups, bias=False)
+                         groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_same(x, self.weight, None, self.stride[0],
+        return conv2d_same(x, self.weight, self.bias, self.stride[0],
                            self.dilation[0], self.groups)
 
 
@@ -274,6 +276,28 @@ class SepConvBN(nn.Module):
         return apply_relu(self.batchnorm(x), self.relu_max)
 
 
+def max_pool_same(x: torch.Tensor, kernel_size: int = 3, stride: int = 2) -> torch.Tensor:
+    """Max pool with SAME padding by -inf (Flax ``nn.max_pool(...,
+    padding="SAME")``): at stride 2 on an even size, 0 before and 1 after,
+    which ``F.max_pool2d``'s symmetric ``padding=`` cannot express."""
+    (top, bottom) = same_pad(x.shape[2], kernel_size, stride, 1)
+    (left, right) = same_pad(x.shape[3], kernel_size, stride, 1)
+    if top == bottom and left == right:
+        return F.max_pool2d(x, kernel_size, stride, (top, left))
+    x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
+    return F.max_pool2d(x, kernel_size, stride)
+
+
+def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
+    """ShuffleNet channel shuffle: output channel k is input channel
+    ``(k % groups) * (C / groups) + k // groups``, as the JAX package's NHWC
+    reshape / swap / reshape gives it.  Done on the NHWC view, so a
+    channels-last input costs one copy and the result is channels-last."""
+    b, c, h, w = x.shape
+    nhwc = x.permute(0, 2, 3, 1).reshape(b, h, w, groups, c // groups)
+    return nhwc.transpose(3, 4).reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
 def bilinear_resize(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Bilinear resize with half-pixel centers (``jax.image.resize``
     'bilinear' / ``tf.image.resize``); the serving path only upsamples,
@@ -283,9 +307,11 @@ def bilinear_resize(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Flax-default init of every conv in ``module`` from ``generator``;
-    BatchNorm keeps torch's defaults (scale 1, bias 0, mean 0, var 1),
-    which are Flax's too."""
+    """Flax-default init of every conv in ``module`` from ``generator``
+    (a conv bias starts at 0); BatchNorm keeps torch's defaults (scale 1,
+    bias 0, mean 0, var 1), which are Flax's too."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)

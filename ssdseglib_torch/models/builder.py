@@ -1,13 +1,17 @@
 """Model assembly and serving (PyTorch), counterpart of
 ssdseglib_tpu/models/builder.py.
 
-`SsdSegModel` is the joint SSDLite + DeepLabV3+ network on MobileNetV2 (built
-in eval mode; ``.train()`` reaches every BatchNorm for the trainer);
-`InferenceModel` is the serving path: forward -> decode ->
+`SsdSegModel` is the joint SSDLite + DeepLabV3+ network on MobileNetV2 or
+ShuffleNetV2 (built in eval mode; ``.train()`` reaches every BatchNorm for
+the trainer); `InferenceModel` is the serving path: forward -> decode ->
 segmentation gating -> exact NMS, on one device, with the NMS thresholds
 held as 0-d device tensors so an operating point changes without any host
-synchronisation.  `MobileNetV2SsdSegBuilder` mirrors the reference builder
-surface.
+synchronisation.  `MobileNetV2SsdSegBuilder` and `ShuffleNetV2SsdSegBuilder`
+mirror the reference builder surface.
+
+`TrainableModel` is `SsdSegModel` under the reference's name: the
+``nn.Module`` is the trainable model (it has `parameter_counts`), and Flax's
+init / apply pair has no counterpart to wrap.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ssdseglib_torch.models.heads import (
     SsdLiteHeads,
 )
 from ssdseglib_torch.models.mobilenetv2 import MobileNetV2Backbone
+from ssdseglib_torch.models.shufflenetv2 import STAGE_CHANNELS, ShuffleNetV2Backbone
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -40,9 +45,32 @@ def _backbone_head_config(cfg: ModelConfig):
     """Per-backbone head wiring: relu cap + extra pyramid block specs."""
     if cfg.backbone == "mobilenetv2":
         return 6.0, ((320, "backbone-block17"), (360, "backbone-block18"))
-    raise ValueError(
-        f"backbone {cfg.backbone!r} is not ported (mobilenetv2 only)"
-    )
+    if cfg.backbone == "shufflenetv2":
+        c4 = STAGE_CHANNELS[cfg.shufflenet_size][4]
+        return 0.0, ((c4, "backbone-stage5-block1"), (c4, "backbone-stage5-block2"))
+    raise ValueError(f"unknown backbone {cfg.backbone!r}")
+
+
+def _backbone(cfg: ModelConfig):
+    """(backbone module, its three taps (fm1 os16, fm2 os32, decoder skip),
+    their channels)."""
+    if cfg.backbone == "mobilenetv2":
+        taps = ("backbone-block13-expand-relu6",  # os16
+                "backbone-block16-project-batchnorm",  # os32
+                "backbone-block3-expand-relu6")  # os4
+        return MobileNetV2Backbone(), taps, (96 * 6, 320, 24 * 6)
+    if cfg.backbone == "shufflenetv2":
+        channels = STAGE_CHANNELS[cfg.shufflenet_size]
+        taps = ("backbone-stage3-block7",  # os16
+                "backbone-stage4-block3",  # os32
+                "backbone-stage2-block3")  # os8
+        backbone = ShuffleNetV2Backbone(
+            cfg.shufflenet_size,
+            use_additional_depthwise_convolution=cfg.shufflenet_extra_depthwise,
+            use_residual_connections=cfg.shufflenet_residuals,
+        )
+        return backbone, taps, (channels[3], channels[4], channels[2])
+    raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
 class SsdSegModel(nn.ModuleDict):
@@ -59,8 +87,7 @@ class SsdSegModel(nn.ModuleDict):
         super().__init__()
         relu_max, extra = _backbone_head_config(cfg)
         self.cfg = cfg
-        self["backbone"] = MobileNetV2Backbone()
-        fm1_c, fm2_c, skip_c = 96 * 6, 320, 24 * 6  # block13/3 expand, block16 out
+        self["backbone"], self.taps, (fm1_c, fm2_c, skip_c) = _backbone(cfg)
         self[extra[0][1]] = SepConvBN(fm2_c, extra[0][0], 3, strides=2,
                                       relu_max=relu_max)
         self[extra[1][1]] = SepConvBN(extra[0][0], extra[1][0], 3, strides=2,
@@ -89,10 +116,7 @@ class SsdSegModel(nn.ModuleDict):
         # NHWC -> channels-last NCHW view; rescale [0, 255] -> [-1, 1]
         x = images.permute(0, 3, 1, 2) / 127.5 - 1.0
         _, taps = self["backbone"](x)
-        fm1 = taps["backbone-block13-expand-relu6"]  # os16
-        fm2 = taps["backbone-block16-project-batchnorm"]  # os32
-        skip = taps["backbone-block3-expand-relu6"]  # os4
-        return self.apply_heads(fm1, fm2, skip)
+        return self.apply_heads(*(taps[name] for name in self.taps))
 
     def apply_heads(self, fm1: torch.Tensor, fm2: torch.Tensor,
                     skip: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -106,6 +130,15 @@ class SsdSegModel(nn.ModuleDict):
             "output-labels": labels,
             "output-boxes": boxes,
         }
+
+    def parameter_counts(self) -> Tuple[int, int]:
+        """(trainable, non-trainable) parameter counts, as `count_parameters`
+        gives them."""
+        return count_parameters(self)
+
+
+# the reference's name for the model a builder hands out for training
+TrainableModel = SsdSegModel
 
 
 def count_parameters(model: nn.Module) -> Tuple[int, int]:
@@ -358,7 +391,8 @@ class _BuilderBase:
         """Args:
             model_trained: the trained `SsdSegModel`, or its state_dict.
             compute_dtype: 'bfloat16' for the serving fast path.
-            fused_backbone: BN-folded forward through the fused MBConv kernel.
+            fused_backbone: BN-folded forward through the fused MBConv kernel
+                (MobileNetV2 only: ShuffleNetV2 raises ValueError).
             mask_output: 'float32' | 'bfloat16' | 'class_map'.
             device: where the model serves; the card unless the caller
                 asks for the CPU.
@@ -418,5 +452,47 @@ class MobileNetV2SsdSegBuilder(_BuilderBase):
             height_boxes_default,
             standard_deviations_centroids_offsets,
             backbone="mobilenetv2",
+            **model_kwargs,
+        )
+
+
+class ShuffleNetV2SsdSegBuilder(_BuilderBase):
+    """Mirror of reference ShuffleNetV2SsdSegBuilder (models.py:425-478)."""
+
+    def __init__(
+        self,
+        input_image_shape,
+        model_size,
+        use_additional_depthwise_convolution,
+        use_residual_connections,
+        number_of_boxes_per_point,
+        number_of_classes,
+        center_x_boxes_default,
+        center_y_boxes_default,
+        width_boxes_default,
+        height_boxes_default,
+        standard_deviations_centroids_offsets,
+        **model_kwargs,
+    ) -> None:
+        """model_kwargs: extra ModelConfig fields beyond the reference ctor
+        surface, as for MobileNetV2SsdSegBuilder."""
+        if model_size not in STAGE_CHANNELS:
+            raise ValueError(
+                'invalid "model_size" value! available values are '
+                '"0.5x", "1x", "1.5x", "2x"'
+            )
+        super().__init__(
+            input_image_shape,
+            number_of_boxes_per_point,
+            number_of_classes,
+            center_x_boxes_default,
+            center_y_boxes_default,
+            width_boxes_default,
+            height_boxes_default,
+            standard_deviations_centroids_offsets,
+            backbone="shufflenetv2",
+            shufflenet_size=model_size,
+            shufflenet_extra_depthwise=use_additional_depthwise_convolution,
+            shufflenet_residuals=use_residual_connections,
             **model_kwargs,
         )

@@ -22,7 +22,6 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ssdseglib_torch.boxes import (
     Anchors,
@@ -115,10 +114,11 @@ def encode_sample(
 
     # row selection from the (G, .) ground-truth tables by index: exact
     labels_matched = torch.gather(gt_labels.long(), -1, safe)
-    labels = F.one_hot(
-        torch.where(matched, labels_matched, torch.zeros_like(labels_matched)),
-        num_classes,
-    ).to(torch.float32)
+    # one-hot by comparison, as jax.nn.one_hot: a label outside
+    # [0, num_classes) gives an all-zero row (F.one_hot would raise)
+    classes = torch.where(matched, labels_matched, torch.zeros_like(labels_matched))
+    labels = (classes[..., None] == torch.arange(num_classes, device=classes.device)
+              ).to(torch.float32)
 
     acx, acy, aw, ah = coordinates_corners_to_centroids(*anchors_corners.unbind(-1))
     g = torch.gather(gt_boxes_corners, -2, safe[..., None].expand(*safe.shape, 4))
@@ -195,6 +195,26 @@ def decode_offsets_to_centroids(
     out = torch.stack([cx, cy, w, h], dim=-1)
     if zero_background:
         not_background = offsets.abs().sum(dim=-1, keepdim=True) > 0.0
+        out = out * not_background.to(out.dtype)
+    return out
+
+
+def decode_offsets_to_corners(
+    offsets: torch.Tensor,
+    anchors_centroids: torch.Tensor,
+    standard_deviations: Tuple[float, float, float, float],
+    zero_background: bool = True,
+) -> torch.Tensor:
+    """Decode standardized centroid offsets to corners (xmin, ymin, xmax,
+    ymax), reference datacoder.py:390-432: with ``zero_background``,
+    background rows are zeroed after the centroid -> corner conversion, by
+    the decoded centroids' magnitude."""
+    cent = decode_offsets_to_centroids(
+        offsets, anchors_centroids, standard_deviations, zero_background=zero_background
+    )
+    out = torch.stack(coordinates_centroids_to_corners(*cent.unbind(-1)), dim=-1)
+    if zero_background:
+        not_background = cent.abs().sum(dim=-1, keepdim=True) > 0.0
         out = out * not_background.to(out.dtype)
     return out
 

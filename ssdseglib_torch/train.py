@@ -189,6 +189,13 @@ class Trainer:
             device=self.device, memory_format=torch.channels_last
         )
         self._param_names = [name for name, _ in self._net.named_parameters()]
+        # BatchNorm's scale and bias: the library's BatchNorm takes them in
+        # f32 (see `_compute_variables`); every other parameter, conv biases
+        # included, runs in the compute dtype
+        norms = [f"{prefix}.{name}" for prefix, m in self._net.named_modules()
+                 if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                 for name, _ in m.named_parameters(recurse=False)]
+        self._norm_params = [i for i, name in enumerate(self._param_names) if name in norms]
         self._stat_names = [
             name for name, _ in self._net.named_buffers() if name.endswith(_STATS)
         ]
@@ -283,17 +290,19 @@ class Trainer:
         cast is one multi-tensor call, not one launch per tensor.
 
         In mixed precision every value passes through the compute dtype, as
-        in the JAX package.  Conv weights stay in it.  BatchNorm scale, bias
+        in the JAX package.  Conv weights and biases stay in it.  BatchNorm scale, bias
         and statistics come back to f32 after the rounding: the library's
         BatchNorm takes a low-precision input with f32 parameters, does its
         arithmetic in f32 as Flax does, and updates the statistics in f32.
-        Flax's update there is ``round(round(momentum) * round(old)) + (1 -
-        momentum) * batch`` with all three roundings in the compute dtype
-        (in bf16 the momentum 0.99 itself becomes 0.98828125, so the kept
-        share and the new share no longer sum to 1: a property of the JAX
-        package's mixed-precision step that is reproduced here, not
-        repaired).  The working copy handed to the library's ``(1 - m) *
-        running + m * batch`` is that rounded product divided by ``(1 - m)``.
+        The JAX package's compiled step updates them as ``round(momentum) *
+        round(old) + (1 - momentum) * batch``: the old statistic and the
+        momentum are rounded to the compute dtype, and the product is not (XLA
+        keeps it in f32, where Flax run op by op would round it too).  In bf16
+        the momentum 0.99 becomes 0.98828125, so the kept share and the new
+        share no longer sum to 1: a property of the JAX package's
+        mixed-precision step that is reproduced here, not repaired.  The
+        working copy handed to the library's ``(1 - m) * running + m *
+        batch`` is that product divided by ``(1 - m)``.
         """
         dtype = self._compute_dtype
         masters = [params[k] for k in self._param_names]
@@ -305,17 +314,16 @@ class Trainer:
         else:
             leaves = [torch.empty_like(p, dtype=dtype) for p in masters]
             torch._foreach_copy_(leaves, masters)
-            vectors = [i for i, p in enumerate(masters) if p.dim() == 1]
+            vectors = self._norm_params
             rounded = [torch.empty_like(masters[i]) for i in vectors]
             torch._foreach_copy_(rounded, [leaves[i] for i in vectors])
             for i, t in zip(vectors, rounded):
                 leaves[i] = t
             low = [torch.empty_like(v, dtype=dtype) for v in old]
             torch._foreach_copy_(low, old)
-            keep = 1.0 - BN_MOMENTUM
-            torch._foreach_mul_(low, float(torch.tensor(keep, dtype=dtype)))
             torch._foreach_copy_(stats, low)
-            torch._foreach_div_(stats, keep)
+            keep = 1.0 - BN_MOMENTUM
+            torch._foreach_mul_(stats, float(torch.tensor(keep, dtype=dtype)) / keep)
         for t in leaves:
             t.requires_grad_()
         return dict(zip(self._param_names, leaves)), dict(zip(self._stat_names, stats))

@@ -17,6 +17,7 @@ from ssdseglib_torch.boxes import Anchors
 from ssdseglib_torch.config import reference_warehouse_config
 from ssdseglib_torch.data import synthetic
 from ssdseglib_torch.ops import encoding
+from tests import torch_parity  # noqa: F401  (the first vector-math call, on one thread)
 
 
 def _padded(samples, budget):

@@ -46,6 +46,11 @@ SLICE_MODULES = (
     "ssdseglib_torch.evaluators",
     "ssdseglib_torch.data.pipeline",
     "ssdseglib_torch.checkpoint",
+    "ssdseglib_torch.blocks",
+    "ssdseglib_torch.plot",
+    "ssdseglib_torch.models.shufflenetv2",
+    "ssdseglib_torch.examples",
+    "ssdseglib_torch.examples.train_multitask",
 )
 
 

@@ -102,6 +102,22 @@ def test_fewer_samples_than_a_batch_and_the_native_loader():
         pipeline.HostBatcher(samples, batch_size=2, use_native=True)
 
 
+def test_the_partial_batch_is_kept_on_request():
+    """``drop_remainder=False`` yields the trailing partial batch, as the
+    reference's ``tf.data`` ``batch`` does: 11 samples in batches of 4 are
+    three batches (4, 4, 3) holding each sample once; by default the two
+    full batches, as the JAX package's batcher gives."""
+    samples = generate_dataset(11, image_shape=(16, 24), seed=2)
+    kwargs = dict(batch_size=4, seed=5, image_shape=(16, 24), max_ground_truth_boxes=8)
+    kept = pipeline.HostBatcher(samples, drop_remainder=False, **kwargs)
+    batches = list(kept)
+    assert len(kept) == 3 and [len(b[0]) for b in batches] == [4, 4, 3]
+    images = np.concatenate([b[0] for b in batches])
+    assert sorted(map(bytes, images)) == sorted(bytes(s.image) for s in samples)
+    dropped = pipeline.HostBatcher(samples, **kwargs)
+    assert len(dropped) == 2 and [len(b[0]) for b in dropped] == [4, 4]
+
+
 def test_train_data_loader_iterates_transformed_batches_and_raw_ones():
     samples = generate_dataset(9, image_shape=IMAGE_SHAPE, seed=5)
     anchors = Anchors.from_config(AnchorsConfig(**ANCHORS), IMAGE_SHAPE)

@@ -437,16 +437,18 @@ def test_bf16_compute_bf16_mu_and_remat_train_step(batch):
 
 def test_bf16_running_statistics_pass_through_bf16_like_flax(jax_side):
     """Mixed precision in the JAX package casts the running statistics to
-    bf16, and Flax then updates them as f32(bf16(bf16(0.99) * bf16(old))) +
-    0.01 * batch, with bf16(0.99) = 0.98828125.  The port reproduces all three
-    roundings: `Trainer._compute_variables` prepares the working statistics
-    and the port's BatchNorm updates them.  Held here on ONE BatchNorm and an
-    identical bf16 activation (a whole bf16 network on the CPU differs
-    between XLA and oneDNN by far more than these roundings): updated
-    statistics rtol 1e-5 / atol 1e-6 (the library's two-pass variance
-    against Flax's E[x^2] - E[x]^2, times 0.01), output one bf16 ulp.  An
-    update without the roundings of `old` is off by up to 2^-8 * |old| ~ 4e-3
-    and must fail that tolerance."""
+    bf16, and Flax then updates them; compiled, as the JAX package's step
+    runs it, the update is f32(bf16(0.99)) * f32(bf16(old)) + 0.01 * batch,
+    with bf16(0.99) = 0.98828125 (XLA keeps the product in f32, where Flax
+    run op by op also rounds it to bf16).  `Trainer._compute_variables`
+    prepares the working statistics and the port's BatchNorm updates them.
+    Held here on ONE BatchNorm and an identical bf16 activation (a whole bf16
+    network on the CPU differs between XLA and oneDNN by far more than these
+    roundings): updated statistics rtol 1e-5 / atol 1e-6 (the library's
+    two-pass variance against Flax's E[x^2] - E[x]^2, times 0.01), output one
+    bf16 ulp.  An update without the rounding of `old`, or with the product
+    rounded as well, is off by up to 2^-8 * |old| ~ 4e-3 and must fail that
+    tolerance."""
     import flax.linen as nn
     from torch.func import functional_call
 
@@ -457,11 +459,14 @@ def test_bf16_running_statistics_pass_through_bf16_like_flax(jax_side):
     rng = np.random.default_rng(11)
     x = jnp.asarray(rng.normal(size=(8, 6, 8, 32)) * 2.0 + 0.5, jnp.bfloat16)
     cast = lambda tree: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)
-    y_want, mutated = nn.BatchNorm(
-        use_running_average=False, momentum=0.99, epsilon=1e-3
-    ).apply({"params": cast(params), "batch_stats": cast(stats)}, x,
-            mutable=["batch_stats"])
+
+    def flax_update(p, s, x):
+        return nn.BatchNorm(use_running_average=False, momentum=0.99, epsilon=1e-3).apply(
+            {"params": p, "batch_stats": s}, x, mutable=["batch_stats"])
+
+    y_want, mutated = jax.jit(flax_update)(cast(params), cast(stats), x)
     assert y_want.dtype == jnp.bfloat16
+    _, op_by_op = flax_update(cast(params), cast(stats), x)
 
     trainer = _port_trainer(compute_dtype="bfloat16")
     state = trainer.init_state(variables=from_flax_variables(variables))
@@ -481,8 +486,10 @@ def test_bf16_running_statistics_pass_through_bf16_like_flax(jax_side):
         got = working[ours].detach().numpy()
         np.testing.assert_allclose(got, want, err_msg=ours, **tol)
         old = np.asarray(stats[theirs], np.float32)
-        kept = (torch.tensor(old).bfloat16() * torch.tensor(0.99).bfloat16()).float().numpy()
-        assert not np.allclose(got + (0.99 * old - kept), want, **tol), ours
+        kept = torch.tensor(old).bfloat16().float().numpy() * 0.98828125
+        assert not np.allclose(got + (0.98828125 * old - kept), want, **tol), ours
+        rounded = np.asarray(op_by_op["batch_stats"][theirs], np.float32)
+        assert not np.allclose(rounded, want, **tol), ours
 
 
 def test_recalibrate_batch_stats_matches_jax(jax_side, batch):
