@@ -4,33 +4,23 @@ Joint object detection (SSDLite) and semantic segmentation (DeepLabV3+) on
 MobileNetV2 or ShuffleNetV2 backbones: anchors, ground-truth encoding and
 decoding (`datacoder.DataEncoderDecoder`), the three losses, streaming
 metrics, training (`train.Trainer`, the loader in `data.pipeline`),
-checkpoints, serving with NMS, and the evaluators.  The JAX package's Pallas
-kernels are hand-written CUDA kernels here (``csrc/``), built with nvcc on
-first use, never on import.
+checkpoints, serving with NMS, Keras weight import (`keras_import`),
+self-contained serving bundles (`export`), and the evaluators.  The JAX
+package's Pallas kernels are hand-written CUDA kernels here (``csrc/``),
+built with nvcc on first use, never on import.
 
 The public surface mirrors the reference package `ssdseglib` and the JAX
-package's: every module below is importable as ``ssdseglib_torch.<name>``.
-`NOT_PORTED` names the JAX package's modules that have no counterpart yet.
+package's: every module in ``__all__`` is importable as
+``ssdseglib_torch.<name>``.  The modules load at first access, so a process
+that only reloads a serving bundle (`export.load_serving_bundle`) imports no
+model-building code.  `NOT_PORTED` names the JAX package's modules that
+have no counterpart yet.
 """
 
-from ssdseglib_torch import boxes
-from ssdseglib_torch import config
-from ssdseglib_torch import datacoder
-from ssdseglib_torch import losses
-from ssdseglib_torch import metrics
-from ssdseglib_torch import evaluators
-from ssdseglib_torch import layers
-from ssdseglib_torch import blocks
-from ssdseglib_torch import models
-from ssdseglib_torch import ops
-from ssdseglib_torch import plot
-
-# additions beyond the reference surface
-from ssdseglib_torch import checkpoint
-from ssdseglib_torch import train
+import importlib
 
 # modules of ssdseglib_tpu's surface not ported yet (ROADMAP.md, Queue 1)
-NOT_PORTED = ("export", "keras_import", "parallel")
+NOT_PORTED = ("parallel",)
 
 __version__ = "0.1.0"
 
@@ -46,7 +36,20 @@ __all__ = [
     "models",
     "ops",
     "plot",
+    # additions beyond the reference surface
     "checkpoint",
+    "export",
+    "keras_import",
     "train",
     "__version__",
 ]
+
+
+def __getattr__(name: str):
+    if name in __all__:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -13,9 +13,9 @@ Pipeline stages:
   pinned, non-blocking upload
   device: `make_train_batch_transform` (datacoder.py)
 
-Deviation from the JAX package: its native C++ batch assembler
-(``data/native_loader.py``) is not ported yet, so ``use_native`` defaults to
-False here and ``use_native=True`` raises.
+On-disk datasets decode in the native C++ batch assembler
+(``data/native_loader.py``) by default, as in the JAX package, with its
+per-batch fallback to the PIL path.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import json
 import os
 import queue
 import threading
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
@@ -108,16 +109,17 @@ class HostBatcher:
         seed: int = 0,
         num_workers: int = 8,
         prefetch: int = 2,
-        use_native: bool = False,
+        use_native: bool = True,
         image_shape: Optional[Tuple[int, int]] = None,
         use_sample_cache: bool = True,
         drop_remainder: bool = True,
     ) -> None:
-        if use_native:
-            raise NotImplementedError(
-                "HostBatcher(use_native=True): the native batch assembler "
-                "(data/native_loader.py) is not ported yet (ROADMAP.md, Queue 1)"
-            )
+        """use_native: decode (image.png, mask.png, labels.csv) triples in
+        the native C++ batch assembler (``data/native_loader.py``, built at
+        first use; needs ``image_shape``).  A batch it cannot decode (a PNG
+        outside its subset: 16-bit, interlaced, ...) falls back to the PIL
+        path, with one warning; a loader that does not build warns once and
+        every batch takes the PIL path."""
         self.samples = list(samples)
         self.batch_size = batch_size
         self.max_gt = max_ground_truth_boxes
@@ -142,6 +144,36 @@ class HostBatcher:
         )
         if self._cache is not None and not self._cache.enabled:
             self._cache = None
+        self._native = None
+        self._native_fallback_warned = False
+        if use_native and all_paths and self.samples and image_shape:
+            from ssdseglib_torch.data import native_loader
+
+            try:
+                self._native = native_loader.NativeBatchLoader(
+                    image_shape, max_ground_truth_boxes=max_ground_truth_boxes,
+                    num_workers=num_workers)
+            except native_loader.NativeLoaderError as e:
+                warnings.warn(f"native loader unavailable ({e}); HostBatcher decodes "
+                              "with PIL")
+
+    def _decode_native(self, samples):
+        """The batch from the native assembler, or None where it cannot
+        decode it (the PIL path then takes it)."""
+        from ssdseglib_torch.data.native_loader import NativeLoaderError
+
+        try:
+            return self._native.load_batch(samples)
+        except NativeLoaderError as e:
+            # the native decoder covers the dataset's PNG subset; PIL
+            # decodes more (16-bit, interlaced, ...).  A pure IO failure
+            # (missing or unreadable file) is no format limit: no warning,
+            # and the PIL path raises the precise error for the bad path.
+            if not e.is_io_error and not self._native_fallback_warned:
+                warnings.warn(f"native loader failed ({e}); falling back to the PIL "
+                              "path for affected batches")
+                self._native_fallback_warned = True
+            return None
 
     def __len__(self) -> int:
         if self.drop_remainder:
@@ -182,6 +214,10 @@ class HostBatcher:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
 
                     def decode_stacked(samples):
+                        if self._native is not None:
+                            batch = self._decode_native(samples)
+                            if batch is not None:
+                                return batch
                         loaded = list(
                             pool.map(
                                 lambda s: _load_sample(s, self.max_gt),

@@ -97,7 +97,8 @@ def read_labels_boxes_csv(path_or_text: str) -> Tuple[np.ndarray, np.ndarray]:
     if looks_like_text:
         text = path_or_text
     else:
-        text = open(path_or_text, "r", newline="").read()
+        with open(path_or_text, "r", newline="") as f:
+            text = f.read()
     labels, boxes = [], []
     for row in _csv.reader(io.StringIO(text.strip())):
         if not row:

@@ -37,6 +37,7 @@ from ssdseglib_torch.models.heads import (
 )
 from ssdseglib_torch.models.mobilenetv2 import MobileNetV2Backbone
 from ssdseglib_torch.models.shufflenetv2 import STAGE_CHANNELS, ShuffleNetV2Backbone
+from ssdseglib_torch.ops.encoding import decode_predictions_to_corners_yx
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -174,6 +175,11 @@ class InferenceModel:
     `predict` returns (mask (B, H, W, C), detections (B, T, 6)) with
     detection rows [label, probability, xmin, ymin, xmax, ymax]; `__call__`
     returns the same as device tensors without waiting for them.
+
+    What a call runs is `serving_program(operands, images, iou_threshold,
+    score_threshold)`: a function of its arguments only, so
+    `export_serving_bundle` captures it with ``torch.export`` and the
+    weights, anchors and thresholds as inputs.
     """
 
     def __init__(
@@ -207,11 +213,13 @@ class InferenceModel:
                 f"got {mask_output!r}"
             )
         self.device = torch.device(device)
+        self.cfg = module.cfg
+        self.compute_dtype = compute_dtype
         self._dtype = _DTYPES[compute_dtype]
         self._mask_output = mask_output
         self._suppress_background = suppress_background_boxes
         self._fused = fused_backbone
-        self._decode = copy.copy(decode).to(self.device)
+        self._standard_deviations = decode.standard_deviations
         self._nms = NonMaximumSuppression(
             nms.config.max_boxes_per_class, nms.config.max_boxes_per_sample,
             nms.config.iou_threshold, nms.config.score_threshold,
@@ -227,49 +235,98 @@ class InferenceModel:
         self._score_threshold = torch.tensor(
             nms.config.score_threshold, dtype=torch.float32, device=self.device
         )
+        anchors = decode.anchors_centroids.to(self.device)
         if fused_backbone:
-            from ssdseglib_torch.models.fused_inference import make_fused_forward
-
-            # fold BN from the f32 weights, then cast to the compute dtype
-            self._network = make_fused_forward(
-                module.cfg, module.state_dict(), self._dtype, self.device
+            from ssdseglib_torch.models.fused_inference import (
+                fused_forward,
+                fused_operands,
             )
+
+            if module.cfg.backbone != "mobilenetv2":
+                raise ValueError("fused inference currently supports mobilenetv2 only")
+            cfg = module.cfg
+            self._net = None
+            # fold BN from the f32 weights, then cast to the compute dtype
+            weights = fused_operands(cfg, module.state_dict(), self._dtype, self.device)
+
+            def network(weights, images):
+                return fused_forward(cfg, weights, images)
         else:
             net = copy.deepcopy(module).to(device=self.device, dtype=self._dtype)
-            net = net.to(memory_format=torch.channels_last).eval()
-            self._network = lambda images: net(images.to(self._dtype))
+            self._net = net.to(memory_format=torch.channels_last).eval()
+            weights = None  # the module's own tensors; a bundle passes them
 
-    @torch.inference_mode()
-    def _core(self, images: torch.Tensor):
-        out = self._network(images)
+            def network(weights, images):
+                x = images.to(self._dtype)
+                if weights is None:
+                    return self._net(x)
+                return torch.func.functional_call(self._net, weights, (x,))
+        self._network = network
+        self._operands = {"network": weights, "anchors_centroids": anchors}
+
+    def serving_core(self, operands, images: torch.Tensor):
+        """Forward + decode + gating: (mask, gated labels, boxes_yx)."""
+        out = self._network(operands["network"], images)
         # the fused path keeps the mask in the compute dtype for the gating
         # argmax, as the JAX package does; the plain path gates on f32
         mask = out["output-mask"] if self._fused else out["output-mask"].float()
         labels = out["output-labels"].float()
         if self._seg_suppression is not None:
             labels = self._seg_suppression(mask, labels)
-        boxes_yx = self._decode(out["output-boxes"].float())
+        boxes_yx = decode_predictions_to_corners_yx(
+            out["output-boxes"].float(), operands["anchors_centroids"],
+            self._standard_deviations,
+        )
         return mask, labels, boxes_yx
+
+    def serving_program(self, operands, images: torch.Tensor,
+                        iou_threshold: torch.Tensor, score_threshold: torch.Tensor):
+        """(formatted mask, detections) of one batch: what `__call__` runs,
+        as a function of its arguments (the tensors of `bundle_operands` or
+        this model's own, uint8 NHWC images, 0-d f32 thresholds)."""
+        mask, labels, boxes_yx = self.serving_core(operands, images)
+        detections = self._nms(
+            boxes_yx, labels, iou_threshold=iou_threshold,
+            score_threshold=score_threshold,
+        )
+        return _format_mask(mask, self._mask_output), detections
+
+    def bundle_operands(self):
+        """Every tensor `serving_program` reads besides the images and
+        thresholds, on this model's device: what a serving bundle stores
+        once."""
+        weights = self._operands["network"]
+        if weights is None:
+            weights = dict(self._net.state_dict())
+        return {"network": weights, "anchors_centroids": self._operands["anchors_centroids"]}
+
+    @torch.inference_mode()
+    def _core(self, images: torch.Tensor):
+        return self.serving_core(self._operands, images)
 
     @torch.inference_mode()
     def _forward(self, images: torch.Tensor):
-        mask, labels, boxes_yx = self._core(images)
-        detections = self._nms(
-            boxes_yx, labels, iou_threshold=self._iou_threshold,
-            score_threshold=self._score_threshold,
-        )
-        return _format_mask(mask, self._mask_output), detections
+        return self.serving_program(self._operands, images, self._iou_threshold,
+                                    self._score_threshold)
+
+    def update_variables(self, state_dict) -> None:
+        """Swap in new weights (a `SsdSegModel` state_dict, any float dtype)
+        without rebuilding: they are cast into this model's tensors in
+        place.  Used for periodic in-training evaluation; not available with
+        ``fused_backbone=True`` (the folded weights are derived, as in the
+        JAX package, where they are baked into the jit)."""
+        if self._fused:
+            raise ValueError(
+                "update_variables is not supported with fused_backbone=True"
+            )
+        self._net.load_state_dict(state_dict)
 
     def prepare_input(self, images) -> torch.Tensor:
         """Stage a host batch on the device: NumPy goes through pinned host
         memory with a non-blocking upload; a tensor is moved as it is."""
-        if not isinstance(images, torch.Tensor):
-            images = torch.from_numpy(np.ascontiguousarray(images))
-        if images.device == self.device:
-            return images
-        if self.device.type == "cuda" and images.device.type == "cpu":
-            images = images.pin_memory()
-        return images.to(self.device, non_blocking=True)
+        from ssdseglib_torch.utils.serving import stage_input
+
+        return stage_input(images, self.device)
 
     def set_nms_operating_point(
         self,
@@ -293,6 +350,16 @@ class InferenceModel:
     def __call__(self, images):
         """(formatted mask, detections) as device tensors, not waited for."""
         return self._forward(self.prepare_input(images))
+
+    def export_serving_bundle(self, path: str, *, batch) -> None:
+        """Write this model's serving program, one per batch size in
+        ``batch``, and its operands, stored once, into a self-contained
+        bundle directory that `ssdseglib_torch.export.load_serving_bundle`
+        reloads and serves without the model-building code.  See
+        `ssdseglib_torch.export.save_serving_bundle`."""
+        from ssdseglib_torch.export import save_serving_bundle
+
+        save_serving_bundle(self, path, batch=batch)
 
     def predict(self, images):
         """NumPy-in/NumPy-out, applying the optional host-side

@@ -19,6 +19,10 @@ Still queued (ROADMAP.md): ``s2d_stem="xla"`` (the conv reformulation of
 the same study, Queue 1 #15) and ``quantize_pointwise`` (int8 PTQ of two
 pointwise convs, Queue 1 #2).
 
+`fused_operands` gives every tensor the forward reads and `fused_forward`
+is the forward as a function of them, which ``torch.export`` captures with
+the tensors as inputs (``export.py``); `make_fused_forward` binds the two.
+
 Activations are NCHW in the channels-last memory format, so the NHWC view
 the fused kernels take is a permute, not a copy.  The public forward takes
 NHWC images and returns NHWC outputs, like the JAX package.
@@ -329,6 +333,62 @@ def _to_device(folded, dtype, device):
     return {name: tuple(put(a) for a in arrays) for name, arrays in folded.items()}
 
 
+# the stem conv with the input rescale folded in (`fold_stem_rescale`), kept
+# beside the plain stem, which inputs of another shape take
+STEM_RESCALED = "backbone-block0-expand-rescaled"
+
+
+def fused_operands(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
+                   device="cuda", s2d_stem=False, fold_input_rescale: bool = True,
+                   heads: bool = True) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """Every tensor `fused_forward` reads, keyed by conv: the BN-folded
+    backbone convs (OIHW kernel, bias), the stem with the input rescale
+    folded in (under ``fold_input_rescale``, not under ``s2d_stem``), the
+    kernels' arguments of each stride-1 residual repeat and of the stem +
+    block 1 (under ``s2d_stem``), and, with ``heads``, the folded head
+    convs.  Folding runs in f32; the tensors are then cast to
+    ``compute_dtype`` on ``device``, each in its own allocation."""
+    folded_f32 = fold_mobilenetv2(state_dict)
+    operands = _to_device(folded_f32, compute_dtype, device)
+    if fold_input_rescale and not s2d_stem:
+        operands[STEM_RESCALED] = _to_device(
+            {"stem": fold_stem_rescale(*folded_f32["backbone-block0-expand"],
+                                       cfg.input_image_shape[:2])},
+            compute_dtype, device,
+        )["stem"]
+    if s2d_stem:
+        operands["backbone-stem-block1-args"] = stem_block1_args(operands)
+    block = 0
+    for _, _, n_repeat, _ in _SEQUENCES:
+        for n in range(n_repeat):
+            block += 1
+            if n > 0:
+                operands[f"backbone-block{block}-mbconv"] = _mbconv_args(operands, block)
+    if heads:
+        operands.update(_to_device(fold_heads(state_dict, cfg), compute_dtype, device))
+    return operands
+
+
+def fused_forward(cfg: ModelConfig, operands: Mapping[str, Tuple[torch.Tensor, ...]],
+                  images: torch.Tensor, s2d_stem=False, apply_heads=None) -> dict:
+    """The BN-folded forward on NHWC ``images`` (any real or uint8 dtype)
+    with the tensors of `fused_operands`: a dict of NHWC outputs.  A
+    function of its arguments only, so ``torch.export`` captures it with
+    the operands as inputs.  ``apply_heads`` replaces the folded heads."""
+    x = images.to(operands["backbone-block0-project"][0].dtype).permute(0, 3, 1, 2)
+    backbone = operands
+    if STEM_RESCALED in operands and (
+            tuple(images.shape[1:3]) == tuple(cfg.input_image_shape[:2])):
+        # raw-input path: rescale folded into the stem
+        backbone = {**operands, "backbone-block0-expand": operands[STEM_RESCALED]}
+    else:
+        x = x / 127.5 - 1.0
+    fm1, fm2, skip = mobilenetv2_features_fused(backbone, x, s2d_stem=s2d_stem)
+    if apply_heads is not None:
+        return apply_heads(fm1, fm2, skip)
+    return heads_forward_folded(cfg, operands, fm1, fm2, skip)
+
+
 def make_fused_forward(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
                        device="cuda", s2d_stem=False, fused_heads: bool = True,
                        fold_input_rescale: bool = True
@@ -351,35 +411,10 @@ def make_fused_forward(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat1
         raise ValueError("fused inference currently supports mobilenetv2 only")
     _check_s2d_stem(s2d_stem)
     device = torch.device(device)
-    folded_f32 = fold_mobilenetv2(state_dict)
-    folded = _to_device(folded_f32, compute_dtype, device)
-    stem_folded = None
-    if fold_input_rescale and not s2d_stem:
-        stem_folded = dict(folded)
-        stem_folded["backbone-block0-expand"] = _to_device(
-            {"stem": fold_stem_rescale(*folded_f32["backbone-block0-expand"],
-                                       cfg.input_image_shape[:2])},
-            compute_dtype, device,
-        )["stem"]
-    kernel_args = {}
-    if s2d_stem:
-        kernel_args["backbone-stem-block1-args"] = stem_block1_args(folded)
-    block = 0
-    for _, _, n_repeat, _ in _SEQUENCES:
-        for n in range(n_repeat):
-            block += 1
-            if n > 0:
-                kernel_args[f"backbone-block{block}-mbconv"] = _mbconv_args(folded, block)
-    folded.update(kernel_args)
-    if stem_folded is not None:
-        stem_folded.update(kernel_args)
-
-    if fused_heads:
-        heads = _to_device(fold_heads(state_dict, cfg), compute_dtype, device)
-
-        def apply_heads(fm1, fm2, skip):
-            return heads_forward_folded(cfg, heads, fm1, fm2, skip)
-    else:
+    operands = fused_operands(cfg, state_dict, compute_dtype, device, s2d_stem,
+                              fold_input_rescale, heads=fused_heads)
+    apply_heads = None
+    if not fused_heads:
         from ssdseglib_torch.models.builder import SsdSegModel
 
         model = SsdSegModel(cfg, torch.Generator().manual_seed(0))
@@ -388,17 +423,8 @@ def make_fused_forward(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat1
         model = model.to(device=device, dtype=compute_dtype)
         apply_heads = model.to(memory_format=torch.channels_last).eval().apply_heads
 
-    expected_hw = tuple(cfg.input_image_shape[:2])
-
     @torch.inference_mode()
     def forward(images: torch.Tensor) -> dict:
-        x = images.to(compute_dtype).permute(0, 3, 1, 2)  # NHWC -> channels-last NCHW
-        if stem_folded is not None and tuple(images.shape[1:3]) == expected_hw:
-            backbone = stem_folded  # raw-input path: rescale folded into the stem
-        else:
-            x = x / 127.5 - 1.0
-            backbone = folded
-        fm1, fm2, skip = mobilenetv2_features_fused(backbone, x, s2d_stem=s2d_stem)
-        return apply_heads(fm1, fm2, skip)
+        return fused_forward(cfg, operands, images, s2d_stem, apply_heads)
 
     return forward

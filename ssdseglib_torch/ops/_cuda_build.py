@@ -2,8 +2,9 @@
 plain C interface, loaded with ctypes.
 
 The library is built at first use into ``ssdseglib_torch/build/`` (listed
-in ``.gitignore``), named by a hash of the sources and flags, so a fresh
-checkout builds it once and an edited source builds anew.  Every source is
+in ``.gitignore``) or the directory `utils.compile_cache.enable_compile_cache`
+names, under a hash of the sources and flags, so a fresh checkout builds it
+once and an edited source builds anew.  Every source is
 compiled by an nvcc of its own, all started together, and the objects are
 linked into one library.  Nothing here runs at import time.
 """
@@ -19,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from ssdseglib_torch.utils.compile_cache import build_directory
+
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (
@@ -30,7 +33,6 @@ SOURCES = (
     _CSRC / "pointwise_wgrad.cu",
 )
 HEADERS = (_CSRC / "common.cuh",)
-BUILD_DIR = _PKG / "build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -75,11 +77,11 @@ def _digest() -> str:
 
 
 def _build(target: Path) -> BuildInfo:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target.parent.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     tag = f"{target.stem}.{os.getpid()}"
-    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
-    tmp = BUILD_DIR / f"{tag}.tmp"
+    objects = [target.parent / f"{tag}.{src.stem}.o" for src in SOURCES]
+    tmp = target.parent / f"{tag}.tmp"
     t0 = time.perf_counter()
     try:
         compiles = [
@@ -111,12 +113,17 @@ def _build(target: Path) -> BuildInfo:
     return BuildInfo(target, time.perf_counter() - t0, ptxas)
 
 
+def library_path() -> Path:
+    """Where the library for these sources and flags lives."""
+    return build_directory() / f"libssdseg_kernels_{_digest()}.so"
+
+
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib, build_info
     if _lib is not None:
         return _lib
-    target = BUILD_DIR / f"libssdseg_kernels_{_digest()}.so"
+    target = library_path()
     build_info = _build(target) if not target.exists() else BuildInfo(target, 0.0, "")
     lib = ctypes.CDLL(str(target))
     ptr = ctypes.c_void_p

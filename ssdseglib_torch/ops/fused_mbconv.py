@@ -13,9 +13,12 @@ cores.  bfloat16 needs Cin and Cout multiples of 8, E a multiple of 16 and
 
 BatchNorm is folded into conv weight + bias beforehand (`fold_conv_bn`).
 
-``fused_mbconv`` launches the kernel on a CUDA tensor and runs the plain
-twin ``fused_mbconv_reference`` on a CPU tensor; a CUDA call the kernel
-cannot take raises.  ``fused_mbconv.launches`` counts kernel launches.
+``fused_mbconv`` calls the dispatcher op ``torch.ops.ssdseglib.fused_mbconv``
+(so ``torch.export`` records it as one node), whose CUDA implementation
+launches the kernel and whose CPU implementation is the plain twin
+``fused_mbconv_reference``; a CUDA call the kernel cannot take raises.
+``fused_mbconv.launches`` counts kernel launches, from a live call or from
+inside an exported program alike.
 """
 
 from __future__ import annotations
@@ -26,9 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ssdseglib_torch.models.blocks import BN_EPSILON
-
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+BN_EPSILON = 1e-3  # the blocks' BatchNorm epsilon (models/blocks.py)
 
 
 def fold_conv_bn(kernel, gamma, beta, mean, var, eps: float = BN_EPSILON):
@@ -105,18 +107,40 @@ def fused_mbconv(
     Returns:
         (B, H, W, Cout) in x's dtype.
     """
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_mbconv runs on cuda or cpu, not {x.device}")
     w1, wd, w3 = _as_kernel_args(x, w_expand, w_depthwise, w_project)
-    _check(x, w1, b_expand, wd, b_depthwise, w3, b_project, residual)
-    if x.device.type == "cpu":
-        return fused_mbconv_reference(
-            x, w1, b_expand, wd, b_depthwise, w3, b_project, residual
-        )
-    out = _launch(x, w1, b_expand, wd, b_depthwise, w3, b_project, residual)
+    return torch.ops.ssdseglib.fused_mbconv(
+        x, w1, b_expand, wd, b_depthwise, w3, b_project, residual)
+
+
+fused_mbconv.launches = 0
+
+
+def _cuda_op(x, w1, b1, wd, b2, w3, b3, residual):
+    _check(x, w1, b1, wd, b2, w3, b3, residual)
+    out = _launch(x, w1, b1, wd, b2, w3, b3, residual)
     fused_mbconv.launches += 1
     return out
 
 
-fused_mbconv.launches = 0
+def _cpu_op(x, w1, b1, wd, b2, w3, b3, residual):
+    _check(x, w1, b1, wd, b2, w3, b3, residual)
+    return fused_mbconv_reference(x, w1, b1, wd, b2, w3, b3, residual)
+
+
+def _fake_op(x, w1, b1, wd, b2, w3, b3, residual):
+    _check(x, w1, b1, wd, b2, w3, b3, residual)
+    return x.new_empty((*x.shape[:-1], w3.shape[-1]))
+
+
+_LIBRARY = torch.library.Library("ssdseglib", "FRAGMENT")
+_LIBRARY.define(
+    "fused_mbconv(Tensor x, Tensor w_expand, Tensor b_expand, Tensor w_depthwise, "
+    "Tensor b_depthwise, Tensor w_project, Tensor b_project, bool residual) -> Tensor")
+_LIBRARY.impl("fused_mbconv", _cuda_op, "CUDA")
+_LIBRARY.impl("fused_mbconv", _cpu_op, "CPU")
+torch.library.register_fake("ssdseglib::fused_mbconv", _fake_op, lib=_LIBRARY)
 
 
 def _launch(x, w1, b1, wd, b2, w3, b3, residual, config=(0, 0, 0, 0)):

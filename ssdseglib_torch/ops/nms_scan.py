@@ -9,9 +9,12 @@ at ``max_keep``.  That scan runs as one hand-written Hopper kernel
 matrix turned into a bit matrix in shared memory, and one warp that walks
 the taken candidates with the suppressed set in registers.
 
-``greedy_select`` launches the kernel on a CUDA tensor and runs the plain
-version ``greedy_select_reference`` on a CPU tensor; a CUDA call the kernel
-cannot take raises.  ``greedy_select.launches`` counts kernel launches.
+``greedy_select`` calls the dispatcher op ``torch.ops.ssdseglib.greedy_select``
+(the threshold as a 0-d f32 tensor on the IoU's device), whose CUDA
+implementation launches the kernel and whose CPU implementation is the plain
+version ``greedy_select_reference``; a CUDA call the kernel cannot take
+raises.  ``greedy_select.launches`` counts kernel launches, live or from
+inside an exported program.
 """
 
 from __future__ import annotations
@@ -75,11 +78,17 @@ def greedy_select(
     Returns:
         (..., K) bool keep mask.
     """
-    _check(iou, candidate_valid)
-    if iou.device.type == "cpu":
-        return greedy_select_reference(iou, candidate_valid, iou_threshold, max_keep)
-    if iou.device.type != "cuda":
+    if iou.device.type not in ("cuda", "cpu"):
         raise ValueError(f"greedy_select runs on cuda or cpu, not {iou.device}")
+    return torch.ops.ssdseglib.greedy_select(
+        iou, candidate_valid, _device_threshold(iou_threshold, iou.device), int(max_keep))
+
+
+greedy_select.launches = 0
+
+
+def _cuda_op(iou, candidate_valid, iou_threshold, max_keep):
+    _check(iou, candidate_valid)
     k = candidate_valid.shape[-1]
     if k > MAX_K:
         raise ValueError(
@@ -95,10 +104,9 @@ def greedy_select(
     if rows == 0:
         return keep
     with torch.cuda.device(iou.device):
-        threshold = _device_threshold(iou_threshold, iou.device)
         err = lib.nms_scan_launch(
-            iou.data_ptr(), candidate_valid.data_ptr(), threshold.data_ptr(),
-            keep.data_ptr(), rows, k, int(max_keep),
+            iou.data_ptr(), candidate_valid.data_ptr(), iou_threshold.data_ptr(),
+            keep.data_ptr(), rows, k, max_keep,
             torch.cuda.current_stream(iou.device).cuda_stream,
         )
     if err != 0:
@@ -110,7 +118,22 @@ def greedy_select(
     return keep
 
 
-greedy_select.launches = 0
+def _cpu_op(iou, candidate_valid, iou_threshold, max_keep):
+    _check(iou, candidate_valid)
+    return greedy_select_reference(iou, candidate_valid, iou_threshold, max_keep)
+
+
+def _fake_op(iou, candidate_valid, iou_threshold, max_keep):
+    _check(iou, candidate_valid)
+    return torch.empty_like(candidate_valid)
+
+
+_LIBRARY = torch.library.Library("ssdseglib", "FRAGMENT")
+_LIBRARY.define("greedy_select(Tensor iou, Tensor candidate_valid, Tensor iou_threshold, "
+                "int max_keep) -> Tensor")
+_LIBRARY.impl("greedy_select", _cuda_op, "CUDA")
+_LIBRARY.impl("greedy_select", _cpu_op, "CPU")
+torch.library.register_fake("ssdseglib::greedy_select", _fake_op, lib=_LIBRARY)
 
 
 def greedy_select_reference(

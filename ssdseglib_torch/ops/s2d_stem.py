@@ -17,10 +17,12 @@ BatchNorm is folded into conv weight + bias beforehand
 (``ops/fused_mbconv.fold_conv_bn``); `stem_block1_args` turns the six folded
 OIHW convs into the kernel's layouts once.
 
-``fused_stem_block1`` launches the kernel on a CUDA tensor and runs the
-plain version ``fused_stem_block1_reference`` on a CPU tensor; a CUDA call
-the kernel cannot take raises.  ``fused_stem_block1.launches`` counts kernel
-launches.  `kernel_config` reports the bf16 kernel's tile and chunk.
+``fused_stem_block1`` calls the dispatcher op
+``torch.ops.ssdseglib.fused_stem_block1``, whose CUDA implementation launches
+the kernel and whose CPU implementation is the plain version
+``fused_stem_block1_reference``; a CUDA call the kernel cannot take raises.
+``fused_stem_block1.launches`` counts kernel launches, live or from inside
+an exported program.  `kernel_config` reports the bf16 kernel's tile and chunk.
 """
 
 from __future__ import annotations
@@ -99,15 +101,37 @@ def fused_stem_block1(images: torch.Tensor, folded: Sequence[torch.Tensor]) -> t
     Returns:
         the block-1 output (B, H/4, W/4, 24) in the images' dtype.
     """
+    if images.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_stem_block1 runs on cuda or cpu, not {images.device}")
+    return torch.ops.ssdseglib.fused_stem_block1(images, list(folded))
+
+
+fused_stem_block1.launches = 0
+
+
+def _cuda_op(images, folded):
     _check(images, folded)
-    if images.device.type == "cpu":
-        return fused_stem_block1_reference(images, folded)
     out = _launch(images, folded)
     fused_stem_block1.launches += 1
     return out
 
 
-fused_stem_block1.launches = 0
+def _cpu_op(images, folded):
+    _check(images, folded)
+    return fused_stem_block1_reference(images, folded)
+
+
+def _fake_op(images, folded):
+    _check(images, folded)
+    batch, h, w, _ = images.shape
+    return images.new_empty((batch, h // 4, w // 4, 24))
+
+
+_LIBRARY = torch.library.Library("ssdseglib", "FRAGMENT")
+_LIBRARY.define("fused_stem_block1(Tensor images, Tensor[] folded) -> Tensor")
+_LIBRARY.impl("fused_stem_block1", _cuda_op, "CUDA")
+_LIBRARY.impl("fused_stem_block1", _cpu_op, "CPU")
+torch.library.register_fake("ssdseglib::fused_stem_block1", _fake_op, lib=_LIBRARY)
 
 # (output tile rows, columns at H/4, chunk of block 1's 96 channels, warps) of
 # the bf16 kernel; 0 takes the source's choice

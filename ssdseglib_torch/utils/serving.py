@@ -2,13 +2,18 @@
 
 - `format_outputs`: the mask-dtype coercion + optional background-box
   filter (reference layers.py:165-166) applied to every NumPy-out predict.
-- `predict_batched_chunks`: the any-N chunk / repeat-pad / slice loop that
-  serves an arbitrary number of images through one batch size.
+- `predict_batched_chunks` / `predict_batched_chunks_multi`: the any-N
+  chunk / repeat-pad / slice loop that serves an arbitrary number of images
+  through one batch size, or through several (`plan_batched_chunks`).
+- `stage_input`: the pinned, non-blocking upload of a host batch.
+
+Both the live `InferenceModel` (models/builder.py) and the reloaded
+`ServingBundle` (export.py) use them, so the two cannot drift.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,15 +71,61 @@ def predict_batched_chunks(
         )
     if not isinstance(batch, int) or isinstance(batch, bool) or batch < 1:
         raise ValueError(f"batch must be a positive int, got {batch!r}")
+    return predict_batched_chunks_multi(images, (batch,), run_chunk)
+
+
+def plan_batched_chunks(n: int, sizes: Sequence[int]) -> List[Tuple[int, int]]:
+    """Chunk plan for serving `n` images through programs baked at
+    `sizes`: a list of (real_rows, program_batch) pairs, greedily using
+    the largest program that fits the remaining rows, then padding the
+    ragged tail up to the smallest program.  A b1+b16 bundle thus serves
+    one image at b1 compute (not 16x repeat-padded), and e.g. 35 images
+    as 16+16+1+1+1 with zero padded rows."""
+    if n < 1:
+        raise ValueError("plan_batched_chunks needs n >= 1")
+    sizes = sorted(set(int(s) for s in sizes))
+    if not sizes or sizes[0] < 1:
+        raise ValueError(f"program batch sizes must be positive, got {sizes}")
+    plan: List[Tuple[int, int]] = []
+    remaining = n
+    while remaining > 0:
+        fits = [s for s in sizes if s <= remaining]
+        if fits:
+            plan.append((fits[-1], fits[-1]))
+        else:
+            # remaining < smallest program: pad up to it
+            plan.append((remaining, sizes[0]))
+        remaining -= plan[-1][0]
+    return plan
+
+
+def predict_batched_chunks_multi(
+    images,
+    batches: Sequence[int],
+    run_chunk: Callable[[np.ndarray], Tuple[object, object]],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """`predict_batched_chunks` over SEVERAL program batch sizes: each
+    chunk handed to `run_chunk` has a shape[0] from `batches`, chosen by
+    `plan_batched_chunks` (largest-fit, minimal tail padding)."""
+    images = np.asarray(images)
+    if images.ndim != 4:
+        raise ValueError(
+            f"predict_batched expects (N, H, W, C) images, got "
+            f"shape {images.shape}"
+        )
+    for b in batches:
+        if not isinstance(b, (int, np.integer)) or isinstance(b, bool) or b < 1:
+            raise ValueError(f"batch must be a positive int, got {b!r}")
     if images.shape[0] == 0:
         raise ValueError("predict_batched got an empty image stack")
 
     masks, dets = [], []
-    for start in range(0, images.shape[0], batch):
-        chunk = images[start : start + batch]
-        k = chunk.shape[0]
-        if k < batch:
-            pad = np.repeat(chunk[-1:], batch - k, axis=0)
+    start = 0
+    for k, b in plan_batched_chunks(images.shape[0], batches):
+        chunk = images[start : start + k]
+        start += k
+        if k < b:
+            pad = np.repeat(chunk[-1:], b - k, axis=0)
             chunk = np.concatenate([chunk, pad], axis=0)
         mask, det = run_chunk(chunk)
         # slice BEFORE any host-side filter: padded rows are dropped by
@@ -82,3 +133,15 @@ def predict_batched_chunks(
         masks.append(_to_numpy(mask)[:k])
         dets.append(_to_numpy(det)[:k])
     return np.concatenate(masks, 0), np.concatenate(dets, 0)
+
+
+def stage_input(images, device: torch.device) -> torch.Tensor:
+    """A host batch on ``device``: NumPy goes through pinned host memory
+    with a non-blocking upload; a tensor is moved as it is."""
+    if not isinstance(images, torch.Tensor):
+        images = torch.from_numpy(np.ascontiguousarray(images))
+    if images.device == device:
+        return images
+    if device.type == "cuda" and images.device.type == "cpu":
+        images = images.pin_memory()
+    return images.to(device, non_blocking=True)

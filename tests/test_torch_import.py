@@ -51,6 +51,11 @@ SLICE_MODULES = (
     "ssdseglib_torch.models.shufflenetv2",
     "ssdseglib_torch.examples",
     "ssdseglib_torch.examples.train_multitask",
+    "ssdseglib_torch.export",
+    "ssdseglib_torch.keras_import",
+    "ssdseglib_torch.data.native_loader",
+    "ssdseglib_torch.utils.profiling",
+    "ssdseglib_torch.utils.compile_cache",
 )
 
 

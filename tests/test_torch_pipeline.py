@@ -97,9 +97,11 @@ def test_early_consumer_exit_unblocks_producer(tmp_path):
 def test_fewer_samples_than_a_batch_and_the_native_loader():
     samples = generate_dataset(3, image_shape=(24, 32), seed=1)
     assert list(pipeline.HostBatcher(samples, batch_size=4)) == []
-    assert inspect.signature(pipeline.HostBatcher).parameters["use_native"].default is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.HostBatcher(samples, batch_size=2, use_native=True)
+    # the native assembler is the default, as in the JAX package; it reads
+    # files, so in-memory samples take the Python path
+    assert inspect.signature(pipeline.HostBatcher).parameters["use_native"].default is True
+    batcher = pipeline.HostBatcher(samples, batch_size=2, use_native=True, image_shape=(24, 32))
+    assert batcher._native is None and len(list(batcher)) == 1
 
 
 def test_the_partial_batch_is_kept_on_request():

@@ -24,7 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_package_surface_is_the_jax_package_s_less_the_named_missing():
-    assert ssdseglib_torch.NOT_PORTED == ("export", "keras_import", "parallel")
+    assert ssdseglib_torch.NOT_PORTED == ("parallel",)
     want = [name for name in ssdseglib_tpu.__all__ if name not in ssdseglib_torch.NOT_PORTED]
     assert ssdseglib_torch.__all__ == want
     for name in ssdseglib_torch.__all__:
