@@ -154,6 +154,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    over LOADER_FILES 480x640 PNG triples natively and through PIL in turns:
    the arrays equal, no fallback warning, ms a batch of each.
 
+12. data parallelism (``ssdseglib_torch.parallel``): (a) at world size 1 on
+   NCCL (`make_mesh()` with no group): the chain backward's split path at
+   the training path's shape in bf16 gives its two-launch path's bits and
+   meets phase 4's limits against the plain version with the group, wrapper
+   ms of both in turns; one bf16 b16 `fit` epoch of DP_STEPS steps over a
+   `TrainDataLoader` (flip and rgb) with the chain, depthwise and
+   weight-gradient gates 'cuda', with and without the mesh: metrics within
+   DP_FIT_TOLERANCE (the mined confidence loss DP_MINED_TOLERANCE),
+   parameters within Adam's bound, the chain's split path
+   launched once a step with the mesh and its two-launch path without; the
+   bare step with and without the mesh in turns (the machinery's cost).
+   (b) DP_WORLD gloo ranks spawned on cuda:0 (NCCL refuses two ranks on one
+   device), batch 8 each, against one process at batch 16: one f32 step
+   with the gates 'cuda' (metrics within DP_STEP_GATE, the ranks'
+   parameters bitwise equal, the split path launched in each rank), and
+   fused bf16 `predict` (masks within 2 bf16 ulps, detections within
+   DP_DETECTION_TOLERANCE, 10 MBConv launches a forward a rank).  One
+   ``{"data_parallel": ...}`` JSON line with the numbers and the card.
+
 ``python3 chip_smoke.py --profile-train [aten|chain|depthwise|wgrad-dot|wgrad-cuda ...]`` instead
 builds the library and prints where the time of a bf16 b16 train step goes
 (torch.profiler, kernel time by name) under the named routes, and
@@ -177,7 +196,8 @@ all through the launchers' runtime arguments, and
 backward kernels, `wgrad_fma` and phase 6's serving (b16 images/s, b1 ms) of
 an unpacked parent tree and of this one in turns (parent, change, change,
 parent; one process each), and ``python3 chip_smoke.py --deployment`` runs
-phase 11 alone; none of these prints result lines.
+phase 11 alone and ``python3 chip_smoke.py --data-parallel`` phase 12; none
+of these prints result lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
@@ -208,6 +228,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1205,7 +1226,7 @@ def _train_batch(batch: int):
 ROUTES = {  # name -> (chain gate, depthwise gate, weight-gradient gate)
     "aten": ("aten", "aten", "aten"), "chain": ("cuda", "aten", "aten"),
     "depthwise": ("aten", "cuda", "aten"), "wgrad-dot": ("aten", "aten", "dot"),
-    "wgrad-cuda": ("aten", "aten", "cuda")}
+    "wgrad-cuda": ("aten", "aten", "cuda"), "all-cuda": ("cuda", "cuda", "cuda")}
 BACKWARD_ROUTES = ("aten", "chain", "depthwise")  # phase 7
 WGRAD_ROUTES = ("aten", "wgrad-dot", "wgrad-cuda")  # phase 9
 
@@ -2102,6 +2123,330 @@ def phase_deployment(card: str) -> None:
     log(f"[deploy] phase 11 took {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 12: data parallelism.  (a) runs at world size 1 on NCCL, the backend
+# users get; (b) puts two ranks on the one card over gloo (NCCL refuses two
+# ranks on one device), which runs all_reduce and broadcast on CUDA tensors.
+DP_STEPS = 4  # (a): one fit epoch of DP_STEPS bf16 b16 steps
+DP_WORLD = 2  # (b)
+DP_TIMEOUT_S = 300
+# (a) bf16 epoch metrics with and without the mesh, |difference| <= rtol *
+# |value| + 1e-3 (the JAX package's mesh fit test's atol, for the metrics
+# near 0).  The mesh's BatchNorm takes Flax's E[x^2] - E[x]^2 in f32 where
+# the library takes a two-pass variance, so outputs round to other bf16
+# values here and there: 2^-9 a rounding through ~60 layers is ~1.5e-2 of a
+# layer's output, which a metric over few elements (the box metrics, over the
+# positive anchors) keeps, and Adam's sign-like steps on noise-level
+# gradients add as much again over DP_STEPS steps: rtol 5e-2.  The mined
+# confidence loss is discrete besides: an ulp moves negatives across the
+# budget's edge, each moving its loss between samples normalised by other
+# positive counts: rtol 1e-1, the JAX mesh fit test's later-epoch gate.
+DP_FIT_TOLERANCE = 5e-2
+DP_MINED_TOLERANCE = 1e-1
+DP_MINED = ("loss/labels",)
+# (b) one f32 step, 2 x b8 against b16: the JAX data-parallel test's gate
+DP_STEP_GATE = dict(rtol=2e-3, atol=2e-4)
+# (b) bf16 fused serving, 2 x b8 against b16: masks within 2 bf16 ulps (the
+# library's convs may take other algorithms at batch 8), detections within
+# SERVE_PLAIN_TOLERANCE of (1 + |value|) (a probability one ulp apart moves a
+# decoded corner by up to its size times the ulp)
+DP_DETECTION_TOLERANCE = SERVE_PLAIN_TOLERANCE
+
+
+def _dp_chain_split(card: str, group) -> dict:
+    """(a) The chain backward's split path at the training path's shape in
+    bf16 (phase 4's inputs) against its two-launch path: the same bits at
+    world size 1 (Bc and D are formed from the same sums by the same
+    expression); against the plain version with the group at phase 4's
+    limits; wrapper times in turns (two-launch, split, split, two-launch)."""
+    from ssdseglib_torch.ops import fused_chain_backward as fcb
+
+    gen = torch.Generator().manual_seed(1)
+    b, h, w, c = BACKWARD_SHAPES[0]
+
+    def draw(*dims, scale=1.0, shift=0.0):
+        return (torch.randn(*dims, generator=gen) * scale + shift).to("cuda")
+
+    x = draw(b, h, w, c, scale=2.0).bfloat16()
+    dy = draw(b, h, w, c).bfloat16()
+    weight = draw(3, 3, 1, c, scale=0.5).bfloat16().permute(3, 2, 0, 1).contiguous()
+    gamma, beta = draw(c, scale=0.1, shift=1.0), draw(c, scale=0.1)
+    _, u_nchw, mean, var, coefficients = fcb._forward_math(x.permute(0, 3, 1, 2), weight, gamma,
+                                                          beta, group)
+    args = (x, u_nchw.permute(0, 2, 3, 1), dy, weight.permute(2, 3, 1, 0), gamma, beta, mean,
+            var, coefficients)
+    unsplit = fcb.dw_bn_relu6_backward(*args)
+    split = fcb.dw_bn_relu6_backward(*args, group)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, s) for a, s in zip(unsplit, split)):
+        raise AssertionError("chain backward: the split path at world size 1 gives other bits "
+                             "than the two-launch path")
+    want = fcb.dw_bn_relu6_backward_reference(*args, group)
+    errs = [_check_close("chain split dx", split[0], want[0], TOLERANCE[torch.bfloat16])]
+    errs += [_check_close(f"chain split {name}", s, r, SUM_TOLERANCE, scale_by_max=True)
+             for name, s, r in zip(("dk", "dgamma", "dbeta"), split[1:], want[1:])]
+    times = {"two-launch": [], "split": []}
+    for name in ("two-launch", "split", "split", "two-launch"):
+        extra = (group,) if name == "split" else ()
+        times[name].append(cuda_median_ms(lambda: fcb.dw_bn_relu6_backward(*args, *extra)))
+    report = {name: min(t) for name, t in times.items()}
+    log(f"[dp] (a) chain backward bf16 {BACKWARD_SHAPES[0]} at world size 1 (NCCL): split path "
+        f"equal to the two-launch path bit for bit; max_abs_err vs plain dx {errs[0]:.3g} dk "
+        f"{errs[1]:.3g} dgamma {errs[2]:.3g} dbeta {errs[3]:.3g} | wrapper ms in turns "
+        f"two-launch {times['two-launch']} split {times['split']} (median of 20 each) | {card}")
+    report["max_abs_err"] = max(errs)
+    return report
+
+
+def _dp_world_one(card: str) -> dict:
+    """(a) World size 1, NCCL, bf16 b16 on the flagship with the chain,
+    depthwise and weight-gradient gates 'cuda': a fit epoch of DP_STEPS
+    steps with and without the mesh; then the bare step with and without it,
+    in turns."""
+    import torch.distributed as dist
+
+    from ssdseglib_torch.config import TrainConfig, reference_warehouse_config
+    from ssdseglib_torch.data.pipeline import TrainDataLoader
+    from ssdseglib_torch.data.synthetic import generate_dataset
+    from ssdseglib_torch.models.builder import SsdSegModel
+    from ssdseglib_torch.ops import fused_chain_backward as fcb
+    from ssdseglib_torch.parallel import BATCH_AXIS, make_mesh
+    from ssdseglib_torch.train import Trainer
+
+    mesh = make_mesh()
+    try:
+        assert mesh.size() == 1 and dist.get_backend() == "nccl", (mesh, dist.get_backend())
+        report = _dp_chain_split(card, mesh.get_group(BATCH_AXIS))
+        anchors, model_cfg, images, targets, _ = _train_batch(BATCH)
+        enc_cfg = reference_warehouse_config()[1]
+        samples = generate_dataset(BATCH * DP_STEPS, image_shape=enc_cfg.image_shape,
+                                   num_classes=enc_cfg.num_classes, seed=0)
+        model = SsdSegModel(model_cfg, torch.Generator().manual_seed(0))
+        config = TrainConfig(batch_size=BATCH, compute_dtype="bfloat16")
+        trainer = Trainer(model=model, anchors=anchors, config=config)
+        _set_route("all-cuda")
+        runs = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            fcb.dw_bn_relu6_backward.launches = fcb.dw_bn_relu6_backward.split_launches = 0
+            state = trainer.init_state(torch.Generator().manual_seed(0), mesh=m)
+            loader = TrainDataLoader(samples, anchors, enc_cfg, batch_size=BATCH,
+                                     augmentation_horizontal_flip=True, augmentation_rgb=True,
+                                     seed=0, mesh=m)
+            state, history = trainer.fit(state, loader, epochs=1, mesh=m, log_fn=lambda s: None)
+            runs[name] = (state, history, fcb.dw_bn_relu6_backward.launches,
+                          fcb.dw_bn_relu6_backward.split_launches)
+        (plain, plain_history, plain_launches, plain_split), (ours, history, launches, split) = (
+            runs["plain"], runs["mesh"])
+        assert ours.step == plain.step == DP_STEPS
+        assert plain_split == 0 and launches == 0 and split == plain_launches >= DP_STEPS, (
+            plain_launches, plain_split, launches, split)
+        assert set(history) == set(plain_history)
+        differences = {k: max(0.0, abs(history[k][0] - plain_history[k][0]) - 1e-3)
+                       / max(abs(plain_history[k][0]), 1e-12) for k in history}
+        assert all(np.isfinite(v[0]) for v in history.values()), history
+        worst = max(v for k, v in differences.items() if k not in DP_MINED)
+        mined = max(differences[k] for k in DP_MINED)
+        assert worst <= DP_FIT_TOLERANCE and mined <= DP_MINED_TOLERANCE, (
+            differences, history, plain_history)
+        # Adam's first steps move a parameter by at most lr each, so two runs
+        # differ by at most 2 lr a step; a parameter whose gradient is bf16
+        # noise can take the whole bound (opposite signs in the two runs)
+        moved = max(float((ours.params[k] - plain.params[k]).abs().max()) for k in ours.params)
+        assert moved <= 2.0 * config.learning_rate * DP_STEPS * (1 + 1e-3), moved
+        start = trainer.init_state(torch.Generator().manual_seed(0)).params
+        norms = [math.sqrt(sum(float((p[k] - start[k]).square().sum()) for k in start))
+                 for p in (ours.params, plain.params)]
+        assert 0.5 < norms[0] / norms[1] < 2.0, norms  # the mesh run did update
+        log(f"[dp] (a) fit, 1 epoch of {DP_STEPS} bf16 b16 steps, gates cuda, mesh of world size "
+            f"1 (NCCL) vs no mesh: loss {history['loss'][0]:.4f} vs {plain_history['loss'][0]:.4f}"
+            f", largest relative metric difference {worst:.3g} (limit {DP_FIT_TOLERANCE}), the "
+            f"mined confidence loss's {mined:.3g} (limit {DP_MINED_TOLERANCE}), "
+            f"largest parameter difference {moved / config.learning_rate:.3g} lr (limit "
+            f"{2 * DP_STEPS} lr), update norms {norms[0]:.4g} with the mesh, {norms[1]:.4g} "
+            f"without; chain launches: two-launch path {plain_launches} without the "
+            f"mesh, split path {split} with it")
+        report["split_launches"] = split
+
+        # the bare step in turns: the machinery's cost (one flat gradient
+        # all_reduce, one metric all_reduce, the BatchNorm all_reduces, the
+        # loss's gather, the chain split)
+        states = {"plain": trainer.init_state(torch.Generator().manual_seed(0)),
+                  "mesh": trainer.init_state(torch.Generator().manual_seed(0), mesh=mesh)}
+        times = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            state = states[name]
+            trainer.train_step(state, images, targets)[1]["loss"].item()  # warm-up
+            steps = []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                trainer.train_step(state, images, targets)[1]["loss"].item()  # the fence
+                steps.append((time.perf_counter() - t0) * 1e3)
+            times[name].append(statistics.median(steps))
+        report.update(step_ms=min(times["plain"]), mesh_step_ms=min(times["mesh"]))
+        log(f"[dp] (a) bf16 b16 bare step, gates cuda, in turns (no mesh, mesh, mesh, no mesh): "
+            f"no mesh {times['plain']} ms, mesh of world size 1 {times['mesh']} ms (median of "
+            f"{TRAIN_STEPS}, fetch-fenced) | {card}")
+        return report
+    finally:
+        _set_route("aten")
+        dist.destroy_process_group()
+
+
+def _dp_rank(rank: int, directory: str) -> None:
+    """(b) One of DP_WORLD gloo ranks on cuda:0 (spawned): the f32 step and
+    the bf16 fused serving of the reference `_dp_two_ranks` saved, compared
+    here; the results go to ``rank{rank}.pt``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from ssdseglib_torch.config import TrainConfig
+    from ssdseglib_torch.models.builder import SsdSegModel
+    from ssdseglib_torch.ops import fused_chain_backward as fcb
+    from ssdseglib_torch.ops.fused_mbconv import fused_mbconv
+    from ssdseglib_torch.parallel import make_mesh, shard_batch
+    from ssdseglib_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{directory}/store", rank=rank,
+                            world_size=DP_WORLD, timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = make_mesh(device="cuda:0")
+        reference = torch.load(os.path.join(directory, "reference.pt"), weights_only=False)
+        anchors, model_cfg, images, targets, _ = _train_batch(BATCH)
+        model = SsdSegModel(model_cfg, torch.Generator().manual_seed(0))
+        trainer = Trainer(model=model, anchors=anchors,
+                          config=TrainConfig(batch_size=BATCH, compute_dtype="float32"),
+                          device="cuda:0")
+        _set_route("all-cuda")
+        try:
+            state = trainer.init_state(torch.Generator().manual_seed(0), mesh=mesh)
+            fcb.dw_bn_relu6_backward.split_launches = 0
+            state, metrics = trainer.train_step(state, *shard_batch(mesh, (images, targets)))
+            out = {"metrics": {k: float(v) for k, v in metrics.items()},
+                   "split_launches": fcb.dw_bn_relu6_backward.split_launches,
+                   "params": {k: v.cpu() for k, v in state.params.items()}}
+        finally:
+            _set_route("aten")
+        del trainer, state
+
+        builder, model, nms = _builder()
+        infer = builder.get_model_for_inference(
+            model_trained=model, compute_dtype="bfloat16", fused_backbone=True,
+            mask_output="bfloat16", device="cuda:0", mesh=mesh, **nms)
+        batch = _uint8_images(3, BATCH)
+        infer.predict(batch)  # warm-up
+        fused_mbconv.launches = 0
+        mask, det = infer.predict(batch)
+        out["mbconv_launches"] = fused_mbconv.launches
+        want_mask, want_det = reference["mask"], reference["det"]
+        out["mask_err"] = float(np.abs(mask - want_mask).max())
+        out["mask_bad"] = int((np.abs(mask - want_mask)
+                               > TOLERANCE[torch.bfloat16] * (1 + np.abs(want_mask))).sum())
+        out["det_err"] = float(np.abs(det - want_det).max())
+        out["det_bad"] = int((np.abs(det - want_det)
+                              > DP_DETECTION_TOLERANCE * (1 + np.abs(want_det))).sum())
+        out["shapes"] = (mask.shape, det.shape)
+        torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_two_ranks(card: str) -> dict:
+    """(b) Two gloo ranks on cuda:0, 2 x b8, against one process at b16 on
+    the flagship: one f32 step with the gates 'cuda', and fused bf16
+    serving."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from ssdseglib_torch.config import TrainConfig
+    from ssdseglib_torch.models.builder import SsdSegModel
+    from ssdseglib_torch.train import Trainer
+
+    anchors, model_cfg, images, targets, _ = _train_batch(BATCH)
+    trainer = Trainer(model=SsdSegModel(model_cfg, torch.Generator().manual_seed(0)),
+                      anchors=anchors, config=TrainConfig(batch_size=BATCH,
+                                                          compute_dtype="float32"))
+    _set_route("all-cuda")
+    try:
+        state, metrics = trainer.train_step(trainer.init_state(torch.Generator().manual_seed(0)),
+                                            images, targets)
+        want = {k: float(v) for k, v in metrics.items()}
+    finally:
+        _set_route("aten")
+    del trainer, state, images, targets
+    builder, model, nms = _builder()
+    infer = builder.get_model_for_inference(
+        model_trained=model, compute_dtype="bfloat16", fused_backbone=True,
+        mask_output="bfloat16", device="cuda", **nms)
+    mask, det = infer.predict(_uint8_images(3, BATCH))
+    del infer, model
+    torch.cuda.empty_cache()
+
+    directory = tempfile.mkdtemp(prefix="ssdseg_smoke_dp_")
+    try:
+        torch.save({"mask": mask, "det": det}, os.path.join(directory, "reference.pt"))
+        t0 = time.perf_counter()
+        context = mp.start_processes(_dp_rank, args=(directory,), nprocs=DP_WORLD, join=False,
+                                     start_method="spawn")
+        try:
+            deadline = time.monotonic() + DP_TIMEOUT_S
+            while not context.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the {DP_WORLD} ranks did not finish in {DP_TIMEOUT_S} s")
+        finally:
+            for process in context.processes:
+                if process.is_alive():
+                    process.terminate()
+                process.join(timeout=30)
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    worst = 0.0
+    for rank, got in enumerate(ranks):
+        for k, v in want.items():
+            np.testing.assert_allclose(got["metrics"][k], v, err_msg=f"rank {rank} {k}",
+                                       **DP_STEP_GATE)
+            worst = max(worst, abs(got["metrics"][k] - v) / (abs(v) + 1e-12))
+        assert got["split_launches"] >= 1, (rank, got["split_launches"])
+        assert got["mbconv_launches"] == 10, (rank, got["mbconv_launches"])
+        assert got["mask_bad"] == 0 and got["det_bad"] == 0, (rank, got)
+        assert got["shapes"] == (mask.shape, det.shape), (rank, got["shapes"])
+    for k, v in ranks[0]["params"].items():
+        assert torch.equal(v, ranks[1]["params"][k]), f"replicas differ at {k}"
+    log(f"[dp] (b) {DP_WORLD} gloo ranks on cuda:0, b8 each vs one process at b16: f32 step with "
+        f"gates cuda, largest relative metric difference {worst:.3g} (gate rtol "
+        f"{DP_STEP_GATE['rtol']}), parameters of the ranks bitwise equal, split chain launches "
+        f"{[r['split_launches'] for r in ranks]}; fused bf16 predict: mask max diff "
+        f"{[r['mask_err'] for r in ranks]} (2 bf16 ulps), detections max diff "
+        f"{[r['det_err'] for r in ranks]} (limit {DP_DETECTION_TOLERANCE} of 1 + |value|), "
+        f"MBConv launches a forward a rank {[r['mbconv_launches'] for r in ranks]}; the ranks "
+        f"took {seconds:.1f} s | {card}")
+    return {"step_relative_err": worst, "mask_err": max(r["mask_err"] for r in ranks),
+            "det_err": max(r["det_err"] for r in ranks), "seconds": seconds}
+
+
+def phase_data_parallel(card: str) -> None:
+    """Phase 12: data parallelism, (a) at world size 1 on NCCL, (b) two gloo
+    ranks on the one card; one JSON line with the numbers."""
+    t0 = time.perf_counter()
+    one = _dp_world_one(card)
+    two = _dp_two_ranks(card)
+    log(json.dumps({"data_parallel": {
+        "world_1_nccl": {"chain_split_ms": one["split"], "chain_two_launch_ms": one["two-launch"],
+                         "chain_split_max_abs_err": one["max_abs_err"],
+                         "chain_split_launches": one["split_launches"],
+                         "step_ms": one["step_ms"], "mesh_step_ms": one["mesh_step_ms"]},
+        "world_2_gloo_one_card": two, "card": card}}))
+    log(f"[dp] phase 12 took {time.perf_counter() - t0:.1f} s")
+
+
 # (rows a warp stages per slab, CTAs) of the tensor-core weight-gradient kernel
 # (0: the source's choice), for `--wgrad-variants`
 WGRAD_VARIANTS = [(0, 0), (16, 132), (16, 264), (16, 396), (16, 528), (32, 132), (32, 264),
@@ -2658,6 +3003,9 @@ def main() -> None:
     if "--deployment" in sys.argv:
         phase_deployment(card)
         return
+    if "--data-parallel" in sys.argv:
+        phase_data_parallel(card)
+        return
     if "--profile-train" in sys.argv:
         routes = [a for a in sys.argv[1:] if a in ROUTES] or list(ROUTES)
         for route in routes:
@@ -2679,6 +3027,7 @@ def main() -> None:
     fit_launches = phase_fit(card)
     phase_notebook_path(card)
     phase_deployment(card)
+    phase_data_parallel(card)
     wgrad["wgrad_mma"]["launches"] = fit_launches["wgrad_mma"]
     wgrad["wgrad_fma"]["launches"] = fit_launches["wgrad_fma"]
     described = {

@@ -5,7 +5,8 @@ MobileNetV2 or ShuffleNetV2 backbones: anchors, ground-truth encoding and
 decoding (`datacoder.DataEncoderDecoder`), the three losses, streaming
 metrics, training (`train.Trainer`, the loader in `data.pipeline`),
 checkpoints, serving with NMS, Keras weight import (`keras_import`),
-self-contained serving bundles (`export`), and the evaluators.  The JAX
+self-contained serving bundles (`export`), data parallelism over
+``torch.distributed`` (`parallel`), and the evaluators.  The JAX
 package's Pallas kernels are hand-written CUDA kernels here (``csrc/``),
 built with nvcc on first use, never on import.
 
@@ -13,14 +14,14 @@ The public surface mirrors the reference package `ssdseglib` and the JAX
 package's: every module in ``__all__`` is importable as
 ``ssdseglib_torch.<name>``.  The modules load at first access, so a process
 that only reloads a serving bundle (`export.load_serving_bundle`) imports no
-model-building code.  `NOT_PORTED` names the JAX package's modules that
-have no counterpart yet.
+model-building code.  `NOT_PORTED` names the parts of the JAX package's
+surface that have no counterpart yet.
 """
 
 import importlib
 
-# modules of ssdseglib_tpu's surface not ported yet (ROADMAP.md, Queue 1)
-NOT_PORTED = ("parallel",)
+# parts of ssdseglib_tpu's surface not ported yet (ROADMAP.md, Queue 1)
+NOT_PORTED = ("parallel.spatial",)
 
 __version__ = "0.1.0"
 
@@ -40,6 +41,7 @@ __all__ = [
     "checkpoint",
     "export",
     "keras_import",
+    "parallel",
     "train",
     "__version__",
 ]

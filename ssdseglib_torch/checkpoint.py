@@ -10,7 +10,10 @@ at step granularity with retention, and restore resumes mid-run.
 ``torch.load``: one file per step, written under a temporary name and
 renamed, so a reader never sees half a file; the oldest steps are pruned.
 Unlike the Orbax manager it writes synchronously (``save`` returns when the
-file is in place), so `wait_until_finished` has nothing to wait for.
+file is in place), so `wait_until_finished` has nothing to wait for.  A state
+replicated on a data-parallel mesh (``state.mesh``) is written by rank 0
+alone, and no rank returns from `save` before the file is in place; every
+rank can `restore`.
 
 `save_params_npz` / `load_params_npz` read and write the JAX package's flat
 ``.npz`` names (``params/<module>/.../kernel``, HWIO layout) through
@@ -19,14 +22,17 @@ file is in place), so `wait_until_finished` has nothing to wait for.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ssdseglib_torch import weights as weights_lib
+from ssdseglib_torch.parallel import mesh as mesh_lib
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
@@ -59,7 +65,19 @@ class Checkpointer:
     def save(self, step: int, state: Any) -> None:
         """Write ``state`` as step ``step`` (values copied to the host, in
         their dtypes: a bfloat16 ``mu`` stays bfloat16) and prune the oldest
-        steps beyond ``max_to_keep``."""
+        steps beyond ``max_to_keep``.  On a mesh only rank 0 writes, and
+        every rank waits for it (an all_reduce read on the host)."""
+        mesh = getattr(state, "mesh", None)
+        if mesh is None:
+            self._write(step, state)
+            return
+        group = mesh.get_group(mesh_lib.BATCH_AXIS)
+        if dist.get_rank(group) == 0:
+            self._write(step, state)
+        fence = torch.zeros(1, device=mesh_lib.local_device(mesh))
+        mesh_lib.all_reduce_(fence, group).item()
+
+    def _write(self, step: int, state: Any) -> None:
         payload: Dict[str, Any] = {"step": int(state.step)}
         for name, tensors in _state_tensors(state).items():
             payload[name] = {k: v.detach().to("cpu", copy=True).contiguous()
@@ -84,8 +102,8 @@ class Checkpointer:
 
     def restore(self, state_template: Any, step: Optional[int] = None) -> Any:
         """A new state shaped like ``state_template`` (same keys, shapes,
-        dtypes, devices and memory layouts) holding the saved values of
-        ``step`` (the latest when None)."""
+        dtypes, devices and memory layouts, and its mesh) holding the saved
+        values of ``step`` (the latest when None)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -108,8 +126,8 @@ class Checkpointer:
                     )
                 restored[name][key] = torch.empty_like(like).copy_(value)
         opt_state = type(state_template.opt_state)(mu=restored["mu"], nu=restored["nu"])
-        return type(state_template)(
-            step=int(payload["step"]), params=restored["params"],
+        return dataclasses.replace(
+            state_template, step=int(payload["step"]), params=restored["params"],
             batch_stats=restored["batch_stats"], opt_state=opt_state)
 
     def close(self) -> None:

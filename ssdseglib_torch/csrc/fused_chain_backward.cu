@@ -48,6 +48,14 @@
 //     windows rotate by name), writing dx and adding the nine taps of dk to
 //     sums it keeps over all its tiles; the chunk's CTAs meet in `finish`,
 //     which writes dk.
+// Under data parallelism (several ranks, each holding a slice of the batch)
+// dbeta and dgamma are sums over the GLOBAL batch, so the cross-rank sum has
+// to fall between the two passes.  The split entry points run them apart:
+// `chain_backward_sums` is pass 1 alone, writing the rank's (dbeta, dgamma)
+// and no coefficients; the caller all-reduces them on the stream; then
+// `chain_backward_apply` is pass 2 on the global sums and the global pixel
+// count N, forming Bc and D at its head, per CTA, from the same expression
+// pass 1's `finish` uses, so a group of one gives the two-launch path's bits.
 // Every sum is taken in an order fixed by the grid, so the bits repeat from
 // run to run.  Where C is not a multiple of V the rows are not 16-byte
 // aligned and both passes take their scalar paths.  The tile (tr, tw) is a
@@ -101,6 +109,12 @@ __device__ __forceinline__ void dz_xhat(float u, float dy, const ChannelCoef& k,
   *xhat = __fmul_rn(d, k.inv);
 }
 
+// Bc = A * (dbeta / N) or D = A * (dgamma / N): pass 1's `finish` and the
+// head of the split pass 2 form them alike.
+__device__ __forceinline__ float bc_or_d(float a, float total, float n) {
+  return __fmul_rn(a, __fdiv_rn(total, n));
+}
+
 // V channels (V = 1: one) of element `idx` of u and dy, as f32.
 template <typename T, int V>
 __device__ __forceinline__ void load_u_dy(const T* __restrict__ u, const T* __restrict__ dy,
@@ -116,7 +130,7 @@ __device__ __forceinline__ void load_u_dy(const T* __restrict__ u, const T* __re
 
 // Pass 1: dbeta = sum dz and dgamma = sum dz * xhat over pixels [p0, p1) of
 // the CTA, V channels a thread; then `finish` writes sums = (dbeta, dgamma)
-// and bcd = (Bc, D).
+// and, unless bcd is null (the split path), bcd = (Bc, D).
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 chain_sums_kernel(const T* __restrict__ u, const T* __restrict__ dy, Coef cf,
@@ -180,7 +194,7 @@ chain_sums_kernel(const T* __restrict__ u, const T* __restrict__ dy, Coef cf,
          [&](int e, float total) {
            const int c = e < C ? e : e - C;
            sums[e] = total;
-           bcd[e] = __fmul_rn(cf.a[c], __fdiv_rn(total, n));
+           if (bcd != nullptr) bcd[e] = bc_or_d(cf.a[c], total, n);
          });
 }
 
@@ -210,16 +224,19 @@ __host__ __device__ inline size_t coef_bytes(int cc) { return (size_t(6) * cc * 
 
 // Pass 2: a persistent CTA walks the tiles of one channel chunk.  For each,
 // du on the tile + halo in shared memory, then dx and this CTA's running dk
-// sums; `finish` over the chunk's CTAs writes dk.  VEC: the next tile's x, u
-// and dy arrive by cp.async (16 bytes a copy) into the second buffer while
-// this one is worked on, and the stencil takes two channels a thread; else
-// one channel, scalar loads.
+// sums; `finish` over the chunk's CTAs writes dk.  bcd holds (Bc, D) when
+// sums_n is 0; in the split path it holds the global (dbeta, dgamma) over
+// sums_n pixels, and the CTA forms Bc and D from them.  VEC: the next
+// tile's x, u and dy arrive by cp.async (16 bytes a copy) into the second
+// buffer while this one is worked on, and the stencil takes two channels a
+// thread; else one channel, scalar loads.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 chain_bwd_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __restrict__ dy,
                  const void* __restrict__ kern, int kern_bf16, int kts, int kcs, Coef cf,
-                 const float* __restrict__ bcd, T* __restrict__ dx, float* __restrict__ dk,
-                 float* __restrict__ partials, int* __restrict__ counters, const ChainGeo g) {
+                 const float* __restrict__ bcd, float sums_n, T* __restrict__ dx,
+                 float* __restrict__ dk, float* __restrict__ partials, int* __restrict__ counters,
+                 const ChainGeo g) {
   constexpr int V = VEC ? Vec<T>::n : 1;  // channels a staging step
   constexpr int PV = VEC ? 2 : 1;         // channels a stencil thread
   extern __shared__ __align__(16) unsigned char smem[];
@@ -242,7 +259,8 @@ chain_bwd_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __re
     const int r = i / cc, c = c0 + i - r * cc;
     const float* src = r == 0 ? cf.mean : r == 1 ? cf.inv : r == 2 ? cf.a : r == 3 ? cf.beta
                                                                                : bcd + (r - 4) * g.C;
-    cfs[i] = c < g.C ? src[c] : 0.0f;
+    const bool from_sums = r >= 4 && sums_n != 0.0f;  // the split path's Bc and D
+    cfs[i] = c >= g.C ? 0.0f : from_sums ? bc_or_d(cf.a[c], src[c], sums_n) : src[c];
   }
 
   // x, u, dy of tile t on the tile + halo into buffer b, 16 bytes a copy,
@@ -538,38 +556,71 @@ cudaError_t geometry(int B, int H, int W, int C, int tr, int tw, ChainGeo* g) {
                             : make_chain_geo<T, false>(B, H, W, C, tr, tw, g);
 }
 
+// Pass 1 on P pixels: sums (dbeta, dgamma) and, unless bcd is null, (Bc, D).
 template <typename T>
-cudaError_t launch(const void* x, const void* u, const void* dy, const void* kern, int kern_bf16,
-                   int kts, int kcs, Coef cf, void* dx, float* dk, float* sums, float* scratch,
-                   int* counters, int B, int H, int W, int C, int tr, int tw,
-                   cudaStream_t stream) {
+cudaError_t launch_sums(const void* u, const void* dy, Coef cf, float* sums, float* bcd,
+                        float* partials, int* counters, long long P, int C,
+                        cudaStream_t stream) {
   constexpr int V = Vec<T>::n;
-  const bool vec = C % V == 0;
-  ChainGeo g;
-  cudaError_t err = geometry<T>(B, H, W, C, tr, tw, &g);
-  if (err != cudaSuccess) return err;
-  const long long P = (long long)B * H * W;
   long long rows = 0;
   int n1 = 0;
   sums_split(P, &rows, &n1);
-  float* bcd = scratch;
-  float* partials = scratch + 2 * C;
-  int* counters2 = counters + finish_counters(n1, finish_group(n1));
   auto tu = static_cast<const T*>(u);
   auto tdy = static_cast<const T*>(dy);
-  if (vec)
+  if (C % V == 0)
     chain_sums_kernel<T, V><<<n1, kThreads, 0, stream>>>(tu, tdy, cf, sums, bcd, partials,
                                                          counters, P, C, rows, finish_group(n1));
   else
     chain_sums_kernel<T, 1><<<n1, kThreads, 0, stream>>>(tu, tdy, cf, sums, bcd, partials,
                                                          counters, P, C, rows, finish_group(n1));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  auto kernel = vec ? chain_bwd_kernel<T, true> : chain_bwd_kernel<T, false>;
-  kernel<<<dim3(g.ctas, g.chunks), kThreads, g.smem, stream>>>(
-      static_cast<const T*>(x), tu, tdy, kern, kern_bf16, kts, kcs, cf, bcd,
-      static_cast<T*>(dx), dk, partials, counters2, g);
   return cudaGetLastError();
+}
+
+// Pass 2 on geometry g, with bcd and sums_n as `chain_bwd_kernel` takes them;
+// the counters are the whole scratch's (pass 2's follow pass 1's).
+template <typename T>
+cudaError_t launch_apply(const void* x, const void* u, const void* dy, const void* kern,
+                         int kern_bf16, int kts, int kcs, Coef cf, const float* bcd, float sums_n,
+                         void* dx, float* dk, float* partials, int* counters, const ChainGeo& g,
+                         cudaStream_t stream) {
+  long long rows = 0;
+  int n1 = 0;
+  sums_split((long long)g.B * g.H * g.W, &rows, &n1);
+  int* counters2 = counters + finish_counters(n1, finish_group(n1));
+  auto kernel = g.C % Vec<T>::n == 0 ? chain_bwd_kernel<T, true> : chain_bwd_kernel<T, false>;
+  kernel<<<dim3(g.ctas, g.chunks), kThreads, g.smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(u), static_cast<const T*>(dy), kern,
+      kern_bf16, kts, kcs, cf, bcd, sums_n, static_cast<T*>(dx), dk, partials, counters2, g);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* u, const void* dy, const void* kern, int kern_bf16,
+                   int kts, int kcs, Coef cf, void* dx, float* dk, float* sums, float* scratch,
+                   int* counters, int B, int H, int W, int C, int tr, int tw,
+                   cudaStream_t stream) {
+  ChainGeo g;
+  cudaError_t err = geometry<T>(B, H, W, C, tr, tw, &g);
+  if (err != cudaSuccess) return err;
+  float* bcd = scratch;
+  float* partials = scratch + 2 * C;
+  err = launch_sums<T>(u, dy, cf, sums, bcd, partials, counters, (long long)B * H * W, C, stream);
+  if (err != cudaSuccess) return err;
+  return launch_apply<T>(x, u, dy, kern, kern_bf16, kts, kcs, cf, bcd, 0.0f, dx, dk, partials,
+                         counters, g, stream);
+}
+
+// The split path's pass 2 (`chain_backward_apply`).
+template <typename T>
+cudaError_t launch_split_apply(const void* x, const void* u, const void* dy, const void* kern,
+                               int kern_bf16, int kts, int kcs, Coef cf, const float* sums,
+                               float n, void* dx, float* dk, float* scratch, int* counters, int B,
+                               int H, int W, int C, int tr, int tw, cudaStream_t stream) {
+  ChainGeo g;
+  const cudaError_t err = geometry<T>(B, H, W, C, tr, tw, &g);
+  if (err != cudaSuccess) return err;
+  return launch_apply<T>(x, u, dy, kern, kern_bf16, kts, kcs, cf, sums, n, dx, dk,
+                         scratch + 2 * C, counters, g, stream);
 }
 
 bool bad_shape(int B, int H, int W, int C) { return B < 1 || H < 1 || W < 1 || C < 1; }
@@ -622,5 +673,52 @@ extern "C" int chain_backward_launch(int dtype, const void* x, const void* u, co
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, u, dy, kern, kern_bf16, kts, kcs, cf, dx, dkf, sf, scr, ct,
                                  B, H, W, C, tr, tw, s);
+  return cudaErrorInvalidValue;
+}
+
+// The split path's pass 1: the rank's (dbeta, dgamma) into sums (2, C) f32,
+// nothing else.  Scratch and counters as for `chain_backward_launch`.
+extern "C" int chain_backward_sums(int dtype, const void* u, const void* dy, const void* mean,
+                                   const void* inv, const void* a, const void* beta, void* sums,
+                                   void* scratch, void* counters, int B, int H, int W, int C,
+                                   void* stream) {
+  if (bad_shape(B, H, W, C)) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const Coef cf = {static_cast<const float*>(mean), static_cast<const float*>(inv),
+                   static_cast<const float*>(a), static_cast<const float*>(beta)};
+  auto sf = static_cast<float*>(sums);
+  auto partials = static_cast<float*>(scratch) + 2 * C;
+  auto ct = static_cast<int*>(counters);
+  const long long P = (long long)B * H * W;
+  if (dtype == 0) return launch_sums<float>(u, dy, cf, sf, nullptr, partials, ct, P, C, s);
+  if (dtype == 1)
+    return launch_sums<__nv_bfloat16>(u, dy, cf, sf, nullptr, partials, ct, P, C, s);
+  return cudaErrorInvalidValue;
+}
+
+// The split path's pass 2: dx and dk from the GLOBAL sums (2, C) f32 =
+// (dbeta, dgamma) over n_total pixels of all ranks.  Arguments otherwise as
+// for `chain_backward_launch`.
+extern "C" int chain_backward_apply(int dtype, const void* x, const void* u, const void* dy,
+                                    const void* kern, int kern_bf16, int kts, int kcs,
+                                    const void* mean, const void* inv, const void* a,
+                                    const void* beta, const void* sums, long long n_total,
+                                    void* dx, void* dk, void* scratch, void* counters, int B,
+                                    int H, int W, int C, int tr, int tw, void* stream) {
+  if (bad_shape(B, H, W, C) || n_total < 1) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const Coef cf = {static_cast<const float*>(mean), static_cast<const float*>(inv),
+                   static_cast<const float*>(a), static_cast<const float*>(beta)};
+  auto gs = static_cast<const float*>(sums);
+  auto dkf = static_cast<float*>(dk);
+  auto scr = static_cast<float*>(scratch);
+  auto ct = static_cast<int*>(counters);
+  const float n = float(n_total);
+  if (dtype == 0)
+    return launch_split_apply<float>(x, u, dy, kern, kern_bf16, kts, kcs, cf, gs, n, dx, dkf, scr,
+                                     ct, B, H, W, C, tr, tw, s);
+  if (dtype == 1)
+    return launch_split_apply<__nv_bfloat16>(x, u, dy, kern, kern_bf16, kts, kcs, cf, gs, n, dx,
+                                             dkf, scr, ct, B, H, W, C, tr, tw, s);
   return cudaErrorInvalidValue;
 }

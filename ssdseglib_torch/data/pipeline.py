@@ -16,6 +16,11 @@ Pipeline stages:
 On-disk datasets decode in the native C++ batch assembler
 (``data/native_loader.py``) by default, as in the JAX package, with its
 per-batch fallback to the PIL path.
+
+Under data parallelism (``TrainDataLoader(..., mesh=)``) every rank walks the
+same global batch order (same seed) and decodes only its slice; the
+augmentation draws are made for the global batch and sliced, so the ranks
+together see what one process sees.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ssdseglib_torch.boxes import Anchors
 from ssdseglib_torch.config import EncodingConfig
@@ -40,6 +46,7 @@ from ssdseglib_torch.datacoder import (
     pad_ground_truth,
     read_sample,
 )
+from ssdseglib_torch.parallel import mesh as mesh_lib
 from ssdseglib_torch.utils import sample_cache as _sample_cache
 
 PathTriple = Tuple[str, str, str]  # (image.png, mask.png, labels_boxes.csv)
@@ -97,7 +104,10 @@ class HostBatcher:
     gt_boxes (B,G,4), gt_valid (B,G)).  Drops the trailing partial batch, as
     the JAX package does (its steps want static shapes); with
     ``drop_remainder=False`` it yields it, as the reference's ``tf.data``
-    ``batch`` does.
+    ``batch`` does.  ``shard = (index, count)``: of each batch of
+    ``batch_size``, only the contiguous slice ``index`` of ``count`` equal
+    slices is decoded and yielded (a batch that does not divide raises
+    ValueError, as `parallel.shard_batch` does).
     """
 
     def __init__(
@@ -113,6 +123,7 @@ class HostBatcher:
         image_shape: Optional[Tuple[int, int]] = None,
         use_sample_cache: bool = True,
         drop_remainder: bool = True,
+        shard: Tuple[int, int] = (0, 1),
     ) -> None:
         """use_native: decode (image.png, mask.png, labels.csv) triples in
         the native C++ batch assembler (``data/native_loader.py``, built at
@@ -127,6 +138,7 @@ class HostBatcher:
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.drop_remainder = drop_remainder
+        self.shard = shard
         self._rng = np.random.default_rng(seed)
 
         all_paths = all(
@@ -185,9 +197,22 @@ class HostBatcher:
         if self.shuffle:
             self._rng.shuffle(order)
         if not self.drop_remainder:
-            return [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
-        n_batches = len(order) // self.batch_size
-        return np.split(order[: n_batches * self.batch_size], max(n_batches, 1))
+            batches = [order[i:i + self.batch_size]
+                       for i in range(0, len(order), self.batch_size)]
+        else:
+            n_batches = len(order) // self.batch_size
+            batches = np.split(order[: n_batches * self.batch_size], max(n_batches, 1))
+        index, count = self.shard
+        if count == 1:
+            return batches
+        for batch in batches:
+            if batch.size % count:
+                raise ValueError(
+                    f"batch axis of shape ({batch.size},) is not divisible by the "
+                    f"{count}-device mesh 'data' axis; pad the batch or use a "
+                    f"divisible batch size"
+                )
+        return [b[index * (b.size // count):(index + 1) * (b.size // count)] for b in batches]
 
     def __iter__(self) -> Iterator:
         batches = self._batch_indices()
@@ -291,6 +316,11 @@ class TrainDataLoader:
     The returned iterable is re-iterable (fresh epoch each time), matching
     the Trainer.fit contract.  The augmentation draws come from one
     ``torch.Generator`` on ``device``, seeded with ``seed``.
+
+    With a ``mesh`` (`parallel.make_mesh`), ``batch_size`` is the global
+    batch and each rank gets its slice of every batch (`HostBatcher`'s
+    ``shard``), transformed with the global batch's draws; every rank must
+    build the loader alike.  `Trainer.fit(mesh=)` takes such a loader.
     """
 
     def __init__(
@@ -307,8 +337,14 @@ class TrainDataLoader:
         use_sample_cache: bool = True,
         drop_remainder: bool = True,
         device="cuda",
+        mesh=None,
     ) -> None:
         self.device = torch.device(device)
+        self.mesh = mesh
+        shard = (0, 1)
+        if mesh is not None:
+            group = mesh_lib.check_data_mesh(mesh).get_group(mesh_lib.BATCH_AXIS)
+            shard = (dist.get_rank(group), dist.get_world_size(group))
         self.batcher = HostBatcher(
             samples,
             batch_size,
@@ -319,6 +355,7 @@ class TrainDataLoader:
             image_shape=encoding.image_shape,
             use_sample_cache=use_sample_cache,
             drop_remainder=drop_remainder,
+            shard=shard,
         )
         # Trainer.fit runs the transform inside its fused step; __iter__
         # runs it standalone
@@ -328,6 +365,7 @@ class TrainDataLoader:
             augmentation_horizontal_flip=augmentation_horizontal_flip,
             augmentation_rgb=augmentation_rgb,
             device=self.device,
+            shard=shard,
         )
         self.process = self.transform
         self._generator = torch.Generator(device=self.device).manual_seed(seed)

@@ -168,6 +168,7 @@ def make_train_batch_transform(
     augmentation_horizontal_flip: bool = False,
     augmentation_rgb: bool = False,
     device="cuda",
+    shard: Tuple[int, int] = (0, 1),
 ) -> Callable:
     """Build the device-side batch transform.
 
@@ -178,6 +179,10 @@ def make_train_batch_transform(
     arrays, computed on ``device``.  ``generator`` is a ``torch.Generator``
     (on ``device`` or on the CPU) and is read only when an augmentation is
     on: per sample one flip coin, per batch the four color scalars.
+    ``shard = (index, count)``: the batches are slice ``index`` of ``count``
+    equal slices of a global batch (data parallelism), and the coins are
+    drawn for the whole global batch and sliced, so every rank's generator
+    advances alike and each sample gets the coin it gets in one process.
 
     ``fn.apply(images_u8, masks_u8, gt_labels, gt_boxes, gt_valid, flip,
     rgb_scalars)`` is the pure function underneath: ``flip`` a (B,) bool
@@ -218,8 +223,9 @@ def make_train_batch_transform(
         if augmentation_horizontal_flip:
             # per-sample coin with the reference's >= 0.5 convention
             # (datacoder.py:337)
-            b = len(images_u8)
-            flip = torch.rand(b, generator=generator, device=generator.device) >= 0.5
+            b, (index, count) = len(images_u8), shard
+            coins = torch.rand(b * count, generator=generator, device=generator.device)
+            flip = coins[index * b:(index + 1) * b] >= 0.5
         if augmentation_rgb:
             rgb_scalars = color_ops.draw_rgb_scalars(generator).to(device).unbind(0)
         return apply(images_u8, masks_u8, gt_labels, gt_boxes, gt_valid, flip, rgb_scalars)

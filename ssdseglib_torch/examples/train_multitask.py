@@ -7,6 +7,9 @@ PNG / CSV files to the evaluators.
         [--chain-bwd-impl {aten,cuda}] [--wgrad-impl {aten,dot,cuda}] \
         [--compute-dtype {float32,bfloat16}] [--seed N] [--output FILE]
 
+    torchrun --nproc_per_node=N -m ssdseglib_torch.examples.train_multitask \
+        --data-parallel [...]
+
 The path, as a user of the reference takes it:
 - data: notebook 03's training set of synthetic warehouse scenes without
   overlapping objects, written as (image.png, mask.png, boxes.csv) triples
@@ -39,6 +42,13 @@ The path, as a user of the reference takes it:
 The two backward-route gates of `models/blocks.py` choose where the
 gradients of the layers inside the kernels' envelopes are computed: the
 library (``aten``, the default) or the hand-written kernels (``cuda``).
+
+``--data-parallel`` trains on the mesh of `parallel.make_mesh` over the
+launcher's processes, one card each (the counterpart of the JAX example's
+flag): the batch of 16 is the global batch, each rank decodes and trains on
+its slice, and the loader drops the trailing partial batch (at the defaults
+3 samples, which no mesh of 2 or more ranks can split evenly).  Every rank
+evaluates the trained model alone; rank 0 prints and writes the result.
 
 Prints the epoch lines, then one JSON line: the metrics of both serving
 modes, the first and last epoch losses, the training images/s of an epoch,
@@ -155,11 +165,12 @@ def run(epochs: int = 105, train_samples: int = 256, test_samples: int = 64,
         batch_size: int = 16, image_shape: Tuple[int, int] = (480, 640),
         chain_bwd_impl: str = "aten", wgrad_impl: str = "aten",
         compute_dtype: str = "float32", seed: int = 1993,
-        device="cuda", workdir: Optional[str] = None, log_fn=print) -> dict:
+        device="cuda", workdir: Optional[str] = None, log_fn=print, mesh=None) -> dict:
     """Notebook 03's recipe end to end (the module docstring); returns the
     result that `main` prints.  ``seed`` draws the initial weights and the
     loader's shuffle and augmentation (the data's seeds are TRAIN_SPLITS').
-    ``device`` is the card unless the caller asks for the CPU."""
+    ``device`` is the card unless the caller asks for the CPU.  With a
+    ``mesh`` (`parallel.make_mesh`) the training is data-parallel over it."""
     from ssdseglib_torch.config import TrainConfig, reference_warehouse_config
     from ssdseglib_torch.data.pipeline import TrainDataLoader
     from ssdseglib_torch.datacoder import DataEncoderDecoder
@@ -186,7 +197,8 @@ def run(epochs: int = 105, train_samples: int = 256, test_samples: int = 64,
             standard_deviations_centroids_offsets=enc_cfg.standard_deviations, device=device)
         loader = TrainDataLoader(train, coder.anchors, coder.config, batch_size=batch_size,
                                  augmentation_horizontal_flip=True, augmentation_rgb=True,
-                                 drop_remainder=False, seed=config.seed, device=device)
+                                 drop_remainder=mesh is not None, seed=config.seed,
+                                 device=device, mesh=mesh)
         builder = MobileNetV2SsdSegBuilder(
             input_image_shape=tuple(image_shape) + (3,),
             number_of_boxes_per_point=list(model_cfg.boxes_per_point),
@@ -199,7 +211,7 @@ def run(epochs: int = 105, train_samples: int = 256, test_samples: int = 64,
             generator=torch.Generator().manual_seed(config.seed), device=device)
         trainer = Trainer(model=model, anchors=coder.anchors, config=config,
                           standard_deviations=enc_cfg.standard_deviations, device=device)
-        state = trainer.init_state(variables=model.state_dict())
+        state = trainer.init_state(variables=model.state_dict(), mesh=mesh)
         trainable, stats = model.parameter_counts()
         log_fn(f"params: {trainable + stats:,} total / {trainable:,} trainable")
 
@@ -219,7 +231,8 @@ def run(epochs: int = 105, train_samples: int = 256, test_samples: int = 64,
         blocks.set_wgrad_impl(wgrad_impl)
         try:
             t_fit = time.perf_counter()
-            state, history = trainer.fit(state, loader, epochs=epochs, log_fn=log_epoch)
+            state, history = trainer.fit(state, loader, epochs=epochs, log_fn=log_epoch,
+                                         mesh=mesh)
             train_seconds = time.perf_counter() - t_fit
         finally:
             blocks.set_chain_bwd_impl(gates[0])
@@ -257,6 +270,7 @@ def run(epochs: int = 105, train_samples: int = 256, test_samples: int = 64,
         "epochs": epochs, "train_samples": len(train), "test_samples": len(test),
         "steps_per_epoch": steps, "image_shape": list(image_shape),
         "seed": seed, "metrics": metrics,
+        "world_size": 1 if mesh is None else mesh.size(),
         "first_loss": losses[0], "last_loss": losses[-1],
         "loss_fall": losses[0] / losses[-1],
         "first_epoch_seconds": float(epoch_seconds[0]),
@@ -288,13 +302,31 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=1993,
                         help="initial weights, shuffle and augmentation (the recipe's: 1993)")
     parser.add_argument("--output", help="also write the JSON line to this file")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="train on a data mesh over the launcher's processes "
+                             "(torchrun --nproc_per_node=N), one card each")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("the learning run needs a CUDA device; none is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    result = run(chain_bwd_impl=args.chain_bwd_impl, wgrad_impl=args.wgrad_impl,
-                 compute_dtype=args.compute_dtype, seed=args.seed)
+    mesh, lead = None, True
+    if args.data_parallel:
+        import torch.distributed as dist
+
+        from ssdseglib_torch.parallel import make_mesh
+
+        mesh = make_mesh()
+        lead = dist.get_rank() == 0
+    try:
+        result = run(chain_bwd_impl=args.chain_bwd_impl, wgrad_impl=args.wgrad_impl,
+                     compute_dtype=args.compute_dtype, seed=args.seed, mesh=mesh,
+                     log_fn=print if lead else (lambda line: None))
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+    if not lead:
+        return 0
     result["card"] = card()
     result["limits"] = LIMITS
     result["meets_limits"] = checks = meets_limits(result)

@@ -84,7 +84,13 @@ def save_serving_bundle(infer, path: str, *, batch) -> None:
         set; `ServingBundle.predict_batched` routes each request to the
         largest program that fits, so a b1 + b16 bundle serves one image at
         b1.
+    A model built with ``mesh=`` is refused: a bundle is one device's program.
     """
+    if getattr(infer, "mesh", None) is not None:
+        raise ValueError(
+            "save_serving_bundle exports a single-device program; "
+            "build the InferenceModel without mesh="
+        )
     batches = [batch] if isinstance(batch, (int, np.integer)) else list(batch)
     if not batches or any(isinstance(b, bool) or int(b) < 1 for b in batches):
         raise ValueError(f"batch sizes must be positive ints, got {batch!r}")

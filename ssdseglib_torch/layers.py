@@ -6,10 +6,12 @@ constructor arguments mirror the reference layer constructors.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ssdseglib_torch.config import NmsConfig
 from ssdseglib_torch.ops import nms as nms_ops
 from ssdseglib_torch.ops.encoding import decode_predictions_to_corners_yx
+from ssdseglib_torch.parallel.mesh import active_group, all_reduce_
 
 
 class DecodeBoxesCentroidsOffsets:
@@ -114,7 +116,9 @@ class SegmentationSuppression:
     """Cross-task gating of detection probabilities by the segmentation mask
     (reference ssdseglib/layers.py:180-212), with its two quirks kept for
     metric parity: class presence is reduced over the **whole batch** and
-    the one-hot depth defaults to 4."""
+    the one-hot depth defaults to 4.  Inside a `parallel.mesh.data_parallel`
+    scope the whole batch is the global batch: one MAX all_reduce of the
+    (num_classes,) presence vector."""
 
     def __init__(self, num_classes: int = 4) -> None:
         self.num_classes = num_classes
@@ -125,4 +129,7 @@ class SegmentationSuppression:
         pred = segmentation_mask.argmax(dim=-1)  # first index on ties
         classes = torch.arange(self.num_classes, device=pred.device)
         present = (pred.reshape(-1, 1) == classes).any(dim=0)
+        group = active_group()
+        if group is not None:
+            present = all_reduce_(present.to(torch.float32), group, dist.ReduceOp.MAX) > 0
         return labels_probabilities * present.to(labels_probabilities.dtype)

@@ -8,7 +8,8 @@ per-output loss weights (the Keras `compile(loss_weights=...)` contract).
 
 Reference quirks preserved on purpose:
 - hard-negative mining selects top-k background losses **globally over the
-  flattened batch**, not per sample
+  flattened batch**, not per sample; inside a `parallel.mesh.data_parallel`
+  scope the batch is the global batch of all ranks
 - the confidence/cross-entropy losses consume *probabilities* (the model
   emits softmax), re-log-ed with an epsilon clip -- not logits
 - localization loss normalizes by per-sample positive count
@@ -19,6 +20,8 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence
 
 import torch
+
+from ssdseglib_torch.parallel.mesh import active_group, gather_by_sum
 
 _EPSILON = 1e-7  # tf.keras.backend.epsilon()
 
@@ -58,6 +61,15 @@ def confidence_loss(
     rank < k are kept: static shapes, no host synchronisation on k, and the
     no-background corner collapses to k == 0 with no branch.
 
+    Inside a `parallel.mesh.data_parallel` scope ``y_true`` / ``y_pred``
+    are this rank's slice of the global batch, and the mining is the
+    single-process mining of the global batch: the budget counts every
+    rank's positives and backgrounds, and each background loss is ranked
+    among all ranks' (ties to the lower GLOBAL flat index; rank r's entries
+    start at r * B * N).  One collective gathers the ranks' background
+    losses and counts.  The normalisation by each sample's positives stays
+    local.
+
     Args:
         y_true: (B, N, C) one-hot labels (class 0 = background)
         y_pred: (B, N, C) predicted probabilities
@@ -80,18 +92,32 @@ def confidence_loss(
         neg_loss = (ce * is_background).sum(dim=-1)
         return (pos_loss + neg_loss) / num_pos_per_sample.clamp_min(1.0)
 
+    bg_loss_flat = (ce * is_background).detach().reshape(-1)
+    group = active_group()
+    if group is None:
+        total_pos = not_background.sum().to(torch.int32)
+        total_bg = is_background.sum().to(torch.int32)
+        ranked = bg_loss_flat
+    else:
+        # the ranks' background losses in global order, and the two counts
+        # summed over the ranks (exact: integers below 2^24 in f32)
+        counts = torch.stack([not_background.sum(), is_background.sum()])
+        local = torch.cat([bg_loss_flat, counts.to(bg_loss_flat.dtype)])
+        gathered = gather_by_sum(local.reshape(1, -1), group)
+        total_pos, total_bg = gathered[:, -2:].sum(dim=0).to(torch.int32)
+        ranked = gathered[:, :-2].reshape(-1)
     # global hard-negative budget; the product is taken in f32 and truncated,
     # as the JAX package's int32 cast does
-    total_pos = not_background.sum().to(torch.int32)
-    total_bg = is_background.sum().to(torch.int32)
     k = torch.minimum(
         (negatives_ratio * total_pos.to(torch.float32)).to(torch.int32), total_bg
     )
 
-    bg_loss_flat = (ce * is_background).detach().reshape(-1)
-    order = torch.sort(-bg_loss_flat, stable=True).indices
+    order = torch.sort(-ranked, stable=True).indices
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.shape[0], device=order.device)
+    if group is not None:  # this rank's entries of the global ranking
+        start = torch.distributed.get_rank(group) * bg_loss_flat.shape[0]
+        rank = rank[start:start + bg_loss_flat.shape[0]]
     keep = (rank < k).to(ce.dtype).reshape(ce.shape)
 
     neg_loss = (ce * is_background * keep).sum(dim=-1)  # (B,)

@@ -15,8 +15,9 @@ Activation convention (``relu_max``): None = no activation, 0.0 = uncapped
 ReLU, x > 0 = ReLU capped at x.
 
 Train mode follows Flax: `FlaxBatchNorm2d` keeps the BIASED batch variance in
-``running_var``.  Three module-level gates, named as in the JAX package,
-choose a backward route: of the depthwise layers inside the envelope
+``running_var``; inside a `parallel.mesh.data_parallel` scope its statistics
+are those of the global batch.  Three module-level gates, named as in the
+JAX package, choose a backward route: of the depthwise layers inside the envelope
 (`set_depthwise_bwd_impl`, `set_chain_bwd_impl`) and of the weight gradient
 of the dense convs (`set_wgrad_impl`).
 """
@@ -26,8 +27,11 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ssdseglib_torch.parallel.mesh import active_group, all_reduce_, global_moments
 
 BN_EPSILON = 1e-3
 # torch's momentum weighs the new batch statistic: 1 - Flax's 0.99
@@ -148,6 +152,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        group = active_group()
+        if group is not None:
+            return self._global_forward(x, group)
         n = x.numel() // x.shape[1]
         # the library call keeps its running_var argument for the backward,
         # so it gets a working copy and the buffer is written afterwards
@@ -157,6 +164,53 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var.mul_((1.0 - self.momentum) / n).add_(var, alpha=1.0 - 1.0 / n)
         return y
+
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Train mode over the global batch of a data group
+        (`_GlobalBatchNorm`); the running statistics move by the global mean
+        and the biased global variance."""
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, group)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm whose statistics are those of the global batch.
+
+    Forward: `global_moments`, then z = (x - mean) * (rsqrt(var + eps) *
+    gamma) + beta in f32 (Flax's association), cast to x's dtype.  Backward,
+    with N the global count: one all_reduce of [sum dz, sum dz * xhat], then
+    dx = gamma * inv * (dz - sum dz / N - xhat * sum(dz * xhat) / N).  dgamma
+    and dbeta are this rank's sums: the gradient all-reduce of the step
+    averages them with the other ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, group):
+        x32 = x.float()
+        mean, var = global_moments(x32, group)
+        inv = torch.rsqrt(var + eps)
+        shape = (1, -1, 1, 1)
+        y = ((x32 - mean.view(shape)) * (inv * gamma.float()).view(shape)
+             + beta.float().view(shape)).to(x.dtype)
+        ctx.save_for_backward(x, mean, inv, gamma)
+        ctx.group, ctx.count = group, float(x.numel() // x.shape[1] * dist.get_world_size(group))
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, inv, gamma = ctx.saved_tensors
+        shape = (1, -1, 1, 1)
+        xhat = (x.float() - mean.view(shape)) * inv.view(shape)
+        dz = dy.float()
+        local = torch.stack([dz.sum(dim=(0, 2, 3)), (dz * xhat).sum(dim=(0, 2, 3))])
+        total = all_reduce_(local.clone(), ctx.group) / ctx.count
+        dx = (gamma.float() * inv).view(shape) * (
+            dz - total[0].view(shape) - xhat * total[1].view(shape))
+        return (dx.to(dy.dtype), local[1].to(gamma.dtype), local[0].to(gamma.dtype),
+                None, None)
 
 
 def batchnorm(channels: int) -> FlaxBatchNorm2d:

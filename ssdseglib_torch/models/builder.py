@@ -4,10 +4,11 @@ ssdseglib_tpu/models/builder.py.
 `SsdSegModel` is the joint SSDLite + DeepLabV3+ network on MobileNetV2 or
 ShuffleNetV2 (built in eval mode; ``.train()`` reaches every BatchNorm for
 the trainer); `InferenceModel` is the serving path: forward -> decode ->
-segmentation gating -> exact NMS, on one device, with the NMS thresholds
-held as 0-d device tensors so an operating point changes without any host
-synchronisation.  `MobileNetV2SsdSegBuilder` and `ShuffleNetV2SsdSegBuilder`
-mirror the reference builder surface.
+segmentation gating -> exact NMS, on one device or data-parallel over a mesh
+(`parallel.make_mesh`), with the NMS thresholds held as 0-d device tensors so
+an operating point changes without any host synchronisation.
+`MobileNetV2SsdSegBuilder` and `ShuffleNetV2SsdSegBuilder` mirror the
+reference builder surface.
 
 `TrainableModel` is `SsdSegModel` under the reference's name: the
 ``nn.Module`` is the trainable model (it has `parameter_counts`), and Flax's
@@ -38,6 +39,7 @@ from ssdseglib_torch.models.heads import (
 from ssdseglib_torch.models.mobilenetv2 import MobileNetV2Backbone
 from ssdseglib_torch.models.shufflenetv2 import STAGE_CHANNELS, ShuffleNetV2Backbone
 from ssdseglib_torch.ops.encoding import decode_predictions_to_corners_yx
+from ssdseglib_torch.parallel import mesh as mesh_lib
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -176,6 +178,13 @@ class InferenceModel:
     detection rows [label, probability, xmin, ymin, xmax, ymax]; `__call__`
     returns the same as device tensors without waiting for them.
 
+    With a ``mesh`` every rank is given the same global batch, serves its
+    slice through the same program (the segmentation suppression reduces
+    class presence over the global batch), and `__call__` returns this
+    rank's slice; `predict` and `predict_batched` return the whole batch on
+    every rank, as the JAX package's host arrays are.  The weights are rank
+    0's, on every rank.
+
     What a call runs is `serving_program(operands, images, iou_threshold,
     score_threshold)`: a function of its arguments only, so
     `export_serving_bundle` captures it with ``torch.export`` and the
@@ -193,6 +202,7 @@ class InferenceModel:
         fused_backbone: bool = False,
         mask_output: str = "float32",
         device="cuda",
+        mesh=None,
     ) -> None:
         """compute_dtype: 'bfloat16' is the serving fast path (weights and
         convs in bf16); decode, gating and NMS always run in f32.
@@ -202,7 +212,12 @@ class InferenceModel:
         Otherwise the eval-mode module runs as it is, in compute_dtype.
 
         mask_output: 'float32' | 'bfloat16' | 'class_map' (`_format_mask`).
+
+        mesh: a 1-D data mesh (`parallel.make_mesh`) for batch-parallel
+        serving, or None.
         """
+        if mesh is not None:
+            mesh_lib.check_data_mesh(mesh)
         if compute_dtype not in _DTYPES:
             raise ValueError(
                 f"compute_dtype must be 'float32' or 'bfloat16', got {compute_dtype!r}"
@@ -213,6 +228,7 @@ class InferenceModel:
                 f"got {mask_output!r}"
             )
         self.device = torch.device(device)
+        self.mesh = mesh
         self.cfg = module.cfg
         self.compute_dtype = compute_dtype
         self._dtype = _DTYPES[compute_dtype]
@@ -236,6 +252,9 @@ class InferenceModel:
             nms.config.score_threshold, dtype=torch.float32, device=self.device
         )
         anchors = decode.anchors_centroids.to(self.device)
+        state_dict = module.state_dict()
+        if mesh is not None:
+            state_dict = mesh_lib.replicate(mesh, state_dict)
         if fused_backbone:
             from ssdseglib_torch.models.fused_inference import (
                 fused_forward,
@@ -247,12 +266,15 @@ class InferenceModel:
             cfg = module.cfg
             self._net = None
             # fold BN from the f32 weights, then cast to the compute dtype
-            weights = fused_operands(cfg, module.state_dict(), self._dtype, self.device)
+            weights = fused_operands(cfg, state_dict, self._dtype, self.device)
 
             def network(weights, images):
                 return fused_forward(cfg, weights, images)
         else:
-            net = copy.deepcopy(module).to(device=self.device, dtype=self._dtype)
+            net = copy.deepcopy(module)
+            if mesh is not None:
+                net.load_state_dict(state_dict)
+            net = net.to(device=self.device, dtype=self._dtype)
             self._net = net.to(memory_format=torch.channels_last).eval()
             weights = None  # the module's own tensors; a bundle passes them
 
@@ -302,30 +324,38 @@ class InferenceModel:
 
     @torch.inference_mode()
     def _core(self, images: torch.Tensor):
-        return self.serving_core(self._operands, images)
+        with mesh_lib.data_parallel(self.mesh):
+            return self.serving_core(self._operands, images)
 
     @torch.inference_mode()
     def _forward(self, images: torch.Tensor):
-        return self.serving_program(self._operands, images, self._iou_threshold,
-                                    self._score_threshold)
+        with mesh_lib.data_parallel(self.mesh):
+            return self.serving_program(self._operands, images, self._iou_threshold,
+                                        self._score_threshold)
 
     def update_variables(self, state_dict) -> None:
         """Swap in new weights (a `SsdSegModel` state_dict, any float dtype)
         without rebuilding: they are cast into this model's tensors in
         place.  Used for periodic in-training evaluation; not available with
         ``fused_backbone=True`` (the folded weights are derived, as in the
-        JAX package, where they are baked into the jit)."""
+        JAX package, where they are baked into the jit).  On a mesh, rank
+        0's weights are loaded on every rank."""
         if self._fused:
             raise ValueError(
                 "update_variables is not supported with fused_backbone=True"
             )
+        if self.mesh is not None:
+            state_dict = mesh_lib.replicate(self.mesh, dict(state_dict))
         self._net.load_state_dict(state_dict)
 
     def prepare_input(self, images) -> torch.Tensor:
         """Stage a host batch on the device: NumPy goes through pinned host
-        memory with a non-blocking upload; a tensor is moved as it is."""
+        memory with a non-blocking upload; a tensor is moved as it is.  On a
+        mesh, this rank's slice of the global batch (`parallel.shard_images`)."""
         from ssdseglib_torch.utils.serving import stage_input
 
+        if self.mesh is not None:
+            images = mesh_lib.shard_images(self.mesh, images)
         return stage_input(images, self.device)
 
     def set_nms_operating_point(
@@ -367,8 +397,18 @@ class InferenceModel:
         comes back as float32 NumPy; 'class_map' returns the uint8 map."""
         from ssdseglib_torch.utils.serving import format_outputs
 
-        mask, det = self(images)
+        mask, det = self._whole_batch(images)
         return format_outputs(mask, det, self._suppress_background)
+
+    def _whole_batch(self, images):
+        """`__call__`'s (mask, detections) of the whole batch: on a mesh the
+        ranks' slices gathered on every rank (`utils.serving.gather_outputs`)."""
+        from ssdseglib_torch.utils.serving import gather_outputs
+
+        mask, det = self(images)
+        if self.mesh is None:
+            return mask, det
+        return gather_outputs(mask, det, self.mesh.get_group(mesh_lib.BATCH_AXIS))
 
     def predict_batched(self, images, batch: int = 16):
         """Serve any number of images at one batch size, with `predict`'s
@@ -380,7 +420,7 @@ class InferenceModel:
             predict_batched_chunks,
         )
 
-        mask, det = predict_batched_chunks(images, batch, self)
+        mask, det = predict_batched_chunks(images, batch, self._whole_batch)
         return format_outputs(mask, det, self._suppress_background)
 
 
@@ -454,6 +494,7 @@ class _BuilderBase:
         fused_backbone: bool = False,
         mask_output: str = "float32",
         device="cuda",
+        mesh=None,
     ) -> InferenceModel:
         """Args:
             model_trained: the trained `SsdSegModel`, or its state_dict.
@@ -463,6 +504,8 @@ class _BuilderBase:
             mask_output: 'float32' | 'bfloat16' | 'class_map'.
             device: where the model serves; the card unless the caller
                 asks for the CPU.
+            mesh: a 1-D data mesh (`parallel.make_mesh`) for batch-parallel
+                serving over its ranks (`InferenceModel`).
         """
         if isinstance(model_trained, SsdSegModel):
             module = model_trained
@@ -489,6 +532,7 @@ class _BuilderBase:
             fused_backbone=fused_backbone,
             mask_output=mask_output,
             device=device,
+            mesh=mesh,
         )
 
 

@@ -160,6 +160,17 @@ def load_library() -> ctypes.CDLL:
         + [ptr]
     )
     lib.chain_backward_launch.restype = ctypes.c_int
+    # the split path: (dtype, u, dy, mean, inv, A, beta, sums, scratch,
+    # counters, B, H, W, C, stream), then (dtype, x, u, dy, k, k_bf16, kts,
+    # kcs, mean, inv, A, beta, global sums, n_total, dx, dk, scratch,
+    # counters, B, H, W, C, tr, tw, stream)
+    lib.chain_backward_sums.argtypes = [ctypes.c_int] + [ptr] * 9 + [ctypes.c_int] * 4 + [ptr]
+    lib.chain_backward_sums.restype = ctypes.c_int
+    lib.chain_backward_apply.argtypes = (
+        [ctypes.c_int] + [ptr] * 4 + [ctypes.c_int] * 3 + [ptr] * 5 + [ctypes.c_longlong]
+        + [ptr] * 4 + [ctypes.c_int] * 6 + [ptr]
+    )
+    lib.chain_backward_apply.restype = ctypes.c_int
     # (iou, valid, threshold, keep, rows, K, max_keep, stream)
     lib.nms_scan_launch.argtypes = [ptr] * 4 + [ctypes.c_int] * 3 + [ptr]
     lib.nms_scan_launch.restype = ctypes.c_int

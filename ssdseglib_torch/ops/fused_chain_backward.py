@@ -25,11 +25,20 @@ du living only in shared memory.  The backward takes the forward's own
 library route (ATen/cuDNN autograd) runs a clamp backward, a BatchNorm
 backward and two convolutions, each through device memory.
 
+Under data parallelism (a ``group`` of ranks, each holding a slice of the
+batch; ``parallel/mesh.py``) the statistics and the two BatchNorm sums are
+those of the global batch, so the cross-rank sum falls between the passes:
+the split path launches pass 1 alone (the rank's dbeta and dgamma), all-
+reduces them on the stream, and launches pass 2 on the global sums and the
+global pixel count.  The returned dgamma and dbeta stay the rank's own: the
+step's gradient all-reduce averages them.
+
 ``dw_bn_relu6_backward`` launches the kernels on CUDA tensors and runs the
 plain version ``dw_bn_relu6_backward_reference`` on CPU tensors; a CUDA call
 the kernels cannot take raises.  ``dw_bn_relu6_backward.launches`` counts the
-calls that reached the kernels.  ``dw_bn_relu6_chain`` is the autograd unit
-the model uses.
+calls that reached the two-launch path, ``.split_launches`` those that
+reached the split path.  ``dw_bn_relu6_chain`` is the autograd unit the model
+uses.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ssdseglib_torch.ops.depthwise_backward import (
@@ -46,6 +56,7 @@ from ssdseglib_torch.ops.depthwise_backward import (
     check_nhwc_operands,
     nhwc_view,
 )
+from ssdseglib_torch.parallel.mesh import active_group, all_reduce_, global_moments
 
 BN_EPSILON = 1e-3  # the blocks' BatchNorm epsilon (models/blocks.py)
 
@@ -104,6 +115,7 @@ def dw_bn_relu6_backward(
     x: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, kernel: torch.Tensor,
     gamma: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     coefficients: Optional[Tuple[torch.Tensor, ...]] = None,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused (dx, dk, dgamma, dbeta) for the dw3x3 + BN(train) + ReLU6 chain.
 
@@ -119,8 +131,11 @@ def dw_bn_relu6_backward(
         coefficients: the forward's (mean, inv, A = gamma * inv, beta), (C,)
             f32 each, as `_forward_math` returns them; computed from gamma,
             beta, mean and var when None.
+        group: the data-parallel group whose global batch mean and var are
+            the statistics of (the split path), or None.
     Returns:
-        dx like x; dk (3, 3, 1, C), dgamma (C,), dbeta (C,) in f32.
+        dx like x; dk (3, 3, 1, C), dgamma (C,), dbeta (C,) in f32; under a
+        group, dgamma and dbeta are this rank's sums.
     """
     check_nhwc_operands("dw_bn_relu6_backward", x, u, dy)
     batch, h, w, c = x.shape
@@ -134,19 +149,32 @@ def dw_bn_relu6_backward(
     _check_coefficients(c, x.device, coefficients)
     if x.device.type == "cpu":
         return dw_bn_relu6_backward_reference(x, u, dy, kernel, gamma, beta, mean, var,
-                                              coefficients)
+                                              coefficients, group)
     if x.device.type != "cuda":
         raise ValueError(f"dw_bn_relu6_backward runs on cuda or cpu, not {x.device}")
     if any(t.data_ptr() % 16 for t in (x, u, dy)):
         raise ValueError("dw_bn_relu6_backward: x, u and dy must be 16-byte aligned")
     if kernel.stride(0) != 3 * kernel.stride(1):
         kernel = kernel.contiguous()
-    dx, dk, sums = _launch(x, u, dy, kernel, coefficients)
-    dw_bn_relu6_backward.launches += 1
+    if group is None:
+        dx, dk, sums = _launch(x, u, dy, kernel, coefficients)
+        dw_bn_relu6_backward.launches += 1
+    else:
+        dx, dk, sums = _launch_split(x, u, dy, kernel, coefficients, group)
+        dw_bn_relu6_backward.split_launches += 1
     return dx, dk.reshape(3, 3, 1, c), sums[1], sums[0]
 
 
 dw_bn_relu6_backward.launches = 0
+dw_bn_relu6_backward.split_launches = 0
+
+
+def _call(device, launch) -> int:
+    """``launch()`` with ``device`` current."""
+    if device.index == torch.cuda.current_device():
+        return launch()
+    with torch.cuda.device(device):
+        return launch()
 
 
 def _launch(x, u, dy, kernel, coefficients, config=BUILT_IN, out=None):
@@ -174,11 +202,7 @@ def _launch(x, u, dy, kernel, coefficients, config=BUILT_IN, out=None):
             sums.data_ptr(), scratch.data_ptr(), counters.data_ptr(), *dims, *config, stream,
         )
 
-    if device.index == torch.cuda.current_device():
-        err = launch()
-    else:
-        with torch.cuda.device(device):
-            err = launch()
+    err = _call(device, launch)
     if err != 0:
         raise RuntimeError(
             f"chain backward kernel launch failed with cudaError {err} "
@@ -187,13 +211,50 @@ def _launch(x, u, dy, kernel, coefficients, config=BUILT_IN, out=None):
     return dx, dk, sums
 
 
+def _launch_split(x, u, dy, kernel, coefficients, group, config=BUILT_IN):
+    """The split path on checked CUDA operands: pass 1 writes this rank's
+    (dbeta, dgamma); their all_reduce over ``group`` runs on the stream; pass
+    2 takes the global sums and the global pixel count (the ranks' shards are
+    equal).  Counts nothing.  Returns (dx, dk (9, C), this rank's sums (2, C))."""
+    from ssdseglib_torch.ops._cuda_build import load_library
+
+    lib = load_library()
+    device = x.device
+    dims = tuple(x.shape)
+    code = _DTYPE_CODES[x.dtype]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    scratch, counters = _scratch(lib, device, stream, code, dims, tuple(config))
+    sums_dk = torch.empty((13, dims[3]), dtype=torch.float32, device=device)
+    dx, dk, sums, total = torch.empty_like(x), sums_dk[4:], sums_dk[:2], sums_dk[2:4]
+    coef = [t.data_ptr() for t in coefficients]
+    err = _call(device, lambda: lib.chain_backward_sums(
+        code, u.data_ptr(), dy.data_ptr(), *coef, sums.data_ptr(), scratch.data_ptr(),
+        counters.data_ptr(), *dims, stream))
+    if err != 0:
+        raise RuntimeError(f"chain backward pass 1 launch failed with cudaError {err} "
+                           f"(B, H, W, C = {dims}, {x.dtype})")
+    total.copy_(sums)
+    all_reduce_(total, group)
+    n_total = dims[0] * dims[1] * dims[2] * dist.get_world_size(group)
+    err = _call(device, lambda: lib.chain_backward_apply(
+        code, x.data_ptr(), u.data_ptr(), dy.data_ptr(), kernel.data_ptr(),
+        _DTYPE_CODES[kernel.dtype], kernel.stride(1), kernel.stride(3), *coef,
+        total.data_ptr(), n_total, dx.data_ptr(), dk.data_ptr(), scratch.data_ptr(),
+        counters.data_ptr(), *dims, *config, stream))
+    if err != 0:
+        raise RuntimeError(f"chain backward pass 2 launch failed with cudaError {err} "
+                           f"(B, H, W, C = {dims}, {x.dtype}, config {tuple(config)})")
+    return dx, dk, sums
+
+
 def dw_bn_relu6_backward_reference(x, u, dy, kernel, gamma, beta, mean, var,
-                                   coefficients=None):
+                                   coefficients=None, group=None):
     """Plain PyTorch version of the kernels, with the same rounding points:
     z in f32 by Flax's association, cast to the I/O dtype and compared there;
     everything else f32; du zero outside the image (it is the correlation's
-    padding there); dx rounded once.  Same arguments and results as
-    `dw_bn_relu6_backward`."""
+    padding there); dx rounded once.  Under a ``group`` the split path: du
+    from the all-reduced sums over the global pixel count.  Same arguments
+    and results as `dw_bn_relu6_backward`."""
     batch, h, w, c = x.shape
     n = float(batch * h * w)
     if coefficients is None:
@@ -205,7 +266,11 @@ def dw_bn_relu6_backward_reference(x, u, dy, kernel, gamma, beta, mean, var,
     xhat = d * inv
     dbeta = dz.sum(dim=(0, 1, 2))
     dgamma = (dz * xhat).sum(dim=(0, 1, 2))
-    du = a_coef * dz - a_coef * (dbeta / n) - (a_coef * (dgamma / n)) * xhat
+    total_beta, total_gamma = dbeta, dgamma
+    if group is not None:
+        total_beta, total_gamma = all_reduce_(torch.stack([dbeta, dgamma]), group)
+        n *= dist.get_world_size(group)
+    du = a_coef * dz - a_coef * (total_beta / n) - (a_coef * (total_gamma / n)) * xhat
 
     k = kernel.float().reshape(3, 3, c)
     g = F.pad(du, (0, 0, 1, 1, 1, 1))
@@ -235,20 +300,23 @@ def chain_applicable(h: int, w: int, c: int, kernel_size, strides, dilation,
     )
 
 
-def _stats(u32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _stats(u32: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flax `_compute_stats` semantics over an f32 NCHW tensor: fast
-    variance E[u^2] - E[u]^2, clipped at 0."""
+    variance E[u^2] - E[u]^2, clipped at 0; over the global batch of a
+    data-parallel ``group`` when one is given."""
+    if group is not None:
+        return global_moments(u32, group)
     mean = u32.mean(dim=(0, 2, 3))
     var = ((u32 * u32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
     return mean, var
 
 
-def _forward_math(x, weight, gamma, beta):
+def _forward_math(x, weight, gamma, beta, group=None):
     """(y, u, mean, var, coefficients): the coefficients (mean, inv, A,
     beta) are the f32 tensors z was computed with."""
     u = F.conv2d(x, weight, None, 1, 1, 1, x.shape[1])
     u32 = u.float()
-    mean, var = _stats(u32)
+    mean, var = _stats(u32, group)
     coefficients = _coefficients(gamma, beta, mean, var)
     mean32, _, a_coef, beta32 = coefficients
     shape = (1, -1, 1, 1)
@@ -258,10 +326,11 @@ def _forward_math(x, weight, gamma, beta):
 
 class _DwBnRelu6Chain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, gamma, beta):
-        y, u, mean, var, coefficients = _forward_math(x, weight, gamma, beta)
+    def forward(ctx, x, weight, gamma, beta, group):
+        y, u, mean, var, coefficients = _forward_math(x, weight, gamma, beta, group)
         ctx.save_for_backward(x, u, weight, gamma, beta, mean, var, *coefficients)
         ctx.mark_non_differentiable(mean, var)
+        ctx.group = group
         return y, mean, var
 
     @staticmethod
@@ -271,12 +340,14 @@ class _DwBnRelu6Chain(torch.autograd.Function):
         dx, dk, dgamma, dbeta = dw_bn_relu6_backward(
             nhwc_view(x, counter), nhwc_view(u, counter), nhwc_view(dy, counter),
             weight.permute(2, 3, 1, 0), gamma, beta, mean, var, tuple(coefficients),
+            ctx.group,
         )
         return (
             dx.permute(0, 3, 1, 2),
             _weight_grad(dk, weight),
             dgamma.to(gamma.dtype),
             dbeta.to(beta.dtype),
+            None,
         )
 
 
@@ -293,12 +364,14 @@ def dw_bn_relu6_chain(x, weight, gamma, beta):
     Returns:
         (y, batch_mean, batch_var).  The statistics are f32, not
         differentiable, and exist for the caller's running-average update.
+        Inside a `parallel.mesh.data_parallel` scope they are those of the
+        global batch, and the backward takes the split path.
     """
     if tuple(weight.shape) != (x.shape[1], 1, 3, 3):
         raise ValueError(
             f"weight has shape {tuple(weight.shape)}, expected ({x.shape[1]}, 1, 3, 3)"
         )
-    return _DwBnRelu6Chain.apply(x, weight, gamma, beta)
+    return _DwBnRelu6Chain.apply(x, weight, gamma, beta, active_group())
 
 
 dw_bn_relu6_chain.copies = 0

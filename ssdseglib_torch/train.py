@@ -23,8 +23,15 @@ through pinned memory, and the host never waits for the device inside an
 epoch.  With a ``checkpointer`` the state is saved after every epoch and
 ``resume=True`` restarts from the latest step.
 
-Not ported yet, and refused by `fit` rather than ignored: ``mesh`` (data
-parallelism).
+Data parallelism (``mesh=``, a `parallel.make_mesh` mesh): `init_state`
+replicates rank 0's state and the state keeps its mesh; every step then runs
+this rank's slice of the global batch inside `parallel.mesh.data_parallel`
+(global-batch BatchNorm and hard-negative mining), averages the gradients
+over the ranks in ONE all_reduce of one flat f32 buffer, and averages the
+metrics in one more, all on the device.  Every rank applies the same
+all-reduced values, so the replicas stay bitwise equal.  `fit` hands each
+rank its slice: of each plain global batch through `shard_batch`, or from a
+`TrainDataLoader` built with the same mesh.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from ssdseglib_torch.boxes import Anchors
 from ssdseglib_torch.config import TrainConfig
 from ssdseglib_torch.models.blocks import BN_MOMENTUM
 from ssdseglib_torch.models.builder import SsdSegModel
+from ssdseglib_torch.parallel import mesh as mesh_lib
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam defaults
@@ -64,12 +72,15 @@ class AdamState:
 @dataclasses.dataclass
 class TrainState:
     """Step count, f32 master parameters, BatchNorm running statistics and
-    optimizer state, keyed by the model's ``state_dict`` names."""
+    optimizer state, keyed by the model's ``state_dict`` names; ``mesh`` is
+    the data-parallel mesh the state is replicated over (None: one
+    process)."""
 
     step: int
     params: Dict[str, torch.Tensor]
     batch_stats: Dict[str, torch.Tensor]
     opt_state: AdamState
+    mesh: Optional[object] = None
 
     def variables(self) -> Dict[str, torch.Tensor]:
         """Parameters and statistics as one ``state_dict``-shaped mapping."""
@@ -203,10 +214,12 @@ class Trainer:
 
     # -- state ------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None,
-                   variables: Optional[Mapping[str, torch.Tensor]] = None) -> TrainState:
+                   variables: Optional[Mapping[str, torch.Tensor]] = None,
+                   mesh=None) -> TrainState:
         """A fresh state on the trainer's device: weights drawn from
         ``generator`` (seeded with ``config.seed`` when None), or the
-        ``state_dict``-shaped ``variables`` when given."""
+        ``state_dict``-shaped ``variables`` when given.  With a ``mesh``,
+        rank 0's state, replicated on every rank."""
         if variables is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(self.config.seed)
@@ -218,7 +231,7 @@ class Trainer:
 
         params = {name: own(name) for name in self._param_names}
         mu_dtype = _DTYPES[self.config.adam_mu_dtype]
-        return TrainState(
+        state = TrainState(
             step=0,
             params=params,
             batch_stats={name: own(name) for name in self._stat_names},
@@ -227,6 +240,27 @@ class Trainer:
                 nu={k: torch.zeros_like(v) for k, v in params.items()},
             ),
         )
+        return state if mesh is None else self._replicate_state(state, mesh)
+
+    def _replicate_state(self, state: TrainState, mesh) -> TrainState:
+        """A new state holding rank 0's values of ``state`` on every rank of
+        ``mesh`` (one broadcast per dtype), with the mesh recorded."""
+        tensors = mesh_lib.replicate(mesh, {
+            "params": state.params, "batch_stats": state.batch_stats,
+            "mu": state.opt_state.mu, "nu": state.opt_state.nu,
+            "step": torch.tensor([state.step], dtype=torch.int64)})
+        return TrainState(
+            step=int(tensors["step"][0]), params=tensors["params"],
+            batch_stats=tensors["batch_stats"],
+            opt_state=AdamState(mu=tensors["mu"], nu=tensors["nu"]), mesh=mesh)
+
+    @staticmethod
+    def _mean_over_ranks(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+        """The ranks' mean of 0-d metrics: one all_reduce, on the device.
+        Exact for the batch means of per-sample values over equal shards."""
+        values = torch.stack(list(metrics.values()))
+        mesh_lib.all_reduce_(values, group).div_(torch.distributed.get_world_size(group))
+        return dict(zip(metrics, values.unbind()))
 
     def _to_device(self, images, targets):
         def put(a):
@@ -334,15 +368,21 @@ class Trainer:
         Returns (metrics, grads, new_batch_stats): 0-d device tensors, f32
         gradients keyed like ``state.params`` and laid out like them, and
         the running statistics after this forward (``state`` itself is left
-        as it was).
+        as it was).  On a mesh (``state.mesh``) the batch is this rank's
+        slice, and metrics and gradients are the global batch's: their means
+        over the ranks.
         """
+        mesh = state.mesh
         images, targets = self._to_device(images, targets)
         leaves, stats = self._compute_variables(state.params, state.batch_stats)
         images = images.to(self._compute_dtype)
         self._net.train()
 
         def forward(x):
-            return functional_call(self._net, {**leaves, **stats}, (x,))
+            # the scope is entered here so that a rematerialized forward,
+            # which runs inside the backward, reduces over the group too
+            with mesh_lib.data_parallel(mesh):
+                return functional_call(self._net, {**leaves, **stats}, (x,))
 
         if self.config.remat:
             # rematerialize the forward in the backward pass instead of
@@ -358,17 +398,39 @@ class Trainer:
             with torch.no_grad():
                 torch._foreach_copy_(list(new_stats.values()), list(stats.values()))
         outputs = {k: v.float() for k, v in outputs.items()}
-        total, metrics = self._losses_and_metrics(outputs, targets)
+        with mesh_lib.data_parallel(mesh):
+            total, metrics = self._losses_and_metrics(outputs, targets)
         names = self._param_names
         grads = torch.autograd.grad(total, [leaves[k] for k in names])
-        # f32, in the masters' memory layout: one multi-tensor copy
         masters = [state.params[k] for k in names]
-        if any(g.dtype != p.dtype or g.stride() != p.stride() for g, p in zip(grads, masters)):
+        if mesh is not None:
+            group = mesh.get_group(mesh_lib.BATCH_AXIS)
+            grads = self._mean_gradients(masters, grads, group)
+            metrics = self._mean_over_ranks(metrics, group)
+        elif any(g.dtype != p.dtype or g.stride() != p.stride()
+                 for g, p in zip(grads, masters)):
+            # f32, in the masters' memory layout: one multi-tensor copy
             laid_out = [torch.empty_like(p) for p in masters]
             with torch.no_grad():
                 torch._foreach_copy_(laid_out, list(grads))
             grads = laid_out
         return metrics, dict(zip(names, grads)), new_stats
+
+    @staticmethod
+    @torch.no_grad()
+    def _mean_gradients(masters: List[torch.Tensor], grads, group) -> List[torch.Tensor]:
+        """The ranks' mean of ``grads``: one multi-tensor copy into one flat
+        f32 buffer, ONE all_reduce of it, one division.  Returns views of the
+        buffer laid out like ``masters``."""
+        flat = torch.empty(sum(p.numel() for p in masters), dtype=torch.float32,
+                           device=masters[0].device)
+        views, offset = [], 0
+        for p in masters:
+            views.append(flat.as_strided(p.shape, p.stride(), offset))
+            offset += p.numel()
+        torch._foreach_copy_(views, list(grads))
+        mesh_lib.all_reduce_(flat, group).div_(torch.distributed.get_world_size(group))
+        return views
 
     def train_step(self, state: TrainState, images, targets):
         """One optimisation step on a batch, updating ``state`` in place.
@@ -399,11 +461,15 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, images, targets) -> Dict[str, torch.Tensor]:
-        """Eval-mode forward in f32 with the running statistics: metrics."""
+        """Eval-mode forward in f32 with the running statistics: metrics (on
+        a mesh, this rank's slice in, the global batch's metrics out)."""
         images, targets = self._to_device(images, targets)
         self._net.eval()
         outputs = functional_call(self._net, state.variables(), (images,))
-        _, metrics = self._losses_and_metrics(outputs, targets)
+        with mesh_lib.data_parallel(state.mesh):
+            _, metrics = self._losses_and_metrics(outputs, targets)
+        if state.mesh is not None:
+            metrics = self._mean_over_ranks(metrics, state.mesh.get_group(mesh_lib.BATCH_AXIS))
         return metrics
 
     def eval_step_fn(self) -> Callable:
@@ -421,7 +487,9 @@ class Trainer:
 
         Args:
             batches: iterable of (images, targets) training batches (targets
-                unused); only the first `max_batches` are read.
+                unused; on a mesh, this rank's slices, whose statistics are
+                then the global batch's); only the first `max_batches` are
+                read.
         """
         norms = [m for m in self._net.modules()
                  if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
@@ -437,7 +505,8 @@ class Trainer:
                     break
                 images, _ = self._to_device(item[0], {})
                 stats = {k: v.clone() for k, v in state.batch_stats.items()}
-                functional_call(self._net, {**state.params, **stats}, (images,))
+                with mesh_lib.data_parallel(state.mesh):
+                    functional_call(self._net, {**state.params, **stats}, (images,))
                 for name in self._stat_names:
                     if not name.endswith("running_mean"):
                         continue
@@ -528,20 +597,36 @@ class Trainer:
         reads them once per epoch.  With a ``checkpointer`` the state is
         saved after every epoch; with ``resume=True`` and a checkpointer
         holding a prior step, training restarts from the latest checkpoint.
+
+        With a ``mesh`` (`parallel.make_mesh`; every rank calls `fit` alike)
+        the state is replicated on it, each plain global batch is sharded
+        (`parallel.shard_batch`), a loader must have been built with the same
+        mesh, and the history holds the global batch's metrics.  A mesh with
+        a spatial axis raises NotImplementedError, anything that is no
+        DeviceMesh TypeError.
         """
         if mesh is not None:
-            raise NotImplementedError("fit(mesh=...) is not ported yet")
+            mesh_lib.check_data_mesh(mesh)
         epochs = epochs or self.config.epochs
+        restored = False
         if resume and checkpointer is not None:
             latest = checkpointer.latest_step()
             if latest is not None:
-                state = checkpointer.restore(state)
+                state, restored = checkpointer.restore(state), True
                 log_fn(f"resumed from checkpoint step {latest}")
+        if mesh is not None and (restored or state.mesh is not mesh):
+            state = self._replicate_state(state, mesh)
 
         def _epoch(data, step: Callable, fused_step_fn: Callable) -> Callable:
             """A generator function over what ``step`` returns for each batch
             of one epoch of ``data``."""
             if hasattr(data, "iter_raw") and hasattr(data, "transform"):
+                if getattr(data, "mesh", None) is not mesh:
+                    raise ValueError(
+                        "fit(mesh=...) takes a loader built with the same mesh "
+                        "(TrainDataLoader(..., mesh=mesh)), and fit without a mesh one "
+                        "built without"
+                    )
                 fused = fused_step_fn(data.transform)
 
                 def run():
@@ -550,6 +635,8 @@ class Trainer:
             else:
                 def run():
                     for images, targets in (data() if callable(data) else data):
+                        if mesh is not None:
+                            images, targets = mesh_lib.shard_batch(mesh, (images, targets))
                         yield step(state, images, targets)
             return run
 

@@ -6,6 +6,8 @@
   chunk / repeat-pad / slice loop that serves an arbitrary number of images
   through one batch size, or through several (`plan_batched_chunks`).
 - `stage_input`: the pinned, non-blocking upload of a host batch.
+- `gather_outputs`: a data-parallel model's slices of one batch, whole on
+  every rank.
 
 Both the live `InferenceModel` (models/builder.py) and the reloaded
 `ServingBundle` (export.py) use them, so the two cannot drift.
@@ -133,6 +135,19 @@ def predict_batched_chunks_multi(
         masks.append(_to_numpy(mask)[:k])
         dets.append(_to_numpy(det)[:k])
     return np.concatenate(masks, 0), np.concatenate(dets, 0)
+
+
+def gather_outputs(mask: torch.Tensor, det: torch.Tensor, group):
+    """(mask, det) of the whole batch on every rank of ``group`` from each
+    rank's slice: an all_reduce into a zero buffer each (f32, which holds
+    every served dtype's values exactly; a uint8 class map comes back
+    uint8, a bf16 mask as f32, which `format_outputs` makes of it anyway)."""
+    from ssdseglib_torch.parallel.mesh import gather_by_sum
+
+    whole = gather_by_sum(mask.float(), group)
+    if mask.dtype == torch.uint8:
+        whole = whole.to(torch.uint8)
+    return whole, gather_by_sum(det, group)
 
 
 def stage_input(images, device: torch.device) -> torch.Tensor:

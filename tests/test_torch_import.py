@@ -31,6 +31,8 @@ SLICE_MODULES = (
     "ssdseglib_torch.ops.fused_mbconv",
     "ssdseglib_torch.ops.depthwise_backward",
     "ssdseglib_torch.ops.fused_chain_backward",
+    "ssdseglib_torch.parallel",
+    "ssdseglib_torch.parallel.mesh",
     "ssdseglib_torch.ops._cuda_build",
     "ssdseglib_torch.ops.encoding",
     "ssdseglib_torch.ops.nms",

@@ -24,13 +24,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_package_surface_is_the_jax_package_s_less_the_named_missing():
-    assert ssdseglib_torch.NOT_PORTED == ("parallel",)
-    want = [name for name in ssdseglib_tpu.__all__ if name not in ssdseglib_torch.NOT_PORTED]
-    assert ssdseglib_torch.__all__ == want
+    assert ssdseglib_torch.NOT_PORTED == ("parallel.spatial",)
+    assert ssdseglib_torch.__all__ == ssdseglib_tpu.__all__
     for name in ssdseglib_torch.__all__:
         assert hasattr(ssdseglib_torch, name), name
-    for name in ssdseglib_torch.NOT_PORTED:
-        assert hasattr(ssdseglib_tpu, name) and not hasattr(ssdseglib_torch, name), name
+    # the missing module's names are the ones the port's parallel lacks
+    from ssdseglib_tpu.parallel import spatial
+
+    jax_parallel, port_parallel = ssdseglib_tpu.parallel, ssdseglib_torch.parallel
+    missing = [n for n in jax_parallel.__all__ if n not in port_parallel.__all__]
+    assert missing == ["SPATIAL_AXIS", "make_hybrid_mesh", "image_sharding"]
+    assert all(hasattr(spatial, n) for n in missing)
+    assert port_parallel.__all__ == [n for n in jax_parallel.__all__ if n not in missing]
 
 
 def test_importing_the_package_builds_and_loads_no_kernel():

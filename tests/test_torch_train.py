@@ -30,7 +30,10 @@ Tolerances, all f32 on the CPU:
   held to optax on identical gradients at rtol 1e-6.
 """
 
+import contextlib
 import dataclasses
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -521,6 +524,22 @@ def test_recalibrate_batch_stats_matches_jax(jax_side, batch):
     assert trainer.recalibrate_batch_stats(state, [], max_batches=3) is state
 
 
+@contextlib.contextmanager
+def _spatial_mesh():
+    """A ('data', 'spatial') DeviceMesh of one CPU rank, on a group of this
+    process alone that is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    with tempfile.TemporaryDirectory() as directory:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(directory, "s"), 1),
+                                rank=0, world_size=1)
+        try:
+            yield DeviceMesh("cpu", [[0]], mesh_dim_names=("data", "spatial"))
+        finally:
+            dist.destroy_process_group()
+
+
 def test_fit_history_keys_and_refusals(jax_side, batch):
     images, targets = batch
     trainer = _port_trainer()
@@ -545,8 +564,13 @@ def test_fit_history_keys_and_refusals(jax_side, batch):
         def iter_raw(self):
             return iter(())
 
-    with pytest.raises(NotImplementedError):
+    # a mesh that is no DeviceMesh is refused, and so is a spatial one (not
+    # ported yet); a world-size-1 gloo group of this process holds the mesh
+    with pytest.raises(TypeError):
         trainer.fit(state, [(images, targets)], epochs=1, mesh=object())
+    with _spatial_mesh() as spatial:
+        with pytest.raises(NotImplementedError, match="spatial"):
+            trainer.fit(state, [(images, targets)], epochs=1, mesh=spatial)
     # resume without a checkpointer is ignored, as in the JAX package; a
     # loader with a device-side transform runs through the fused steps (this
     # one yields no batch: no step, no history)
