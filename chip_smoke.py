@@ -161,8 +161,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ms of both in turns; one bf16 b16 `fit` epoch of DP_STEPS steps over a
    `TrainDataLoader` (flip and rgb) with the chain, depthwise and
    weight-gradient gates 'cuda', with and without the mesh: metrics within
-   DP_FIT_TOLERANCE (the mined confidence loss DP_MINED_TOLERANCE),
-   parameters within Adam's bound, the chain's split path
+   DP_FIT_TOLERANCE (the mined confidence loss DP_MINED_TOLERANCE); the same
+   epoch in f32, every metric but DP_F32_UNHELD within DP_STEP_GATE (those
+   two printed beside the no-mesh run repeated); parameters within Adam's
+   bound, the chain's split path
    launched once a step with the mesh and its two-launch path without; the
    bare step with and without the mesh in turns (the machinery's cost).
    (b) DP_WORLD gloo ranks spawned on cuda:0 (NCCL refuses two ranks on one
@@ -172,6 +174,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    fused bf16 `predict` (masks within 2 bf16 ulps, detections within
    DP_DETECTION_TOLERANCE, 10 MBConv launches a forward a rank).  One
    ``{"data_parallel": ...}`` JSON line with the numbers and the card.
+
+13. spatial (H-axis) parallelism (``ssdseglib_torch.parallel.spatial``):
+   SP_WORLD gloo ranks spawned on cuda:0 form a 1x2, a 1x4 and a 2x2
+   ``("data", "spatial")`` mesh on the flagship at 480x640 (random weights,
+   seed 0), against one process on the card.  (a) unfused `predict`, f32 and
+   bf16: b1 on 1x2 (os16 split, 15 rows a rank against ASPP's 12-row halo)
+   and on 1x4 (its maps whole from os16), b2 on 2x2 with the segmentation
+   suppression; f32 masks within SP_MASK_F32 and detections at the JAX
+   spatial test's gate; bf16 masks within one bf16 ulp and detections equal
+   (2x2, whose data axis splits the batch: phase 12b's bf16 gates against one
+   process at b2, one ulp against one process on each data slice);
+   where each mesh's maps go whole; predict ms a rank beside one process's.
+   (b) one step at b4 on 2x2 with set_wgrad_impl('cuda'): f32 metrics within
+   DP_STEP_GATE, the f64 gradient (aten route) within SP_GRAD_F64 (the f32
+   one's BatchNorm noise printed), replicas bitwise equal, running
+   statistics within 1e-5; `wgrad_fma` launched on every rank; the bf16 step
+   at phase 12a's bf16 gate with `wgrad_mma` launched on every rank.  One
+   ``{"spatial_parallel": ...}`` JSON line and the phase's seconds (budget
+   SP_BUDGET_S).
 
 ``python3 chip_smoke.py --profile-train [aten|chain|depthwise|wgrad-dot|wgrad-cuda ...]`` instead
 builds the library and prints where the time of a bf16 b16 train step goes
@@ -196,8 +217,9 @@ all through the launchers' runtime arguments, and
 backward kernels, `wgrad_fma` and phase 6's serving (b16 images/s, b1 ms) of
 an unpacked parent tree and of this one in turns (parent, change, change,
 parent; one process each), and ``python3 chip_smoke.py --deployment`` runs
-phase 11 alone and ``python3 chip_smoke.py --data-parallel`` phase 12; none
-of these prints result lines.
+phase 11 alone, ``python3 chip_smoke.py --data-parallel`` phase 12 and
+``python3 chip_smoke.py --spatial`` phase 13; none of these prints result
+lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
@@ -2143,6 +2165,14 @@ DP_TIMEOUT_S = 300
 DP_FIT_TOLERANCE = 5e-2
 DP_MINED_TOLERANCE = 1e-1
 DP_MINED = ("loss/labels",)
+# (a) the same epoch in f32: every metric at DP_STEP_GATE but these two,
+# printed against it and not held.  On an H100 the mined confidence loss
+# (discrete) and the box IoU (over the positive anchors only) moved 3.9e-3 to
+# 8.4e-3 and 1.9e-3 to 5.6e-3 from the no-mesh run, where the no-mesh run
+# repeated moved them at most 1.9e-4 and 3.2e-4 and the other metrics stayed
+# within 8e-5; one f32 step agrees within 2e-6 (phases 12b, 13b).  The miss
+# is an open fault (ROADMAP Queue 3), not a gate.
+DP_F32_UNHELD = ("loss/labels", "iou/boxes")
 # (b) one f32 step, 2 x b8 against b16: the JAX data-parallel test's gate
 DP_STEP_GATE = dict(rtol=2e-3, atol=2e-4)
 # (b) bf16 fused serving, 2 x b8 against b16: masks within 2 bf16 ulps (the
@@ -2197,18 +2227,93 @@ def _dp_chain_split(card: str, group) -> dict:
     return report
 
 
+def _dp_fit_with_and_without(trainer, config, mesh, samples, anchors, enc_cfg) -> dict:
+    """(a) A fit epoch of DP_STEPS steps in ``config.compute_dtype`` with the
+    mesh of world size 1 and without one, on the routes set: the epoch
+    metrics at the dtype's gate (bf16: DP_FIT_TOLERANCE, DP_MINED_TOLERANCE
+    on the mined loss; f32: DP_STEP_GATE on every metric but DP_F32_UNHELD,
+    printed beside the no-mesh run repeated), the parameters within Adam's
+    2 lr a step, both runs updated."""
+    from ssdseglib_torch.data.pipeline import TrainDataLoader
+    from ssdseglib_torch.ops import fused_chain_backward as fcb
+
+    runs = {}
+    arms = (("plain", None), ("mesh", mesh), ("plain again", None))
+    for name, m in arms[:3 if config.compute_dtype == "float32" else 2]:
+        fcb.dw_bn_relu6_backward.launches = fcb.dw_bn_relu6_backward.split_launches = 0
+        state = trainer.init_state(torch.Generator().manual_seed(0), mesh=m)
+        loader = TrainDataLoader(samples, anchors, enc_cfg, batch_size=BATCH,
+                                 augmentation_horizontal_flip=True, augmentation_rgb=True,
+                                 seed=0, mesh=m)
+        state, history = trainer.fit(state, loader, epochs=1, mesh=m, log_fn=lambda s: None)
+        runs[name] = (state, history, fcb.dw_bn_relu6_backward.launches,
+                      fcb.dw_bn_relu6_backward.split_launches)
+    (plain, plain_history, plain_launches, plain_split), (ours, history, launches, split) = (
+        runs["plain"], runs["mesh"])
+    assert ours.step == plain.step == DP_STEPS
+    assert plain_split == 0 and launches == 0 and split == plain_launches >= DP_STEPS, (
+        plain_launches, plain_split, launches, split)
+    assert set(history) == set(plain_history)
+    assert all(np.isfinite(v[0]) for v in history.values()), history
+    dtype = config.compute_dtype
+    if dtype == "bfloat16":
+        differences = {k: max(0.0, abs(history[k][0] - plain_history[k][0]) - 1e-3)
+                       / max(abs(plain_history[k][0]), 1e-12) for k in history}
+        worst = max(v for k, v in differences.items() if k not in DP_MINED)
+        mined = max(differences[k] for k in DP_MINED)
+        assert worst <= DP_FIT_TOLERANCE and mined <= DP_MINED_TOLERANCE, (
+            differences, history, plain_history)
+        gate = (f"largest relative metric difference {worst:.3g} (limit {DP_FIT_TOLERANCE}), "
+                f"the mined confidence loss's {mined:.3g} (limit {DP_MINED_TOLERANCE})")
+    else:
+        def relative(run):
+            return {k: abs(run[k][0] - plain_history[k][0]) / max(abs(plain_history[k][0]), 1e-12)
+                    for k in history}
+
+        differences, again = relative(history), relative(runs["plain again"][1])
+        for k in history:
+            if k not in DP_F32_UNHELD:
+                np.testing.assert_allclose(history[k][0], plain_history[k][0], err_msg=k,
+                                           **DP_STEP_GATE)
+        missed = [k for k in DP_F32_UNHELD if not np.isclose(
+            history[k][0], plain_history[k][0], **DP_STEP_GATE)]
+        worst = max(v for k, v in differences.items() if k not in DP_F32_UNHELD)
+        mined = max(differences[k] for k in DP_F32_UNHELD)
+        gate = (f"largest relative metric difference {worst:.3g} (gate rtol "
+                f"{DP_STEP_GATE['rtol']} atol {DP_STEP_GATE['atol']}), unheld "
+                f"{ {k: differences[k] for k in DP_F32_UNHELD} } "
+                f"({'MISSED the gate: ' + ', '.join(missed) if missed else 'within the gate'}; "
+                f"ROADMAP Queue 3), the no-mesh run repeated moved "
+                f"{ {k: again[k] for k in DP_F32_UNHELD} }")
+    # Adam's first steps move a parameter by at most lr each, so two runs
+    # differ by at most 2 lr a step; a parameter whose gradient is noise can
+    # take the whole bound (opposite signs in the two runs)
+    moved = max(float((ours.params[k] - plain.params[k]).abs().max()) for k in ours.params)
+    assert moved <= 2.0 * config.learning_rate * DP_STEPS * (1 + 1e-3), moved
+    start = trainer.init_state(torch.Generator().manual_seed(0)).params
+    norms = [math.sqrt(sum(float((p[k] - start[k]).square().sum()) for k in start))
+             for p in (ours.params, plain.params)]
+    assert 0.5 < norms[0] / norms[1] < 2.0, norms  # the mesh run did update
+    log(f"[dp] (a) fit, 1 epoch of {DP_STEPS} {dtype} b16 steps, gates cuda, mesh of world size "
+        f"1 (NCCL) vs no mesh: loss {history['loss'][0]:.6g} vs {plain_history['loss'][0]:.6g}, "
+        f"{gate}, largest parameter difference {moved / config.learning_rate:.3g} lr (limit "
+        f"{2 * DP_STEPS} lr), update norms {norms[0]:.4g} with the mesh, {norms[1]:.4g} "
+        f"without; chain launches: two-launch path {plain_launches} without the "
+        f"mesh, split path {split} with it")
+    return {"worst": worst, "mined": mined, "moved_lr": moved / config.learning_rate,
+            "split_launches": split}
+
+
 def _dp_world_one(card: str) -> dict:
-    """(a) World size 1, NCCL, bf16 b16 on the flagship with the chain,
+    """(a) World size 1, NCCL, b16 on the flagship with the chain,
     depthwise and weight-gradient gates 'cuda': a fit epoch of DP_STEPS
-    steps with and without the mesh; then the bare step with and without it,
-    in turns."""
+    steps with and without the mesh, in f32 and in bf16; then the bf16 bare
+    step with and without it, in turns."""
     import torch.distributed as dist
 
     from ssdseglib_torch.config import TrainConfig, reference_warehouse_config
-    from ssdseglib_torch.data.pipeline import TrainDataLoader
     from ssdseglib_torch.data.synthetic import generate_dataset
     from ssdseglib_torch.models.builder import SsdSegModel
-    from ssdseglib_torch.ops import fused_chain_backward as fcb
     from ssdseglib_torch.parallel import BATCH_AXIS, make_mesh
     from ssdseglib_torch.train import Trainer
 
@@ -2221,50 +2326,13 @@ def _dp_world_one(card: str) -> dict:
         samples = generate_dataset(BATCH * DP_STEPS, image_shape=enc_cfg.image_shape,
                                    num_classes=enc_cfg.num_classes, seed=0)
         model = SsdSegModel(model_cfg, torch.Generator().manual_seed(0))
-        config = TrainConfig(batch_size=BATCH, compute_dtype="bfloat16")
-        trainer = Trainer(model=model, anchors=anchors, config=config)
         _set_route("all-cuda")
-        runs = {}
-        for name, m in (("plain", None), ("mesh", mesh)):
-            fcb.dw_bn_relu6_backward.launches = fcb.dw_bn_relu6_backward.split_launches = 0
-            state = trainer.init_state(torch.Generator().manual_seed(0), mesh=m)
-            loader = TrainDataLoader(samples, anchors, enc_cfg, batch_size=BATCH,
-                                     augmentation_horizontal_flip=True, augmentation_rgb=True,
-                                     seed=0, mesh=m)
-            state, history = trainer.fit(state, loader, epochs=1, mesh=m, log_fn=lambda s: None)
-            runs[name] = (state, history, fcb.dw_bn_relu6_backward.launches,
-                          fcb.dw_bn_relu6_backward.split_launches)
-        (plain, plain_history, plain_launches, plain_split), (ours, history, launches, split) = (
-            runs["plain"], runs["mesh"])
-        assert ours.step == plain.step == DP_STEPS
-        assert plain_split == 0 and launches == 0 and split == plain_launches >= DP_STEPS, (
-            plain_launches, plain_split, launches, split)
-        assert set(history) == set(plain_history)
-        differences = {k: max(0.0, abs(history[k][0] - plain_history[k][0]) - 1e-3)
-                       / max(abs(plain_history[k][0]), 1e-12) for k in history}
-        assert all(np.isfinite(v[0]) for v in history.values()), history
-        worst = max(v for k, v in differences.items() if k not in DP_MINED)
-        mined = max(differences[k] for k in DP_MINED)
-        assert worst <= DP_FIT_TOLERANCE and mined <= DP_MINED_TOLERANCE, (
-            differences, history, plain_history)
-        # Adam's first steps move a parameter by at most lr each, so two runs
-        # differ by at most 2 lr a step; a parameter whose gradient is bf16
-        # noise can take the whole bound (opposite signs in the two runs)
-        moved = max(float((ours.params[k] - plain.params[k]).abs().max()) for k in ours.params)
-        assert moved <= 2.0 * config.learning_rate * DP_STEPS * (1 + 1e-3), moved
-        start = trainer.init_state(torch.Generator().manual_seed(0)).params
-        norms = [math.sqrt(sum(float((p[k] - start[k]).square().sum()) for k in start))
-                 for p in (ours.params, plain.params)]
-        assert 0.5 < norms[0] / norms[1] < 2.0, norms  # the mesh run did update
-        log(f"[dp] (a) fit, 1 epoch of {DP_STEPS} bf16 b16 steps, gates cuda, mesh of world size "
-            f"1 (NCCL) vs no mesh: loss {history['loss'][0]:.4f} vs {plain_history['loss'][0]:.4f}"
-            f", largest relative metric difference {worst:.3g} (limit {DP_FIT_TOLERANCE}), the "
-            f"mined confidence loss's {mined:.3g} (limit {DP_MINED_TOLERANCE}), "
-            f"largest parameter difference {moved / config.learning_rate:.3g} lr (limit "
-            f"{2 * DP_STEPS} lr), update norms {norms[0]:.4g} with the mesh, {norms[1]:.4g} "
-            f"without; chain launches: two-launch path {plain_launches} without the "
-            f"mesh, split path {split} with it")
-        report["split_launches"] = split
+        for dtype in ("float32", "bfloat16"):  # the bf16 trainer stays for the bare step
+            config = TrainConfig(batch_size=BATCH, compute_dtype=dtype)
+            trainer = Trainer(model=model, anchors=anchors, config=config)
+            report[f"fit_{dtype}"] = _dp_fit_with_and_without(trainer, config, mesh, samples,
+                                                              anchors, enc_cfg)
+        report["split_launches"] = report["fit_bfloat16"]["split_launches"]
 
         # the bare step in turns: the machinery's cost (one flat gradient
         # all_reduce, one metric all_reduce, the BatchNorm all_reduces, the
@@ -2442,9 +2510,358 @@ def phase_data_parallel(card: str) -> None:
         "world_1_nccl": {"chain_split_ms": one["split"], "chain_two_launch_ms": one["two-launch"],
                          "chain_split_max_abs_err": one["max_abs_err"],
                          "chain_split_launches": one["split_launches"],
-                         "step_ms": one["step_ms"], "mesh_step_ms": one["mesh_step_ms"]},
+                         "step_ms": one["step_ms"], "mesh_step_ms": one["mesh_step_ms"],
+                         "fit_f32": one["fit_float32"], "fit_bf16": one["fit_bfloat16"]},
         "world_2_gloo_one_card": two, "card": card}}))
     log(f"[dp] phase 12 took {time.perf_counter() - t0:.1f} s")
+
+
+# Phase 13: spatial (H-axis) parallelism.  SP_WORLD gloo ranks on cuda:0 (as
+# phase 12b puts its ranks) form a 1x2, a 1x4 and a 2x2 ("data", "spatial")
+# mesh, on the flagship at 480x640 with random weights, against one process on
+# the card.  One card shows correctness and the machinery's price, not scaling.
+SP_WORLD = 4
+SP_TIMEOUT_S = 300
+SP_BUDGET_S = 60
+# (mesh, data ranks, spatial ranks, batch, segmentation suppression): b1 on
+# 1x2 (os16 split, 15 rows a rank against ASPP's 12-row halo) and on 1x4 (os16
+# whole: 7.5 rows a rank), b2 on 2x2 with the suppression
+SP_SERVE = (("1x2", 1, 2, 1, False), ("1x4", 1, 4, 1, False), ("2x2", 2, 2, 2, True))
+SP_STEP_BATCH = 4  # 2x2: b2 a data group
+SP_MASK_F32 = 1e-4  # f32 serving: |mask difference|
+SP_GRAD_F64 = 1e-4  # f64 gradient, the relative-norm metric (the CPU test's gate)
+# the layer whose output is the first map of an output stride (MobileNetV2):
+# where a mesh's maps go whole, that layer gathers its input
+SP_LEVEL_LAYER = {2: "backbone-block0-expand", 4: "backbone-block1-depthwise",
+                  8: "backbone-block3-depthwise", 16: "backbone-block6-depthwise",
+                  32: "backbone-block13-depthwise", 64: "backbone-block17",
+                  128: "backbone-block18"}
+
+
+def _bf16_ulps(got: np.ndarray, want: np.ndarray) -> float:
+    """The largest |got - want| in units of the bf16 spacing at |want|."""
+    exponent = np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+    return float((np.abs(got - want) / 2.0 ** (exponent - 7)).max())
+
+
+def _relative_norm_error(got: dict, want: dict):
+    """(worst, tensor) of |got - want| / max(|want|, 1e-4 of the largest
+    |want|) over the tensors, norms taken whole (GRADIENT_TOLERANCE's
+    metric)."""
+    floor = 1e-4 * max(float(v.norm()) for v in want.values())
+    return max((float((got[k] - want[k]).norm()) / max(float(want[k].norm()), floor), k)
+               for k in want)
+
+
+def _sp_f64_grads(trainer, mesh, variables, images, targets) -> dict:
+    """The f64 gradient of one train-mode step (aten route) through the
+    trainer's own pieces, as tests/torch_spatial_workers.grads64 takes it:
+    the rows, the forward and losses in the mesh's scope, the mean over the
+    mesh.  ``images``/``targets``: the global batch."""
+    from torch.func import functional_call
+
+    from ssdseglib_torch.parallel import mesh as mesh_lib
+
+    net = trainer._net.double().train()
+    params = {k: variables[k].double().clone().requires_grad_() for k in trainer._param_names}
+    stats = {k: variables[k].double().clone() for k in trainer._stat_names}
+    images = images.double()
+    targets = {k: v.double() for k, v in targets.items()}
+    if mesh is not None:
+        images, targets = mesh_lib.shard_batch(mesh, (images, targets))
+    images, targets = trainer._own_rows(mesh, images, targets)
+    with mesh_lib.data_parallel(mesh):
+        outputs = functional_call(net, {**params, **stats}, (images,))
+        total, _ = trainer._losses_and_metrics(outputs, targets)
+    names = trainer._param_names
+    grads = torch.autograd.grad(total, [params[k] for k in names])
+    if mesh is not None:
+        grads = trainer._mean_gradients([params[k].detach() for k in names], grads,
+                                        mesh_lib.mesh_group(mesh))
+    trainer._net.float()
+    return {k: g.detach().float().cpu() for k, g in zip(names, grads)}
+
+
+def _sp_steps(mesh, variables, images, targets) -> dict:
+    """One step at SP_STEP_BATCH from ``variables`` (phase 6's model: random
+    BatchNorm, so that no running mean is zero up to rounding) with
+    set_wgrad_impl('cuda'), in f32 and in bf16, and the f64 gradient (aten
+    route), on ``mesh`` (None: one process):
+    metrics, the f32 gradient (Adam's first moment over 0.1), parameters and
+    statistics, and the weight-gradient kernels' launches of each step."""
+    from ssdseglib_torch.boxes import Anchors
+    from ssdseglib_torch.config import TrainConfig, reference_warehouse_config
+    from ssdseglib_torch.models.builder import SsdSegModel
+    from ssdseglib_torch.ops import pointwise_wgrad as pw
+    from ssdseglib_torch.parallel import shard_batch
+    from ssdseglib_torch.train import Trainer
+
+    anchors_cfg, enc_cfg, model_cfg, _, _ = reference_warehouse_config()
+    anchors = Anchors.from_config(anchors_cfg, enc_cfg.image_shape)
+    model = SsdSegModel(model_cfg, torch.Generator().manual_seed(0))
+    trainers = {dtype: Trainer(model=model, anchors=anchors, device="cuda:0", config=TrainConfig(
+        batch_size=SP_STEP_BATCH, compute_dtype=dtype)) for dtype in ("float32", "bfloat16")}
+    out = {}
+    for dtype, trainer in trainers.items():
+        state = trainer.init_state(variables=variables, mesh=mesh)
+        batch = (images, targets) if mesh is None else shard_batch(mesh, (images, targets))
+        _set_route("wgrad-cuda")
+        try:
+            pw.wgrad_fma.launches = pw.wgrad_mma.launches = 0
+            state, metrics = trainer.train_step(state, *batch)
+            torch.cuda.synchronize()
+            launches = {"wgrad_fma": pw.wgrad_fma.launches, "wgrad_mma": pw.wgrad_mma.launches}
+        finally:
+            _set_route("aten")
+        out[dtype] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                      "launches": launches,
+                      "grads": {k: v.float().cpu() * 10.0 for k, v in state.opt_state.mu.items()},
+                      "params": {k: v.cpu() for k, v in state.params.items()},
+                      "batch_stats": {k: v.cpu() for k, v in state.batch_stats.items()}}
+    out["float64"] = _sp_f64_grads(trainers["float32"], mesh, variables, images, targets)
+    return out
+
+
+def _sp_serve(builder, model, nms, mesh, images, suppression: bool) -> dict:
+    """f32 and bf16 `predict` of ``images`` on ``mesh`` (None: one
+    process), with the predict's wall ms (median of 3 after a warm-up): the
+    machinery's price on one card, not a scaling figure."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        infer = builder.get_model_for_inference(
+            model_trained=model, compute_dtype=dtype, device="cuda:0", mesh=mesh,
+            **{**nms, "use_segmentation_suppression": suppression})
+        infer.predict(images)  # warm-up
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            mask, det = infer.predict(images)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[dtype] = {"mask": mask, "det": det, "ms": statistics.median(times)}
+    return out
+
+
+def _sp_rank(rank: int, directory: str) -> None:
+    """Phase 13: one of SP_WORLD gloo ranks on cuda:0 (spawned): serving on
+    each mesh of SP_SERVE it belongs to and the steps on 2x2; the results go
+    to ``rank{rank}.pt``, compared in `phase_spatial`."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from ssdseglib_torch.parallel import make_hybrid_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{directory}/store", rank=rank,
+                            world_size=SP_WORLD, timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
+    try:
+        meshes = {name: make_hybrid_mesh(n_data, n_spatial, device="cuda:0")
+                  for name, n_data, n_spatial, _, _ in SP_SERVE}
+        builder, model, nms = _builder()
+        out = {"serve": {}}
+        for name, _, _, batch, suppression in SP_SERVE:
+            if meshes[name].get_coordinate() is not None:
+                out["serve"][name] = _sp_serve(builder, model, nms, meshes[name],
+                                               _uint8_images(3, batch), suppression)
+        variables = model.state_dict()
+        del builder, model
+        _, _, images, targets, _ = _train_batch(SP_STEP_BATCH)
+        out["steps"] = _sp_steps(meshes["2x2"], variables, images, targets)
+        torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_spawn(directory: str) -> float:
+    """SP_WORLD ranks of `_sp_rank`, joined within SP_TIMEOUT_S; their
+    seconds."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    context = mp.start_processes(_sp_rank, args=(directory,), nprocs=SP_WORLD, join=False,
+                                 start_method="spawn")
+    try:
+        deadline = time.monotonic() + SP_TIMEOUT_S
+        while not context.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the {SP_WORLD} ranks did not finish in {SP_TIMEOUT_S} s")
+    finally:
+        for process in context.processes:
+            if process.is_alive():
+                process.terminate()
+            process.join(timeout=30)
+    return time.perf_counter() - t0
+
+
+def _sp_check_serving(ranks, single, card: str) -> dict:
+    """Every rank's `predict` of each mesh against one process: f32 masks
+    within SP_MASK_F32, bf16 masks' ulps and detections."""
+    from ssdseglib_torch.config import reference_warehouse_config
+    from ssdseglib_torch.parallel import spatial
+
+    model_cfg = reference_warehouse_config()[2]
+    height, width = model_cfg.input_image_shape[:2]
+    report = {}
+    for name, n_data, n_spatial, batch, suppression in SP_SERVE:
+        first_whole = spatial.RowPartition(
+            height, width, n_spatial, 0,
+            {16: max(model_cfg.segmentation_dilation_rates)}).first_whole()
+        want = single[batch, suppression]
+        entry = {"whole_from_os": first_whole, "whole_from_layer": SP_LEVEL_LAYER[first_whole],
+                 "one_process_ms": {d: want[d]["ms"] for d in want}}
+        for rank, got in enumerate(ranks):
+            if name not in got["serve"]:
+                continue
+            for dtype in ("float32", "bfloat16"):
+                g, w = got["serve"][name][dtype], want[dtype]
+                assert g["mask"].shape == w["mask"].shape and g["det"].shape == w["det"].shape
+                mask_err = float(np.abs(g["mask"] - w["mask"]).max())
+                det_err = float(np.abs(g["det"] - w["det"]).max())
+                if dtype == "float32":
+                    assert mask_err <= SP_MASK_F32, (name, rank, mask_err)
+                    np.testing.assert_allclose(g["det"], w["det"], rtol=1e-3, atol=1e-4,
+                                               err_msg=f"{name} rank {rank}")
+                    entry[f"f32_mask_err_rank{rank}"] = mask_err
+                    entry[f"f32_det_err_rank{rank}"] = det_err
+                elif n_data == 1:
+                    ulps = _bf16_ulps(g["mask"], w["mask"])
+                    entry[f"bf16_mask_ulps_rank{rank}"] = ulps
+                    entry[f"bf16_det_err_rank{rank}"] = det_err
+                    assert ulps <= 1.0, (name, rank, ulps)
+                    assert np.array_equal(g["det"], w["det"]), (name, rank, det_err)
+                else:
+                    # the batch split changes the library's bf16 sums (its
+                    # algorithms go by the batch): phase 12b's gates against
+                    # one process at the global batch, and one ulp against
+                    # one process on each data slice alone
+                    entry[f"bf16_mask_ulps_rank{rank}"] = _bf16_ulps(g["mask"], w["mask"])
+                    entry[f"bf16_det_err_rank{rank}"] = det_err
+                    bad = int((np.abs(g["mask"] - w["mask"])
+                               > TOLERANCE[torch.bfloat16] * (1 + np.abs(w["mask"]))).sum())
+                    bad_det = int((np.abs(g["det"] - w["det"])
+                                   > DP_DETECTION_TOLERANCE * (1 + np.abs(w["det"]))).sum())
+                    assert bad == 0 and bad_det == 0, (name, rank, bad, bad_det)
+                    sliced = np.concatenate([s[dtype]["mask"] for s in single["slices"]])
+                    ulps = _bf16_ulps(g["mask"], sliced)
+                    entry[f"bf16_mask_ulps_vs_slices_rank{rank}"] = ulps
+                    assert ulps <= 1.0, (name, rank, ulps)
+                entry.setdefault("ms", {}).setdefault(dtype, []).append(g["ms"])
+        ulps = max(v for k, v in entry.items() if k.startswith("bf16_mask_ulps_rank"))
+        det_err = max(v for k, v in entry.items() if k.startswith("bf16_det"))
+        if n_data == 1:
+            bf16 = f"bf16 mask {ulps:.3g} ulps (limit 1), detections equal"
+        else:
+            sliced = max(v for k, v in entry.items() if k.startswith("bf16_mask_ulps_vs"))
+            bf16 = (f"bf16 mask {ulps:.3g} ulps from one process at b{batch} (limit "
+                    f"{TOLERANCE[torch.bfloat16]} of 1 + |value|), {sliced:.3g} from one process "
+                    f"on each data slice (limit 1), detections max diff {det_err:.3g} (limit "
+                    f"{DP_DETECTION_TOLERANCE} of 1 + |value|)")
+        log(f"[spatial] (a) {name} ({n_data} data x {n_spatial} spatial ranks on cuda:0), b{batch}"
+            f"{' with' if suppression else ' without'} the suppression, 480x640: maps whole "
+            f"from os{first_whole} ({SP_LEVEL_LAYER[first_whole]} gathers its input); f32 mask "
+            f"max diff {max(v for k, v in entry.items() if k.startswith('f32_mask')):.3g} "
+            f"(limit {SP_MASK_F32}), detections within rtol 1e-3 / atol 1e-4; {bf16}; predict "
+            f"ms a rank f32 {entry['ms']['float32']} bf16 {entry['ms']['bfloat16']} against "
+            f"one process {entry['one_process_ms']} | {card}")
+        report[name] = entry
+    return report
+
+
+def _sp_check_steps(ranks, single, card: str) -> dict:
+    """The 2x2 steps against one process: f32 metrics (DP_STEP_GATE), f64
+    gradient (SP_GRAD_F64), replicas and statistics; bf16 metrics at phase
+    12a's bf16 fit gate; the weight-gradient kernels launched on every rank.
+    The f32 gradient's difference is printed, not held: at b2 a data group
+    the f32 noise of ~60 stacked train-mode BatchNorms can pass
+    GRADIENT_TOLERANCE whatever the reduction order; the f64 gradient holds
+    the machinery."""
+    report = {"f64_grad_err": 0.0, "f32_grad_err": 0.0, "f32_metric_err": 0.0,
+              "bf16_metric_err": 0.0, "bf16_mined_err": 0.0}
+    for rank, got in enumerate(ranks):
+        steps = got["steps"]
+        for k, v in single["float32"]["metrics"].items():
+            np.testing.assert_allclose(steps["float32"]["metrics"][k], v,
+                                       err_msg=f"rank {rank} {k}", **DP_STEP_GATE)
+            report["f32_metric_err"] = max(report["f32_metric_err"], abs(
+                steps["float32"]["metrics"][k] - v) / max(abs(v), 1e-12))
+        for k, v in single["bfloat16"]["metrics"].items():
+            limit = DP_MINED_TOLERANCE if k in DP_MINED else DP_FIT_TOLERANCE
+            err = max(0.0, abs(steps["bfloat16"]["metrics"][k] - v) - 1e-3) / max(abs(v), 1e-12)
+            assert err <= limit, (rank, k, err, steps["bfloat16"]["metrics"][k], v)
+            key = "bf16_mined_err" if k in DP_MINED else "bf16_metric_err"
+            report[key] = max(report[key], err)
+        f64 = _relative_norm_error(steps["float64"], single["float64"])
+        f32 = _relative_norm_error(steps["float32"]["grads"], single["float32"]["grads"])
+        assert f64[0] <= SP_GRAD_F64, (rank, f64)
+        report["f64_grad_err"] = max(report["f64_grad_err"], f64[0])
+        report["f32_grad_err"] = max(report["f32_grad_err"], f32[0])
+        stats = max((float((steps["float32"]["batch_stats"][k] - v).abs().max())
+                     / float(v.abs().max()), k) for k, v in single["float32"]["batch_stats"].items())
+        report["stats_err"] = max(report.get("stats_err", 0.0), stats[0])
+        assert stats[0] <= 1e-5, (rank, stats)
+        assert steps["float32"]["launches"]["wgrad_fma"] >= 1, (rank, steps["float32"])
+        assert steps["bfloat16"]["launches"]["wgrad_mma"] >= 1, (rank, steps["bfloat16"])
+        for dtype in ("float32", "bfloat16"):
+            for k, v in ranks[0]["steps"][dtype]["params"].items():
+                assert torch.equal(v, steps[dtype]["params"][k]), f"replicas differ at {k}"
+    report["launches"] = {"wgrad_fma": [r["steps"]["float32"]["launches"]["wgrad_fma"]
+                                        for r in ranks],
+                          "wgrad_mma": [r["steps"]["bfloat16"]["launches"]["wgrad_mma"]
+                                        for r in ranks]}
+    log(f"[spatial] (b) 2x2 (4 gloo ranks on cuda:0), one step at b{SP_STEP_BATCH} (b2 a data "
+        f"group) against one process, gates wgrad cuda: f32 metrics largest relative "
+        f"difference {report['f32_metric_err']:.3g} (gate rtol {DP_STEP_GATE['rtol']}), "
+        f"gradient in f64 (aten) {report['f64_grad_err']:.3g} (limit {SP_GRAD_F64}), in f32 "
+        f"{report['f32_grad_err']:.3g} (BatchNorm noise, not held), replicas "
+        f"bitwise equal, running statistics {report['stats_err']:.3g} of each tensor's largest "
+        f"(limit 1e-5); bf16 metrics {report['bf16_metric_err']:.3g} (limit "
+        f"{DP_FIT_TOLERANCE}), the mined confidence loss {report['bf16_mined_err']:.3g} "
+        f"(limit {DP_MINED_TOLERANCE}); launches a rank: f32 step {report['launches']['wgrad_fma']} "
+        f"wgrad_fma, bf16 step {report['launches']['wgrad_mma']} wgrad_mma | {card}")
+    return report
+
+
+def phase_spatial(card: str) -> None:
+    """Phase 13: spatial parallelism, the references in this process, then
+    SP_WORLD gloo ranks on cuda:0; one JSON line with the numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    builder, model, nms = _builder()
+    single = {}
+    for _, _, _, batch, suppression in SP_SERVE:
+        if (batch, suppression) not in single:
+            single[batch, suppression] = _sp_serve(builder, model, nms, None,
+                                                   _uint8_images(3, batch), suppression)
+    # 2x2's data slices alone (the mask does not depend on the suppression)
+    images = _uint8_images(3, 2)
+    single["slices"] = [_sp_serve(builder, model, nms, None, images[i:i + 1], False)
+                        for i in range(2)]
+    variables = model.state_dict()
+    del builder, model
+    _, _, images, targets, _ = _train_batch(SP_STEP_BATCH)
+    steps = _sp_steps(None, variables, images, targets)
+    del images, targets
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="ssdseg_smoke_spatial_")
+    try:
+        seconds = _sp_spawn(directory)
+        ranks = [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
+                 for r in range(SP_WORLD)]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    serving = _sp_check_serving(ranks, single, card)
+    stepping = _sp_check_steps(ranks, steps, card)
+    total = time.perf_counter() - t0
+    log(json.dumps({"spatial_parallel": {"serving": serving, "steps": stepping,
+                                         "ranks_seconds": seconds, "seconds": total,
+                                         "card": card}}, default=float))
+    log(f"[spatial] phase 13 took {total:.1f} s (budget {SP_BUDGET_S} s; the ranks "
+        f"{seconds:.1f} s) | {card}")
 
 
 # (rows a warp stages per slab, CTAs) of the tensor-core weight-gradient kernel
@@ -3006,6 +3423,9 @@ def main() -> None:
     if "--data-parallel" in sys.argv:
         phase_data_parallel(card)
         return
+    if "--spatial" in sys.argv:
+        phase_spatial(card)
+        return
     if "--profile-train" in sys.argv:
         routes = [a for a in sys.argv[1:] if a in ROUTES] or list(ROUTES)
         for route in routes:
@@ -3028,6 +3448,7 @@ def main() -> None:
     phase_notebook_path(card)
     phase_deployment(card)
     phase_data_parallel(card)
+    phase_spatial(card)
     wgrad["wgrad_mma"]["launches"] = fit_launches["wgrad_mma"]
     wgrad["wgrad_fma"]["launches"] = fit_launches["wgrad_fma"]
     described = {

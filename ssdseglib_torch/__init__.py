@@ -5,8 +5,8 @@ MobileNetV2 or ShuffleNetV2 backbones: anchors, ground-truth encoding and
 decoding (`datacoder.DataEncoderDecoder`), the three losses, streaming
 metrics, training (`train.Trainer`, the loader in `data.pipeline`),
 checkpoints, serving with NMS, Keras weight import (`keras_import`),
-self-contained serving bundles (`export`), data parallelism over
-``torch.distributed`` (`parallel`), and the evaluators.  The JAX
+self-contained serving bundles (`export`), data and spatial (H-axis)
+parallelism over ``torch.distributed`` (`parallel`), and the evaluators.  The JAX
 package's Pallas kernels are hand-written CUDA kernels here (``csrc/``),
 built with nvcc on first use, never on import.
 
@@ -21,7 +21,7 @@ surface that have no counterpart yet.
 import importlib
 
 # parts of ssdseglib_tpu's surface not ported yet (ROADMAP.md, Queue 1)
-NOT_PORTED = ("parallel.spatial",)
+NOT_PORTED = ()
 
 __version__ = "0.1.0"
 

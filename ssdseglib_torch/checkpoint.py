@@ -71,7 +71,7 @@ class Checkpointer:
         if mesh is None:
             self._write(step, state)
             return
-        group = mesh.get_group(mesh_lib.BATCH_AXIS)
+        group = mesh_lib.mesh_group(mesh)
         if dist.get_rank(group) == 0:
             self._write(step, state)
         fence = torch.zeros(1, device=mesh_lib.local_device(mesh))

@@ -245,3 +245,12 @@ class NativeBatchLoader:
         if ret != 0:
             raise NativeLoaderError(f"load_batch failed: {ret}", code=ret)
         return images, masks, labels, boxes, valid.astype(bool)
+
+
+def available() -> bool:
+    """Whether the native library builds and loads here (`get_library`)."""
+    try:
+        get_library()
+        return True
+    except NativeLoaderError:
+        return False

@@ -343,7 +343,7 @@ class TrainDataLoader:
         self.mesh = mesh
         shard = (0, 1)
         if mesh is not None:
-            group = mesh_lib.check_data_mesh(mesh).get_group(mesh_lib.BATCH_AXIS)
+            group = mesh_lib.check_mesh(mesh).get_group(mesh_lib.BATCH_AXIS)
             shard = (dist.get_rank(group), dist.get_world_size(group))
         self.batcher = HostBatcher(
             samples,

@@ -11,7 +11,7 @@ import torch.distributed as dist
 from ssdseglib_torch.config import NmsConfig
 from ssdseglib_torch.ops import nms as nms_ops
 from ssdseglib_torch.ops.encoding import decode_predictions_to_corners_yx
-from ssdseglib_torch.parallel.mesh import active_group, all_reduce_
+from ssdseglib_torch.parallel.mesh import active_groups, all_reduce_
 
 
 class DecodeBoxesCentroidsOffsets:
@@ -117,8 +117,8 @@ class SegmentationSuppression:
     (reference ssdseglib/layers.py:180-212), with its two quirks kept for
     metric parity: class presence is reduced over the **whole batch** and
     the one-hot depth defaults to 4.  Inside a `parallel.mesh.data_parallel`
-    scope the whole batch is the global batch: one MAX all_reduce of the
-    (num_classes,) presence vector."""
+    scope the whole batch is the global batch, all of its rows: one MAX
+    all_reduce of the (num_classes,) presence vector over the whole mesh."""
 
     def __init__(self, num_classes: int = 4) -> None:
         self.num_classes = num_classes
@@ -129,7 +129,30 @@ class SegmentationSuppression:
         pred = segmentation_mask.argmax(dim=-1)  # first index on ties
         classes = torch.arange(self.num_classes, device=pred.device)
         present = (pred.reshape(-1, 1) == classes).any(dim=0)
-        group = active_group()
-        if group is not None:
-            present = all_reduce_(present.to(torch.float32), group, dist.ReduceOp.MAX) > 0
+        groups = active_groups()
+        if groups is not None:
+            present = all_reduce_(present.to(torch.float32), groups.whole,
+                                  dist.ReduceOp.MAX) > 0
         return labels_probabilities * present.to(labels_probabilities.dtype)
+
+
+class Split:
+    """Split along one axis (reference ssdseglib/layers.py:215-244, without
+    its ``get_config`` attribute typo): ``num_or_size_splits`` equal parts,
+    or parts of the listed sizes; ``num`` is kept for the reference's
+    signature and not read."""
+
+    def __init__(self, num_or_size_splits, axis: int, num: int = None) -> None:
+        self.num_or_size_splits = num_or_size_splits
+        self.axis = axis
+        self.num = num
+
+    def __call__(self, value: torch.Tensor):
+        if isinstance(self.num_or_size_splits, int):
+            if value.shape[self.axis] % self.num_or_size_splits:
+                raise ValueError(
+                    f"axis {self.axis} of shape {tuple(value.shape)} does not split into "
+                    f"{self.num_or_size_splits} equal parts"
+                )
+            return list(value.chunk(self.num_or_size_splits, dim=self.axis))
+        return list(value.split(list(self.num_or_size_splits), dim=self.axis))

@@ -13,6 +13,10 @@ Reference quirks preserved on purpose:
 - the confidence/cross-entropy losses consume *probabilities* (the model
   emits softmax), re-log-ed with an epsilon clip -- not logits
 - localization loss normalizes by per-sample positive count
+
+On a mesh that splits the rows (`parallel.spatial`) the mask losses' per-sample
+sums over H and W are summed over the spatial ranks (`sum_over_rows`); the
+detection losses see the heads' outputs whole on every spatial rank.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ssdseglib_torch.parallel.mesh import active_group, gather_by_sum
+from ssdseglib_torch.parallel.spatial import sum_over_rows
 
 _EPSILON = 1e-7  # tf.keras.backend.epsilon()
 
@@ -144,9 +149,9 @@ def dice(classes_weights: Sequence[float]) -> Callable:
     _weights = _cached_weights(classes_weights)
 
     def dice_loss(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
-        intersection = (y_true * y_pred).sum(dim=(1, 2))
-        total = (y_true + y_pred).sum(dim=(1, 2))
-        loss = 1.0 - (2.0 * intersection + _EPSILON) / (total + _EPSILON)
+        sums = sum_over_rows(torch.stack([(y_true * y_pred).sum(dim=(1, 2)),
+                                          (y_true + y_pred).sum(dim=(1, 2))]))
+        loss = 1.0 - (2.0 * sums[0] + _EPSILON) / (sums[1] + _EPSILON)
         return (loss * _weights(y_pred)).sum(dim=-1)
 
     return dice_loss
@@ -157,9 +162,10 @@ def dice_square(classes_weights: Sequence[float]) -> Callable:
     _weights = _cached_weights(classes_weights)
 
     def dice_square_loss(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
-        intersection = (y_true * y_pred).sum(dim=(1, 2))
-        total_sq = (torch.square(y_true) + torch.square(y_pred)).sum(dim=(1, 2))
-        loss = 1.0 - (2.0 * intersection + _EPSILON) / (total_sq + _EPSILON)
+        sums = sum_over_rows(torch.stack([
+            (y_true * y_pred).sum(dim=(1, 2)),
+            (torch.square(y_true) + torch.square(y_pred)).sum(dim=(1, 2))]))
+        loss = 1.0 - (2.0 * sums[0] + _EPSILON) / (sums[1] + _EPSILON)
         return (loss * _weights(y_pred)).sum(dim=-1)
 
     return dice_square_loss
@@ -175,7 +181,7 @@ def cross_entropy(classes_weights: Sequence[float]) -> Callable:
 
     def cross_entropy_loss(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
         log_pred = torch.log(y_pred.clamp(_EPSILON, 1.0 - _EPSILON))
-        loss = -(y_true * log_pred).sum(dim=(1, 2))  # (B, C)
+        loss = -sum_over_rows((y_true * log_pred).sum(dim=(1, 2)))  # (B, C)
         return (loss * _weights(y_pred)).sum(dim=-1)
 
     return cross_entropy_loss

@@ -21,17 +21,19 @@ import torch
 
 from ssdseglib_torch.boxes import Anchors
 from ssdseglib_torch.losses import _cached_weights
+from ssdseglib_torch.parallel.spatial import sum_over_rows
 
 _EPSILON = 1e-7
 
 
 def jaccard_iou_segmentation_masks(classes_weights: Sequence[float]) -> Callable:
-    """Weighted soft mask IoU factory."""
+    """Weighted soft mask IoU factory (on split rows, the per-sample sums
+    are the global map's: `parallel.spatial.sum_over_rows`)."""
     weights = _cached_weights(classes_weights)
 
     def metric(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
-        intersection = (y_true * y_pred).sum(dim=(1, 2))
-        total = (y_true + y_pred).sum(dim=(1, 2))
+        intersection, total = sum_over_rows(torch.stack([(y_true * y_pred).sum(dim=(1, 2)),
+                                                         (y_true + y_pred).sum(dim=(1, 2))]))
         iou = intersection / (total - intersection + _EPSILON)
         return (iou * weights(y_pred)).sum(dim=-1)
 

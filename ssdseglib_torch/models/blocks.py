@@ -16,22 +16,26 @@ ReLU, x > 0 = ReLU capped at x.
 
 Train mode follows Flax: `FlaxBatchNorm2d` keeps the BIASED batch variance in
 ``running_var``; inside a `parallel.mesh.data_parallel` scope its statistics
-are those of the global batch.  Three module-level gates, named as in the
-JAX package, choose a backward route: of the depthwise layers inside the envelope
-(`set_depthwise_bwd_impl`, `set_chain_bwd_impl`) and of the weight gradient
-of the dense convs (`set_wgrad_impl`).
+are those of the global batch.  On a mesh whose spatial axis splits the rows,
+the convs, the pool and the resize read and write the global map through
+`parallel.spatial` (halo rows, global SAME padding, global resize
+coordinates).  Three module-level gates, named as in the JAX package, choose
+a backward route: of the depthwise layers inside the envelope
+(`set_depthwise_bwd_impl`, `set_chain_bwd_impl`; their kernels refuse split
+rows) and of the weight gradient of the dense convs (`set_wgrad_impl`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ssdseglib_torch.parallel.mesh import active_group, all_reduce_, global_moments
+from ssdseglib_torch.parallel import spatial
+from ssdseglib_torch.parallel.mesh import active_groups, all_reduce_, global_moments
+from ssdseglib_torch.parallel.spatial import same_pad  # noqa: F401  (this module's name too)
 
 BN_EPSILON = 1e-3
 # torch's momentum weighs the new batch statistic: 1 - Flax's 0.99
@@ -95,19 +99,12 @@ def set_wgrad_impl(impl: str) -> None:
     WGRAD_IMPL = impl
 
 
-def same_pad(size: int, kernel: int, stride: int, dilation: int) -> Tuple[int, int]:
-    """TF/XLA SAME padding (before, after) of one spatial axis."""
-    effective = (kernel - 1) * dilation + 1
-    out = -(-size // stride)
-    total = max((out - 1) * stride + effective - size, 0)
-    return total // 2, total - total // 2
-
-
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias=None, stride: int = 1,
                 dilation: int = 1, groups: int = 1) -> torch.Tensor:
-    """``F.conv2d`` with SAME padding; pads explicitly only when the
-    padding is asymmetric."""
-    (top, bottom) = same_pad(x.shape[2], weight.shape[2], stride, dilation)
+    """``F.conv2d`` with SAME padding of the global map (on split rows, the
+    rows this rank's output reads: `parallel.spatial.window_rows`); pads
+    explicitly only when the padding is asymmetric."""
+    x, (top, bottom) = spatial.window_rows(x, weight.shape[2], stride, dilation)
     (left, right) = same_pad(x.shape[3], weight.shape[3], stride, dilation)
     if top == bottom and left == right:
         return F.conv2d(x, weight, bias, stride, (top, left), dilation, groups)
@@ -152,9 +149,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        group = active_group()
-        if group is not None:
-            return self._global_forward(x, group)
+        groups = active_groups()
+        if groups is not None:
+            return self._global_forward(x, groups)
         n = x.numel() // x.shape[1]
         # the library call keeps its running_var argument for the backward,
         # so it gets a working copy and the buffer is written afterwards
@@ -165,11 +162,15 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_((1.0 - self.momentum) / n).add_(var, alpha=1.0 - 1.0 / n)
         return y
 
-    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
-        """Train mode over the global batch of a data group
-        (`_GlobalBatchNorm`); the running statistics move by the global mean
-        and the biased global variance."""
-        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, group)
+    def _global_forward(self, x: torch.Tensor, groups) -> torch.Tensor:
+        """Train mode over the global batch (`_GlobalBatchNorm`): over every
+        rank of the mesh for a map whose rows are split, over the data group
+        for a whole one (its spatial copies are no samples).  The running
+        statistics move by the global mean and the biased global variance."""
+        split = groups.partition is not None and groups.partition.rows_of(x) is not None
+        group = groups.whole if split else groups.data
+        count = x.numel() // x.shape[1] * torch.distributed.get_world_size(group)
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, group, count)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
@@ -179,23 +180,26 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
 class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode BatchNorm whose statistics are those of the global batch.
 
-    Forward: `global_moments`, then z = (x - mean) * (rsqrt(var + eps) *
-    gamma) + beta in f32 (Flax's association), cast to x's dtype.  Backward,
-    with N the global count: one all_reduce of [sum dz, sum dz * xhat], then
+    Forward: `global_moments` over ``group``, whose ranks hold ``count``
+    values a channel together, then z = (x - mean) * (rsqrt(var + eps) *
+    gamma) + beta in f32 (f64 for an f64 x; Flax's association), cast to x's
+    dtype.  Backward, with N = count: one all_reduce of [sum dz,
+    sum dz * xhat], then
     dx = gamma * inv * (dz - sum dz / N - xhat * sum(dz * xhat) / N).  dgamma
     and dbeta are this rank's sums: the gradient all-reduce of the step
     averages them with the other ranks' gradients."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, group):
-        x32 = x.float()
-        mean, var = global_moments(x32, group)
+    def forward(ctx, x, gamma, beta, eps, group, count):
+        wide = torch.float64 if x.dtype == torch.float64 else torch.float32
+        x32 = x.to(wide)
+        mean, var = global_moments(x32, group, count)
         inv = torch.rsqrt(var + eps)
         shape = (1, -1, 1, 1)
-        y = ((x32 - mean.view(shape)) * (inv * gamma.float()).view(shape)
-             + beta.float().view(shape)).to(x.dtype)
+        y = ((x32 - mean.view(shape)) * (inv * gamma.to(wide)).view(shape)
+             + beta.to(wide).view(shape)).to(x.dtype)
         ctx.save_for_backward(x, mean, inv, gamma)
-        ctx.group, ctx.count = group, float(x.numel() // x.shape[1] * dist.get_world_size(group))
+        ctx.group, ctx.count = group, float(count)
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -203,14 +207,14 @@ class _GlobalBatchNorm(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, inv, gamma = ctx.saved_tensors
         shape = (1, -1, 1, 1)
-        xhat = (x.float() - mean.view(shape)) * inv.view(shape)
-        dz = dy.float()
+        xhat = (x.to(mean.dtype) - mean.view(shape)) * inv.view(shape)
+        dz = dy.to(mean.dtype)
         local = torch.stack([dz.sum(dim=(0, 2, 3)), (dz * xhat).sum(dim=(0, 2, 3))])
         total = all_reduce_(local.clone(), ctx.group) / ctx.count
-        dx = (gamma.float() * inv).view(shape) * (
+        dx = (gamma.to(mean.dtype) * inv).view(shape) * (
             dz - total[0].view(shape) - xhat * total[1].view(shape))
         return (dx.to(dy.dtype), local[1].to(gamma.dtype), local[0].to(gamma.dtype),
-                None, None)
+                None, None, None)
 
 
 def batchnorm(channels: int) -> FlaxBatchNorm2d:
@@ -221,6 +225,7 @@ def depthwise_conv(conv: "SameConv2d", x: torch.Tensor) -> torch.Tensor:
     """A depthwise `SameConv2d` applied through the selected backward route
     (DEPTHWISE_BWD_IMPL)."""
     if DEPTHWISE_BWD_IMPL == "cuda":
+        spatial.refuse("the depthwise backward kernel (set_depthwise_bwd_impl('cuda'))")
         from ssdseglib_torch.ops.depthwise_backward import (
             depthwise_conv3x3_fused_bwd,
             pallas_bwd_applicable,
@@ -287,6 +292,7 @@ class DepthwiseConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and CHAIN_BWD_IMPL == "cuda":
+            spatial.refuse("the chain backward kernel (set_chain_bwd_impl('cuda'))")
             from ssdseglib_torch.ops.fused_chain_backward import chain_applicable
 
             _, c, h, w = x.shape
@@ -333,8 +339,9 @@ class SepConvBN(nn.Module):
 def max_pool_same(x: torch.Tensor, kernel_size: int = 3, stride: int = 2) -> torch.Tensor:
     """Max pool with SAME padding by -inf (Flax ``nn.max_pool(...,
     padding="SAME")``): at stride 2 on an even size, 0 before and 1 after,
-    which ``F.max_pool2d``'s symmetric ``padding=`` cannot express."""
-    (top, bottom) = same_pad(x.shape[2], kernel_size, stride, 1)
+    which ``F.max_pool2d``'s symmetric ``padding=`` cannot express.  On split
+    rows, -inf at the global borders only (`parallel.spatial.window_rows`)."""
+    x, (top, bottom) = spatial.window_rows(x, kernel_size, stride, 1, fill=float("-inf"))
     (left, right) = same_pad(x.shape[3], kernel_size, stride, 1)
     if top == bottom and left == right:
         return F.max_pool2d(x, kernel_size, stride, (top, left))
@@ -353,11 +360,11 @@ def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
 
 
 def bilinear_resize(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Bilinear resize with half-pixel centers (``jax.image.resize``
-    'bilinear' / ``tf.image.resize``); the serving path only upsamples,
-    where no antialiasing applies."""
-    return F.interpolate(x, size=(height, width), mode="bilinear",
-                         align_corners=False)
+    """Bilinear resize to the global size (height, width) with half-pixel
+    centers (``jax.image.resize`` 'bilinear' / ``tf.image.resize``); the
+    serving path only upsamples, where no antialiasing applies.  On split
+    rows, in global coordinates (`parallel.spatial.resize_bilinear`)."""
+    return spatial.resize_bilinear(x, height, width)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

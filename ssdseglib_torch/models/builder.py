@@ -4,8 +4,10 @@ ssdseglib_tpu/models/builder.py.
 `SsdSegModel` is the joint SSDLite + DeepLabV3+ network on MobileNetV2 or
 ShuffleNetV2 (built in eval mode; ``.train()`` reaches every BatchNorm for
 the trainer); `InferenceModel` is the serving path: forward -> decode ->
-segmentation gating -> exact NMS, on one device or data-parallel over a mesh
-(`parallel.make_mesh`), with the NMS thresholds held as 0-d device tensors so
+segmentation gating -> exact NMS, on one device, data-parallel over a mesh
+(`parallel.make_mesh`) or over a ``("data", "spatial")`` mesh that splits the
+rows too (`parallel.make_hybrid_mesh`), with the NMS thresholds held as 0-d
+device tensors so
 an operating point changes without any host synchronisation.
 `MobileNetV2SsdSegBuilder` and `ShuffleNetV2SsdSegBuilder` mirror the
 reference builder surface.
@@ -40,6 +42,7 @@ from ssdseglib_torch.models.mobilenetv2 import MobileNetV2Backbone
 from ssdseglib_torch.models.shufflenetv2 import STAGE_CHANNELS, ShuffleNetV2Backbone
 from ssdseglib_torch.ops.encoding import decode_predictions_to_corners_yx
 from ssdseglib_torch.parallel import mesh as mesh_lib
+from ssdseglib_torch.parallel import spatial
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -116,10 +119,15 @@ class SsdSegModel(nn.ModuleDict):
         self.eval()
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        # NHWC -> channels-last NCHW view; rescale [0, 255] -> [-1, 1]
-        x = images.permute(0, 3, 1, 2) / 127.5 - 1.0
-        _, taps = self["backbone"](x)
-        return self.apply_heads(*(taps[name] for name in self.taps))
+        # on a mesh that splits the rows, images are this rank's rows; the
+        # ASPP's dilated convs read up to the largest rate across a shard's
+        # edge of the os16 map (fm1), every other window one row
+        halos = {16: max(self.cfg.segmentation_dilation_rates)}
+        with spatial.row_partition(images, halos):
+            # NHWC -> channels-last NCHW view; rescale [0, 255] -> [-1, 1]
+            x = images.permute(0, 3, 1, 2) / 127.5 - 1.0
+            _, taps = self["backbone"](x)
+            return self.apply_heads(*(taps[name] for name in self.taps))
 
     def apply_heads(self, fm1: torch.Tensor, fm2: torch.Tensor,
                     skip: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -181,9 +189,10 @@ class InferenceModel:
     With a ``mesh`` every rank is given the same global batch, serves its
     slice through the same program (the segmentation suppression reduces
     class presence over the global batch), and `__call__` returns this
-    rank's slice; `predict` and `predict_batched` return the whole batch on
-    every rank, as the JAX package's host arrays are.  The weights are rank
-    0's, on every rank.
+    rank's slice -- on a mesh that splits the rows, its rows of the mask and
+    the detections of its batch slice; `predict` and `predict_batched`
+    return the whole batch on every rank, as the JAX package's host arrays
+    are.  The weights are the mesh's first rank's, on every rank.
 
     What a call runs is `serving_program(operands, images, iou_threshold,
     score_threshold)`: a function of its arguments only, so
@@ -214,10 +223,15 @@ class InferenceModel:
         mask_output: 'float32' | 'bfloat16' | 'class_map' (`_format_mask`).
 
         mesh: a 1-D data mesh (`parallel.make_mesh`) for batch-parallel
-        serving, or None.
+        serving, a ``("data", "spatial")`` one (`parallel.make_hybrid_mesh`)
+        for batch- and row-parallel serving, or None.  A mesh that splits
+        the rows refuses ``fused_backbone`` (NotImplementedError).
         """
-        if mesh is not None:
-            mesh_lib.check_data_mesh(mesh)
+        if mesh is not None and mesh_lib.spatial_size(mesh) > 1 and fused_backbone:
+            raise NotImplementedError(
+                "fused_backbone=True is not available on a spatial mesh: the fused MBConv "
+                f"kernel pads SAME inside the kernel ({spatial.ROADMAP_ITEM})"
+            )
         if compute_dtype not in _DTYPES:
             raise ValueError(
                 f"compute_dtype must be 'float32' or 'bfloat16', got {compute_dtype!r}"
@@ -402,13 +416,13 @@ class InferenceModel:
 
     def _whole_batch(self, images):
         """`__call__`'s (mask, detections) of the whole batch: on a mesh the
-        ranks' slices gathered on every rank (`utils.serving.gather_outputs`)."""
+        ranks' blocks gathered on every rank (`utils.serving.gather_outputs`)."""
         from ssdseglib_torch.utils.serving import gather_outputs
 
         mask, det = self(images)
         if self.mesh is None:
             return mask, det
-        return gather_outputs(mask, det, self.mesh.get_group(mesh_lib.BATCH_AXIS))
+        return gather_outputs(mask, det, self.mesh)
 
     def predict_batched(self, images, batch: int = 16):
         """Serve any number of images at one batch size, with `predict`'s
@@ -505,7 +519,9 @@ class _BuilderBase:
             device: where the model serves; the card unless the caller
                 asks for the CPU.
             mesh: a 1-D data mesh (`parallel.make_mesh`) for batch-parallel
-                serving over its ranks (`InferenceModel`).
+                serving over its ranks, or a ``("data", "spatial")`` one
+                (`parallel.make_hybrid_mesh`) that splits the rows too
+                (`InferenceModel`).
         """
         if isinstance(model_trained, SsdSegModel):
             module = model_trained

@@ -41,6 +41,7 @@ from ssdseglib_torch.models.blocks import bilinear_resize, conv2d_same
 from ssdseglib_torch.models.mobilenetv2 import _SEQUENCES
 from ssdseglib_torch.ops.fused_mbconv import fold_conv_bn, fused_mbconv
 from ssdseglib_torch.ops.s2d_stem import fused_stem_block1, stem_block1_args
+from ssdseglib_torch.parallel import spatial
 
 EXTRA_BLOCKS = ("backbone-block17", "backbone-block18")
 
@@ -374,7 +375,9 @@ def fused_forward(cfg: ModelConfig, operands: Mapping[str, Tuple[torch.Tensor, .
     """The BN-folded forward on NHWC ``images`` (any real or uint8 dtype)
     with the tensors of `fused_operands`: a dict of NHWC outputs.  A
     function of its arguments only, so ``torch.export`` captures it with
-    the operands as inputs.  ``apply_heads`` replaces the folded heads."""
+    the operands as inputs.  ``apply_heads`` replaces the folded heads.
+    Refused on a mesh that splits the rows (`parallel.spatial.refuse`)."""
+    spatial.refuse("the fused serving path (fused_backbone=True, s2d_stem)")
     x = images.to(operands["backbone-block0-project"][0].dtype).permute(0, 3, 1, 2)
     backbone = operands
     if STEM_RESCALED in operands and (

@@ -5,7 +5,10 @@ and the head assembly in models.py:217-312), including the reference quirk
 kept for checkpoint parity: the labels branches use 4 output channels (the
 number of box coordinates) and the boxes branches use `number_of_classes`.
 Inputs and outputs of the modules are NCHW; the detection heads flatten in
-NHWC order, the order of the flat anchors.
+NHWC order, the order of the flat anchors.  On a mesh that splits the rows
+(`parallel.spatial`), a head's output of a split map is gathered in row
+order, the image pooling is the global mean, and the decoder resizes to the
+skip map's global size.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ssdseglib_torch.parallel import spatial
 from ssdseglib_torch.models.blocks import (
     ConvBN,
     SameConv2d,
@@ -35,7 +39,8 @@ class SsdLiteBlock(nn.Module):
         self.output_channels = output_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.sepconv(x)
+        # every row, so that the anchors are (row, column, box) as in one process
+        x = spatial.whole(self.sepconv(x))
         # NCHW -> NHWC before the reshape, or the anchors are scrambled
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, self.output_channels)
 
@@ -91,8 +96,8 @@ class DeepLabV3PlusEncoder(nn.ModuleDict):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [self["aspp-pointwise"](x)]
         branches += [self[f"aspp-atrous{i + 1}"](x) for i in range(self.n_atrous)]
-        pooled = self["pooling"](x.mean(dim=(2, 3), keepdim=True))
-        branches.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
+        pooled = self["pooling"](spatial.mean_hw(x))
+        branches.append(spatial.expand_rows(pooled, x))
         return self["output"](torch.cat(branches, dim=1))
 
 
@@ -118,7 +123,7 @@ class DeepLabV3PlusDecoder(nn.ModuleDict):
         self.output_height_width = tuple(output_height_width)
 
     def forward(self, encoder: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        encoder = bilinear_resize(encoder, skip.shape[2], skip.shape[3])
+        encoder = bilinear_resize(encoder, *spatial.global_size(skip))
         skip = self["backbone-reduce"](skip)
         x = self["conv"](torch.cat([encoder, skip], dim=1))
         x = dense_conv(self["output-conv"], self["sepconv"](x))

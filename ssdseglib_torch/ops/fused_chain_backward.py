@@ -305,7 +305,7 @@ def _stats(u32: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     variance E[u^2] - E[u]^2, clipped at 0; over the global batch of a
     data-parallel ``group`` when one is given."""
     if group is not None:
-        return global_moments(u32, group)
+        return global_moments(u32, group, u32.numel() // u32.shape[1] * dist.get_world_size(group))
     mean = u32.mean(dim=(0, 2, 3))
     var = ((u32 * u32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
     return mean, var

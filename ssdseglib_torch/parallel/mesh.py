@@ -16,12 +16,15 @@ data-parallel port gets the first three wrong:
   (`layers.SegmentationSuppression`);
 - the gradient and metric means of a step (`train.Trainer`).
 
-The first three read the group of the innermost `data_parallel` scope
-(`active_group`); outside one they are the single-process code, bit for
-bit.  Only ``all_reduce`` and ``broadcast`` are used, on tensors on the
-rank's device: gloo runs both on CUDA tensors too, which lets two ranks
-share one card, where NCCL refuses that.  Nothing falls back: a group that
-does not form, or a collective that fails, raises.
+A mesh is 1-D ``("data",)`` (`make_mesh`) or 2-D ``("data", "spatial")``
+(`parallel.spatial.make_hybrid_mesh`), whose second axis splits the rows of
+every image and feature map (`parallel/spatial.py`).  The reductions read the
+groups of the innermost `data_parallel` scope (`active_groups`); outside one
+they are the single-process code, bit for bit.  Only ``all_reduce`` and
+``broadcast`` are used, on tensors on the rank's device: gloo runs both on
+CUDA tensors too, which lets several ranks share one card, where NCCL
+refuses that.  Nothing falls back: a group that does not form, or a
+collective that fails, raises.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import contextvars
+import dataclasses
 import os
 import shutil
 import tempfile
@@ -42,8 +46,26 @@ from torch.distributed.device_mesh import DeviceMesh
 BATCH_AXIS = "data"
 SPATIAL_AXIS = "spatial"
 
-# the process group of the innermost `data_parallel` scope
-_GROUP: contextvars.ContextVar = contextvars.ContextVar("ssdseglib_data_group", default=None)
+
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """The process groups of one `data_parallel` scope.
+
+    data: the ranks that hold the other slices of the batch (and the same
+    rows); whole: every rank of the mesh; spatial: the ranks that hold the
+    other rows of the same images, None when the rows are not split (no
+    spatial axis, or one of size 1); partition: the row partition of the
+    model's forward (`parallel.spatial.RowPartition`), set by the model for
+    the length of its forward."""
+
+    data: dist.ProcessGroup
+    whole: dist.ProcessGroup
+    spatial: Optional[dist.ProcessGroup] = None
+    partition: Optional[object] = None
+
+
+# the groups of the innermost `data_parallel` scope
+_SCOPE: contextvars.ContextVar = contextvars.ContextVar("ssdseglib_mesh_scope", default=None)
 
 
 def _single_process_group(backend: str) -> None:
@@ -55,14 +77,12 @@ def _single_process_group(backend: str) -> None:
     dist.init_process_group(backend, store=store, rank=0, world_size=1)
 
 
-def make_mesh(group: Optional[dist.ProcessGroup] = None, device=None) -> DeviceMesh:
-    """1-D data-parallel mesh named ``("data",)`` over ``group`` (default:
-    the default group).
+def rank_device(device=None) -> torch.device:
+    """This rank's device, made the current one, with the default group
+    formed where there is none.
 
-    device: this rank's device.  Default: the card ``cuda:LOCAL_RANK``
-    (LOCAL_RANK as a launcher such as torchrun sets it, else 0); it raises
-    without a card.  A CUDA device becomes the current device, which is
-    where the mesh's helpers put tensors (`local_device`).
+    device: default the card ``cuda:LOCAL_RANK`` (LOCAL_RANK as a launcher
+    such as torchrun sets it, else 0); it raises without a card.
 
     Without a default group, one is formed: from the launcher's environment
     (``env://``) where WORLD_SIZE is set, else a world-size-1 group for this
@@ -81,26 +101,53 @@ def make_mesh(group: Optional[dist.ProcessGroup] = None, device=None) -> DeviceM
             dist.init_process_group(backend, init_method="env://")
         else:
             _single_process_group(backend)
+    return device
+
+
+def make_mesh(group: Optional[dist.ProcessGroup] = None, device=None) -> DeviceMesh:
+    """1-D data-parallel mesh named ``("data",)`` over ``group`` (default:
+    the default group), on this rank's device (`rank_device`).  A CUDA device
+    becomes the current device, which is where the mesh's helpers put
+    tensors (`local_device`)."""
+    device = rank_device(device)
     if group is None:
         group = dist.group.WORLD
     return DeviceMesh.from_group(group, device.type, mesh_dim_names=(BATCH_AXIS,))
 
 
-def check_data_mesh(mesh) -> DeviceMesh:
-    """``mesh`` itself when it is a 1-D ``("data",)`` mesh; TypeError for
-    anything that is no DeviceMesh, NotImplementedError for a mesh with a
-    spatial axis, ValueError for any other."""
+def check_mesh(mesh) -> DeviceMesh:
+    """``mesh`` itself when it is a ``("data",)`` or ``("data", "spatial")``
+    DeviceMesh; TypeError for anything that is no DeviceMesh, ValueError for
+    any other axes."""
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"expected a torch DeviceMesh (parallel.make_mesh), got {type(mesh)!r}")
     names = tuple(mesh.mesh_dim_names or ())
-    if SPATIAL_AXIS in names:
-        raise NotImplementedError(
-            "spatial (H-axis) parallelism is not ported yet (ROADMAP.md, Queue 1); "
-            "use a 1-D ('data',) mesh"
+    if names not in ((BATCH_AXIS,), (BATCH_AXIS, SPATIAL_AXIS)):
+        raise ValueError(
+            f"expected a ('{BATCH_AXIS}',) or ('{BATCH_AXIS}', '{SPATIAL_AXIS}') mesh, got "
+            f"axes {names}"
         )
-    if names != (BATCH_AXIS,):
-        raise ValueError(f"expected a 1-D ('{BATCH_AXIS}',) mesh, got axes {names}")
     return mesh
+
+
+def spatial_size(mesh: DeviceMesh) -> int:
+    """How many ranks split an image's rows: the size of the mesh's spatial
+    axis, 1 without one."""
+    if check_mesh(mesh).ndim == 1:
+        return 1
+    return mesh.size(1)
+
+
+def mesh_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+    """The group of every rank of ``mesh``: the data group of a 1-D mesh;
+    the default group when a 2-D mesh holds every rank, else the mesh
+    flattened (formed at the first call, which every rank of the default
+    group makes)."""
+    if check_mesh(mesh).ndim == 1:
+        return mesh.get_group(BATCH_AXIS)
+    if mesh.size() == dist.get_world_size():
+        return dist.group.WORLD
+    return mesh._flatten().get_group()
 
 
 def local_device(mesh: DeviceMesh) -> torch.device:
@@ -111,19 +158,18 @@ def local_device(mesh: DeviceMesh) -> torch.device:
 
 
 def batch_sharding(mesh: DeviceMesh):
-    """Shard the leading (batch) axis over the mesh: DTensor placements."""
-    from torch.distributed.tensor import Shard
+    """Shard the leading (batch) axis over the data axis, replicate over a
+    spatial one: DTensor placements."""
+    from torch.distributed.tensor import Replicate, Shard
 
-    check_data_mesh(mesh)
-    return (Shard(0),)
+    return (Shard(0),) + (Replicate(),) * (check_mesh(mesh).ndim - 1)
 
 
 def replicate_sharding(mesh: DeviceMesh):
     """Every rank holds the whole value: DTensor placements."""
     from torch.distributed.tensor import Replicate
 
-    check_data_mesh(mesh)
-    return (Replicate(),)
+    return (Replicate(),) * check_mesh(mesh).ndim
 
 
 def _tree_map(fn, tree):
@@ -141,13 +187,14 @@ def _leaves(tree) -> list:
 
 
 def shard_batch(mesh: DeviceMesh, tree):
-    """This rank's contiguous slice of every batch-leading array of ``tree``
-    (the global batch, the same on every rank), as tensors on
-    `local_device`.  A leaf that is no array passes through.
+    """This rank's contiguous slice over the data axis of every
+    batch-leading array of ``tree`` (the global batch, the same on every
+    rank), as tensors on `local_device`.  A leaf that is no array passes
+    through.
 
-    Raises a clear ValueError when a batch is not divisible by the mesh size.
+    Raises a clear ValueError when a batch is not divisible by the data axis.
     """
-    group = check_data_mesh(mesh).get_group(BATCH_AXIS)
+    group = check_mesh(mesh).get_group(BATCH_AXIS)
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     device = local_device(mesh)
 
@@ -169,19 +216,23 @@ def shard_batch(mesh: DeviceMesh, tree):
     return _tree_map(take, tree)
 
 
-def shard_images(mesh: DeviceMesh, images):
-    """`shard_batch` of an image batch (B, H, W, C).  A mesh with a spatial
-    axis raises NotImplementedError (`check_data_mesh`)."""
-    return shard_batch(check_data_mesh(mesh), images)
+def shard_images(mesh: DeviceMesh, images, batch_is_local: bool = False):
+    """This rank's block of an image batch (B, H, W, C): its slice of the
+    batch over the data axis and, when the mesh has a spatial axis, its rows
+    over that axis (`parallel.spatial.shard_images`).  `shard_batch` on a
+    1-D mesh.  ``batch_is_local``: the batch is this rank's slice already
+    (what a loader built with the mesh yields), and only the rows are taken."""
+    from ssdseglib_torch.parallel import spatial
+
+    return spatial.shard_images(mesh, images, batch_is_local=batch_is_local)
 
 
 def replicate(mesh: DeviceMesh, tree):
-    """A copy of ``tree`` on `local_device` holding rank 0's values on every
-    rank: one broadcast per dtype of one flat buffer, not one per tensor.
-    Each tensor keeps its shape, dtype and memory layout."""
-    check_data_mesh(mesh)
-    group = mesh.get_group(BATCH_AXIS)
-    src = dist.get_global_rank(group, 0)
+    """A copy of ``tree`` on `local_device` holding the values of the mesh's
+    first rank on every rank: one broadcast per dtype of one flat buffer, not
+    one per tensor.  Each tensor keeps its shape, dtype and memory layout."""
+    group = mesh_group(mesh)
+    src = int(mesh.mesh.flatten()[0])
     device = local_device(mesh)
     leaves = [t for t in _leaves(tree) if isinstance(t, torch.Tensor)]
     copies = {id(t): torch.empty_like(t, device=device) for t in leaves}
@@ -204,22 +255,44 @@ def replicate(mesh: DeviceMesh, tree):
 def data_parallel(mesh: Optional[DeviceMesh]) -> Iterator[None]:
     """The scope of one step: inside it the batch-global reductions
     (BatchNorm statistics and their backward, hard-negative mining,
-    segmentation suppression) reduce over the mesh's group.  ``None`` opens
-    no scope.  A backward that runs after the scope closes uses the group its
-    forward saw (it is kept with the autograd context)."""
+    segmentation suppression) reduce over the mesh's groups, and on a mesh
+    whose spatial axis splits the rows the model's layers exchange and
+    reduce rows (`parallel.spatial`).  ``None`` opens no scope.  A backward
+    that runs after the scope closes uses the groups its forward saw (they
+    are kept with the autograd context)."""
     if mesh is None:
         yield
         return
-    token = _GROUP.set(check_data_mesh(mesh).get_group(BATCH_AXIS))
+    spatial = spatial_size(mesh) > 1
+    groups = Groups(data=mesh.get_group(BATCH_AXIS), whole=mesh_group(mesh),
+                    spatial=mesh.get_group(SPATIAL_AXIS) if spatial else None)
+    token = _SCOPE.set(groups)
     try:
         yield
     finally:
-        _GROUP.reset(token)
+        _SCOPE.reset(token)
+
+
+@contextlib.contextmanager
+def partitioned(partition) -> Iterator[None]:
+    """The innermost scope with ``partition`` as its row partition, for the
+    length of the block (`parallel.spatial.row_partition`)."""
+    token = _SCOPE.set(dataclasses.replace(_SCOPE.get(), partition=partition))
+    try:
+        yield
+    finally:
+        _SCOPE.reset(token)
+
+
+def active_groups() -> Optional[Groups]:
+    """The groups of the innermost `data_parallel` scope, or None."""
+    return _SCOPE.get()
 
 
 def active_group() -> Optional[dist.ProcessGroup]:
-    """The group of the innermost `data_parallel` scope, or None."""
-    return _GROUP.get()
+    """The data group of the innermost `data_parallel` scope, or None."""
+    groups = _SCOPE.get()
+    return None if groups is None else groups.data
 
 
 def all_reduce_(tensor: torch.Tensor, group: dist.ProcessGroup,
@@ -229,24 +302,25 @@ def all_reduce_(tensor: torch.Tensor, group: dist.ProcessGroup,
     return tensor
 
 
-def gather_by_sum(local: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
-    """The ranks' equal-sized ``local`` tensors concatenated along dim 0 in
+def gather_by_sum(local: torch.Tensor, group: dist.ProcessGroup, dim: int = 0) -> torch.Tensor:
+    """The ranks' equal-sized ``local`` tensors concatenated along ``dim`` in
     rank order, on every rank: each rank writes its slice of a zero buffer
     and the buffers are summed (adding zeros is exact)."""
     n, rank = dist.get_world_size(group), dist.get_rank(group)
-    out = torch.zeros((n * local.shape[0],) + tuple(local.shape[1:]), dtype=local.dtype,
-                      device=local.device)
-    out[rank * local.shape[0]:(rank + 1) * local.shape[0]] = local
+    size = local.shape[dim]
+    shape = list(local.shape)
+    shape[dim] = n * size
+    out = local.new_zeros(shape)
+    out.narrow(dim, rank * size, size).copy_(local)
     return all_reduce_(out, group)
 
 
-def global_moments(x32: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean, var) per channel of an f32 NCHW tensor over the global batch
-    of ``group``: one all_reduce of [sum x, sum x^2], then Flax's fast
-    variance E[x^2] - E[x]^2 clipped at 0, with the global count (the ranks'
-    shards are equal)."""
+def global_moments(x32: torch.Tensor, group, count: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, var) per channel of an f32 NCHW tensor over ``group``, whose
+    ranks hold ``count`` values a channel together: one all_reduce of
+    [sum x, sum x^2], then Flax's fast variance E[x^2] - E[x]^2 clipped at
+    0."""
     sums = torch.stack([x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3))])
     all_reduce_(sums, group)
-    n = float(x32.numel() // x32.shape[1] * dist.get_world_size(group))
-    mean = sums[0] / n
-    return mean, (sums[1] / n - mean * mean).clamp_min(0.0)
+    mean = sums[0] / count
+    return mean, (sums[1] / count - mean * mean).clamp_min(0.0)

@@ -32,6 +32,12 @@ metrics in one more, all on the device.  Every rank applies the same
 all-reduced values, so the replicas stay bitwise equal.  `fit` hands each
 rank its slice: of each plain global batch through `shard_batch`, or from a
 `TrainDataLoader` built with the same mesh.
+
+On a ``("data", "spatial")`` mesh (`parallel.make_hybrid_mesh`) each rank
+also holds only its rows of the images and of the mask target (taken by the
+step from a batch slice that comes with every row, `shard_images`); the
+model's forward exchanges and reduces rows (`parallel.spatial`), and the
+gradient and metric means run over every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from ssdseglib_torch.config import TrainConfig
 from ssdseglib_torch.models.blocks import BN_MOMENTUM
 from ssdseglib_torch.models.builder import SsdSegModel
 from ssdseglib_torch.parallel import mesh as mesh_lib
+from ssdseglib_torch.parallel import spatial
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam defaults
@@ -81,6 +88,21 @@ class TrainState:
     batch_stats: Dict[str, torch.Tensor]
     opt_state: AdamState
     mesh: Optional[object] = None
+
+    @classmethod
+    def create(cls, variables: Mapping[str, torch.Tensor],
+               adam_mu_dtype: str = "float32") -> "TrainState":
+        """Step 0 with zero Adam moments (``optax.adam(...).init``) for a
+        ``state_dict``-shaped mapping, whose tensors are taken as they are:
+        the running statistics become ``batch_stats``, every other entry but
+        BatchNorm's ``num_batches_tracked`` a parameter."""
+        batch_stats = {k: v for k, v in variables.items() if k.endswith(_STATS)}
+        params = {k: v for k, v in variables.items()
+                  if k not in batch_stats and not k.endswith("num_batches_tracked")}
+        mu_dtype = _DTYPES[adam_mu_dtype]
+        return cls(step=0, params=params, batch_stats=batch_stats, opt_state=AdamState(
+            mu={k: torch.zeros_like(v, dtype=mu_dtype) for k, v in params.items()},
+            nu={k: torch.zeros_like(v) for k, v in params.items()}))
 
     def variables(self) -> Dict[str, torch.Tensor]:
         """Parameters and statistics as one ``state_dict``-shaped mapping."""
@@ -229,17 +251,9 @@ class Trainer:
             t = variables[name].detach().to(self.device, torch.float32, copy=True)
             return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
 
-        params = {name: own(name) for name in self._param_names}
-        mu_dtype = _DTYPES[self.config.adam_mu_dtype]
-        state = TrainState(
-            step=0,
-            params=params,
-            batch_stats={name: own(name) for name in self._stat_names},
-            opt_state=AdamState(
-                mu={k: torch.zeros_like(v, dtype=mu_dtype) for k, v in params.items()},
-                nu={k: torch.zeros_like(v) for k, v in params.items()},
-            ),
-        )
+        state = TrainState.create({name: own(name)
+                                   for name in self._param_names + self._stat_names},
+                                  self.config.adam_mu_dtype)
         return state if mesh is None else self._replicate_state(state, mesh)
 
     def _replicate_state(self, state: TrainState, mesh) -> TrainState:
@@ -257,7 +271,8 @@ class Trainer:
     @staticmethod
     def _mean_over_ranks(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
         """The ranks' mean of 0-d metrics: one all_reduce, on the device.
-        Exact for the batch means of per-sample values over equal shards."""
+        Exact for the batch means of per-sample values over equal shards
+        (the spatial ranks of one batch slice hold the same values)."""
         values = torch.stack(list(metrics.values()))
         mesh_lib.all_reduce_(values, group).div_(torch.distributed.get_world_size(group))
         return dict(zip(metrics, values.unbind()))
@@ -272,6 +287,21 @@ class Trainer:
         if images.dtype != torch.float32:
             images = images.float()
         return images, {k: put(v) for k, v in targets.items()}
+
+    def _own_rows(self, mesh, images: torch.Tensor, targets: Dict[str, torch.Tensor]):
+        """On a mesh that splits the rows, this rank's rows of the images and
+        of the mask target where they come with every row (a batch slice from
+        `parallel.shard_batch` or from a loader built with the mesh): the
+        images through `parallel.shard_images`."""
+        if mesh is None or mesh_lib.spatial_size(mesh) == 1:
+            return images, targets
+        height = self.model.cfg.input_image_shape[0]
+        if images.shape[1] == height:
+            images = mesh_lib.shard_images(mesh, images, batch_is_local=True)
+        mask = targets.get("output-mask")
+        if mask is not None and mask.shape[1] == height:
+            targets = {**targets, "output-mask": spatial.shard_rows(mesh, mask)}
+        return images, targets
 
     # -- loss -------------------------------------------------------------
     def _losses_and_metrics(
@@ -373,7 +403,7 @@ class Trainer:
         over the ranks.
         """
         mesh = state.mesh
-        images, targets = self._to_device(images, targets)
+        images, targets = self._own_rows(mesh, *self._to_device(images, targets))
         leaves, stats = self._compute_variables(state.params, state.batch_stats)
         images = images.to(self._compute_dtype)
         self._net.train()
@@ -404,7 +434,7 @@ class Trainer:
         grads = torch.autograd.grad(total, [leaves[k] for k in names])
         masters = [state.params[k] for k in names]
         if mesh is not None:
-            group = mesh.get_group(mesh_lib.BATCH_AXIS)
+            group = mesh_lib.mesh_group(mesh)
             grads = self._mean_gradients(masters, grads, group)
             metrics = self._mean_over_ranks(metrics, group)
         elif any(g.dtype != p.dtype or g.stride() != p.stride()
@@ -420,9 +450,11 @@ class Trainer:
     @torch.no_grad()
     def _mean_gradients(masters: List[torch.Tensor], grads, group) -> List[torch.Tensor]:
         """The ranks' mean of ``grads``: one multi-tensor copy into one flat
-        f32 buffer, ONE all_reduce of it, one division.  Returns views of the
-        buffer laid out like ``masters``."""
-        flat = torch.empty(sum(p.numel() for p in masters), dtype=torch.float32,
+        buffer of the masters' dtype (f32), ONE all_reduce of it, one division.  Returns views of the
+        buffer laid out like ``masters``.  Over every rank of a 2-D mesh: the
+        spatial ranks' partial gradients are summed and the data ranks'
+        averaged (`parallel.spatial`, Gradients)."""
+        flat = torch.empty(sum(p.numel() for p in masters), dtype=masters[0].dtype,
                            device=masters[0].device)
         views, offset = [], 0
         for p in masters:
@@ -463,13 +495,13 @@ class Trainer:
     def eval_step(self, state: TrainState, images, targets) -> Dict[str, torch.Tensor]:
         """Eval-mode forward in f32 with the running statistics: metrics (on
         a mesh, this rank's slice in, the global batch's metrics out)."""
-        images, targets = self._to_device(images, targets)
+        images, targets = self._own_rows(state.mesh, *self._to_device(images, targets))
         self._net.eval()
-        outputs = functional_call(self._net, state.variables(), (images,))
         with mesh_lib.data_parallel(state.mesh):
+            outputs = functional_call(self._net, state.variables(), (images,))
             _, metrics = self._losses_and_metrics(outputs, targets)
         if state.mesh is not None:
-            metrics = self._mean_over_ranks(metrics, state.mesh.get_group(mesh_lib.BATCH_AXIS))
+            metrics = self._mean_over_ranks(metrics, mesh_lib.mesh_group(state.mesh))
         return metrics
 
     def eval_step_fn(self) -> Callable:
@@ -503,7 +535,7 @@ class Trainer:
             for item in batches:
                 if n >= max_batches:
                     break
-                images, _ = self._to_device(item[0], {})
+                images, _ = self._own_rows(state.mesh, *self._to_device(item[0], {}))
                 stats = {k: v.clone() for k, v in state.batch_stats.items()}
                 with mesh_lib.data_parallel(state.mesh):
                     functional_call(self._net, {**state.params, **stats}, (images,))
@@ -598,15 +630,15 @@ class Trainer:
         saved after every epoch; with ``resume=True`` and a checkpointer
         holding a prior step, training restarts from the latest checkpoint.
 
-        With a ``mesh`` (`parallel.make_mesh`; every rank calls `fit` alike)
-        the state is replicated on it, each plain global batch is sharded
-        (`parallel.shard_batch`), a loader must have been built with the same
-        mesh, and the history holds the global batch's metrics.  A mesh with
-        a spatial axis raises NotImplementedError, anything that is no
-        DeviceMesh TypeError.
+        With a ``mesh`` (`parallel.make_mesh` or `parallel.make_hybrid_mesh`;
+        every rank calls `fit` alike) the state is replicated on it, each
+        plain global batch is sharded (`parallel.shard_batch`, and the step
+        takes the rows), a loader must have been built with the same mesh,
+        and the history holds the global batch's metrics.  Anything that is
+        no DeviceMesh raises TypeError.
         """
         if mesh is not None:
-            mesh_lib.check_data_mesh(mesh)
+            mesh_lib.check_mesh(mesh)
         epochs = epochs or self.config.epochs
         restored = False
         if resume and checkpointer is not None:

@@ -3,8 +3,9 @@
 Counterpart of ``ssdseglib_tpu/utils/profiling.py``:
 
 - `time_fn`: steady-state time of a call on the card, each call between two
-  CUDA events after a warm-up, with percentiles (the JAX package's
-  ``time_jit_fn``, which fences with ``block_until_ready``);
+  CUDA events after a warm-up, with percentiles; `time_jit_fn` is the JAX
+  package's name for the same contract (it fences with
+  ``block_until_ready``);
 - `trace`: a context manager around ``torch.profiler`` that writes a trace
   directory (TensorBoard's profiler plugin or Perfetto read it) and hands
   back the profiler for ``key_averages()``.
@@ -67,6 +68,12 @@ def time_fn(fn: Callable, args: Sequence[Any] = (), warmup: int = 3,
         steps=steps,
         device=torch.cuda.get_device_name(),
     )
+
+
+def time_jit_fn(fn: Callable, args: Sequence[Any], warmup: int = 3,
+                steps: int = 20) -> Timing:
+    """`time_fn` under the JAX package's name and signature."""
+    return time_fn(fn, args, warmup=warmup, steps=steps)
 
 
 @contextlib.contextmanager

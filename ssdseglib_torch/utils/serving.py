@@ -6,8 +6,8 @@
   chunk / repeat-pad / slice loop that serves an arbitrary number of images
   through one batch size, or through several (`plan_batched_chunks`).
 - `stage_input`: the pinned, non-blocking upload of a host batch.
-- `gather_outputs`: a data-parallel model's slices of one batch, whole on
-  every rank.
+- `gather_outputs`: a mesh model's blocks of one batch, whole on every
+  rank.
 
 Both the live `InferenceModel` (models/builder.py) and the reloaded
 `ServingBundle` (export.py) use them, so the two cannot drift.
@@ -137,17 +137,23 @@ def predict_batched_chunks_multi(
     return np.concatenate(masks, 0), np.concatenate(dets, 0)
 
 
-def gather_outputs(mask: torch.Tensor, det: torch.Tensor, group):
-    """(mask, det) of the whole batch on every rank of ``group`` from each
-    rank's slice: an all_reduce into a zero buffer each (f32, which holds
-    every served dtype's values exactly; a uint8 class map comes back
-    uint8, a bf16 mask as f32, which `format_outputs` makes of it anyway)."""
-    from ssdseglib_torch.parallel.mesh import gather_by_sum
+def gather_outputs(mask: torch.Tensor, det: torch.Tensor, mesh):
+    """(mask, det) of the whole batch on every rank of ``mesh`` from each
+    rank's block: the mask's rows over a spatial axis that splits them, then
+    mask and detections over the data axis, an all_reduce into a zero buffer
+    each (f32, which holds every served dtype's values exactly; a uint8
+    class map comes back uint8, a bf16 mask as f32, which `format_outputs`
+    makes of it anyway)."""
+    from ssdseglib_torch.parallel import mesh as mesh_lib
 
-    whole = gather_by_sum(mask.float(), group)
+    whole = mask.float()
+    if mesh_lib.spatial_size(mesh) > 1:
+        whole = mesh_lib.gather_by_sum(whole, mesh.get_group(mesh_lib.SPATIAL_AXIS), dim=1)
+    data = mesh.get_group(mesh_lib.BATCH_AXIS)
+    whole = mesh_lib.gather_by_sum(whole, data)
     if mask.dtype == torch.uint8:
         whole = whole.to(torch.uint8)
-    return whole, gather_by_sum(det, group)
+    return whole, mesh_lib.gather_by_sum(det, data)
 
 
 def stage_input(images, device: torch.device) -> torch.Tensor:

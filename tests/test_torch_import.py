@@ -33,6 +33,7 @@ SLICE_MODULES = (
     "ssdseglib_torch.ops.fused_chain_backward",
     "ssdseglib_torch.parallel",
     "ssdseglib_torch.parallel.mesh",
+    "ssdseglib_torch.parallel.spatial",
     "ssdseglib_torch.ops._cuda_build",
     "ssdseglib_torch.ops.encoding",
     "ssdseglib_torch.ops.nms",

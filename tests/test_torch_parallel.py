@@ -128,12 +128,13 @@ def _suppression_inputs():
 
 
 class Ranks:
-    """The two spawned ranks: started at construction, joined and read at
+    """The spawned ranks (``world`` of them, running ``run``, by default the
+    two of this file's workers): started at construction, joined and read at
     the first `results` call."""
 
-    def __init__(self, directory):
-        self.directory = str(directory)
-        self.context = mp.start_processes(W.run, args=(WORLD, self.directory), nprocs=WORLD,
+    def __init__(self, directory, run=W.run, world=WORLD):
+        self.directory, self.world = str(directory), world
+        self.context = mp.start_processes(run, args=(world, self.directory), nprocs=world,
                                           join=False, start_method="spawn")
         self._results = None
 
@@ -146,7 +147,7 @@ class Ranks:
                 if time.monotonic() > deadline:
                     raise TimeoutError(f"the ranks did not finish in {WORKER_SECONDS} s")
             self._results = [torch.load(os.path.join(self.directory, f"rank{r}.pt"),
-                                        weights_only=False) for r in range(WORLD)]
+                                        weights_only=False) for r in range(self.world)]
         return self._results
 
     def stop(self):
@@ -265,7 +266,7 @@ def test_helpers_shard_replicate_and_refuse(ranks):
         assert replicated["nhwc"].is_contiguous(memory_format=torch.channels_last)
         assert helpers["placements"] == ("(Shard(dim=0),)", "(Replicate(),)")
         for (entry, kind), refused in helpers["refusals"].items():
-            want = "NotImplementedError" if kind == "spatial" else "TypeError"
+            want = "ValueError" if kind == "axes" else "TypeError"
             assert refused == want, (entry, kind, refused)
 
 

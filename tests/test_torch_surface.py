@@ -24,18 +24,101 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_package_surface_is_the_jax_package_s_less_the_named_missing():
-    assert ssdseglib_torch.NOT_PORTED == ("parallel.spatial",)
+    assert ssdseglib_torch.NOT_PORTED == ()
     assert ssdseglib_torch.__all__ == ssdseglib_tpu.__all__
     for name in ssdseglib_torch.__all__:
         assert hasattr(ssdseglib_torch, name), name
-    # the missing module's names are the ones the port's parallel lacks
-    from ssdseglib_tpu.parallel import spatial
+    assert ssdseglib_torch.parallel.__all__ == ssdseglib_tpu.parallel.__all__
+    for name in ssdseglib_torch.parallel.__all__:
+        assert hasattr(ssdseglib_torch.parallel, name), name
 
-    jax_parallel, port_parallel = ssdseglib_tpu.parallel, ssdseglib_torch.parallel
-    missing = [n for n in jax_parallel.__all__ if n not in port_parallel.__all__]
-    assert missing == ["SPATIAL_AXIS", "make_hybrid_mesh", "image_sharding"]
-    assert all(hasattr(spatial, n) for n in missing)
-    assert port_parallel.__all__ == [n for n in jax_parallel.__all__ if n not in missing]
+
+# What a module of the JAX package defines and the port leaves out on purpose,
+# by module path: each name (a whole module: "*") with the reason.
+LEFT_OUT = {
+    "ops/depthwise.py": {"*": "the shifted-tap depthwise study, a TPU layout choice that "
+                              "lost there (ROADMAP.md Queue 1 #5)"},
+    "models/blocks.py": {
+        "set_depthwise_impl": "the gate of ops/depthwise.py (ROADMAP.md Queue 1 #5)",
+        "DEPTHWISE_IMPL": "the gate of ops/depthwise.py (ROADMAP.md Queue 1 #5)"},
+    "ops/nms_pallas.py": {"*": "ported as ops/nms_scan.py (its CUDA scan kernel)"},
+    "ops/s2d_stem.py": {
+        "PACK": "the Pallas kernel's lane packing (4 images a 128-lane group)",
+        "pack_stem_expand": "packs weights for the Pallas kernel's lane layout",
+        "pack_depthwise": "packs weights for the Pallas kernel's lane layout",
+        "pack_pointwise": "packs weights for the Pallas kernel's lane layout",
+        "fused_s2d_stem_block1": "the Pallas kernel's wrapper; the port's is fused_stem_block1",
+        "s2d_stem_block1_xla": "the conv reformulation study that lost on the TPU "
+                               "(ROADMAP.md Queue 1 #5)"},
+    "ops/fused_mbconv.py": {
+        "fold_block": "folds one block of a Flax tree; the port folds its state_dict in "
+                      "models/fused_inference.fold_mobilenetv2"},
+    "models/fused_inference.py": {
+        "QUANT_TARGETS": "int8 serving (ROADMAP.md Queue 1 #4)",
+        "calibrate_pointwise_scales": "int8 serving (ROADMAP.md Queue 1 #4)",
+        "quantize_pointwise_weights": "int8 serving (ROADMAP.md Queue 1 #4)"},
+    "models/builder.py": {
+        "SsdSegHeads": "a Flax module of the heads alone; the port's model has apply_heads",
+        "TrainableModel.init": "Flax's init / apply pair: the port's TrainableModel is the "
+                               "nn.Module itself (ROADMAP.md Queue 3, deviations)",
+        "TrainableModel.apply": "Flax's init / apply pair: the port's TrainableModel is the "
+                                "nn.Module itself (ROADMAP.md Queue 3, deviations)"},
+}
+
+
+def _public_names(path: str) -> set:
+    """The public names a module defines: its functions, classes and their
+    public methods (as Class.method, through a module-level alias
+    ``Alias = Class`` too), its assigned constants and its ``__all__``;
+    names it imports are not its own."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    classes, names, aliases = {}, set(), {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.ClassDef):
+            classes[node.name] = {f.name for f in node.body
+                                  if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))}
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for target in targets:
+                if isinstance(target, ast.Name):
+                    names.add(target.id)
+                    if isinstance(node.value, ast.Name):
+                        aliases[target.id] = node.value.id
+                    if target.id == "__all__":
+                        names.update(ast.literal_eval(node.value))
+    for alias, name in aliases.items():
+        if name in classes:
+            classes[alias] = classes[name]
+    for cls, methods in classes.items():
+        names.add(cls)
+        names.update(f"{cls}.{m}" for m in methods)
+    return {n for n in names if not n.split(".")[-1].startswith("_")}
+
+
+def test_every_module_has_the_jax_module_s_public_names():
+    """Module by module (an AST walk of both trees), the port defines every
+    public name the JAX package's module defines, but for `LEFT_OUT`; and
+    everything `LEFT_OUT` names is still in the JAX package and still
+    absent from the port."""
+    jax_root = os.path.join(ROOT, "ssdseglib_tpu")
+    port_root = os.path.join(ROOT, "ssdseglib_torch")
+    missing = {}
+    for directory, _, files in os.walk(jax_root):
+        for file in sorted(files):
+            if not file.endswith(".py"):
+                continue
+            module = os.path.relpath(os.path.join(directory, file), jax_root)
+            port = os.path.join(port_root, module)
+            theirs = _public_names(os.path.join(jax_root, module))
+            ours = _public_names(port) if os.path.exists(port) else set()
+            gaps = {"*"} if not os.path.exists(port) else theirs - ours
+            if gaps:
+                missing[module] = gaps
+    assert missing == {module: set(names) for module, names in LEFT_OUT.items()}
 
 
 def test_importing_the_package_builds_and_loads_no_kernel():
@@ -146,3 +229,71 @@ def test_full_size_anchors_are_the_warehouse_configuration():
     from ssdseglib_torch.config import reference_warehouse_config
 
     assert train_multitask.anchors_config((480, 640)) == reference_warehouse_config()[0]
+
+
+@pytest.mark.parametrize("splits, axis", [(2, -1), (3, 1), ([1, 2, 3], 0), ([4, 2], -1)])
+def test_split_layer_matches_the_jax_one(splits, axis):
+    from ssdseglib_torch.layers import Split
+    from ssdseglib_tpu.layers import Split as JaxSplit
+
+    x = np.random.default_rng(0).normal(size=(6, 6, 6)).astype(np.float32)
+    got = Split(splits, axis)(torch.from_numpy(x))
+    want = JaxSplit(splits, axis)(x)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_split_layer_refuses_unequal_parts():
+    from ssdseglib_torch.layers import Split
+
+    with pytest.raises(ValueError, match="equal parts"):
+        Split(4, 0)(torch.zeros(6))
+
+
+def test_native_loader_available_builds_or_says_no(monkeypatch):
+    from ssdseglib_torch.data import native_loader
+
+    assert native_loader.available() is True  # g++ and zlib are here
+
+    def unavailable():
+        raise native_loader.NativeLoaderError("no compiler")
+
+    monkeypatch.setattr(native_loader, "get_library", unavailable)
+    assert native_loader.available() is False
+
+
+def test_time_jit_fn_is_time_fn_under_the_jax_name(monkeypatch):
+    from ssdseglib_torch.utils import profiling
+
+    calls = []
+    monkeypatch.setattr(profiling, "time_fn", lambda fn, args, warmup, steps: calls.append(
+        (fn, tuple(args), warmup, steps)) or "timing")
+    assert profiling.time_jit_fn(abs, (1,), warmup=2, steps=5) == "timing"
+    assert calls == [(abs, (1,), 2, 5)]
+
+
+def test_train_state_create_is_the_trainer_s_initial_state():
+    from ssdseglib_torch.boxes import Anchors
+    from ssdseglib_torch.config import AnchorsConfig, ModelConfig, TrainConfig
+    from ssdseglib_torch.train import TrainState, Trainer
+    from tests.torch_dp_workers import ANCHORS, IMAGE_SHAPE, MODEL
+
+    model = models.SsdSegModel(ModelConfig(**MODEL), torch.Generator().manual_seed(0))
+    variables = model.state_dict()
+    state = TrainState.create(variables, adam_mu_dtype="bfloat16")
+    assert state.step == 0
+    assert set(state.params) == {name for name, _ in model.named_parameters()}
+    assert set(state.batch_stats) == {k for k in variables if k.endswith(
+        ("running_mean", "running_var"))}
+    assert all(state.params[k] is variables[k] for k in state.params)
+    assert all(float(m.abs().sum()) == 0 and m.dtype == torch.bfloat16
+               for m in state.opt_state.mu.values())
+    assert all(float(v.abs().sum()) == 0 for v in state.opt_state.nu.values())
+    trainer = Trainer(model=model, anchors=Anchors.from_config(AnchorsConfig(**ANCHORS),
+                                                               IMAGE_SHAPE),
+                      config=TrainConfig(batch_size=2), device="cpu")
+    fresh = trainer.init_state(variables=variables)
+    assert list(fresh.params) == list(trainer._param_names)
+    for k, v in state.params.items():
+        assert torch.equal(fresh.params[k], v)

@@ -525,9 +525,10 @@ def test_recalibrate_batch_stats_matches_jax(jax_side, batch):
 
 
 @contextlib.contextmanager
-def _spatial_mesh():
-    """A ('data', 'spatial') DeviceMesh of one CPU rank, on a group of this
-    process alone that is destroyed on exit."""
+def _one_rank_mesh(names=("spatial", "data")):
+    """A DeviceMesh of one CPU rank with axes ``names`` (by default neither
+    ('data',) nor ('data', 'spatial')), on a group of this process alone
+    that is destroyed on exit."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -535,7 +536,7 @@ def _spatial_mesh():
         dist.init_process_group("gloo", store=dist.FileStore(os.path.join(directory, "s"), 1),
                                 rank=0, world_size=1)
         try:
-            yield DeviceMesh("cpu", [[0]], mesh_dim_names=("data", "spatial"))
+            yield DeviceMesh("cpu", [[0]], mesh_dim_names=names)
         finally:
             dist.destroy_process_group()
 
@@ -564,13 +565,14 @@ def test_fit_history_keys_and_refusals(jax_side, batch):
         def iter_raw(self):
             return iter(())
 
-    # a mesh that is no DeviceMesh is refused, and so is a spatial one (not
-    # ported yet); a world-size-1 gloo group of this process holds the mesh
+    # a mesh that is no DeviceMesh is refused, and so is one whose axes are
+    # neither ('data',) nor ('data', 'spatial'); a world-size-1 gloo group of
+    # this process holds the mesh
     with pytest.raises(TypeError):
         trainer.fit(state, [(images, targets)], epochs=1, mesh=object())
-    with _spatial_mesh() as spatial:
-        with pytest.raises(NotImplementedError, match="spatial"):
-            trainer.fit(state, [(images, targets)], epochs=1, mesh=spatial)
+    with _one_rank_mesh() as mesh:
+        with pytest.raises(ValueError, match="spatial"):
+            trainer.fit(state, [(images, targets)], epochs=1, mesh=mesh)
     # resume without a checkpointer is ignored, as in the JAX package; a
     # loader with a device-side transform runs through the fused steps (this
     # one yields no batch: no step, no history)

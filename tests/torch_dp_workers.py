@@ -151,18 +151,19 @@ def case_helpers(mesh, inputs, directory):
                          repr(mesh_lib.replicate_sharding(mesh)))
     from torch.distributed.device_mesh import init_device_mesh
 
-    spatial = init_device_mesh("cpu", (2, 1), mesh_dim_names=("data", "spatial"))
+    # axes that are neither ("data",) nor ("data", "spatial")
+    axes = init_device_mesh("cpu", (2, 1), mesh_dim_names=("spatial", "data"))
     refusals = {}
     for name, call in (
             ("shard_images", lambda m: mesh_lib.shard_images(m, np.zeros((4, 2, 2, 3)))),
             ("fit", lambda m: trainer().fit(None, [], epochs=1, mesh=m)),
             ("loader", lambda m: loader(m)),
             ("inference", lambda m: inference_model(inputs["variables"], m))):
-        for kind, m in (("spatial", spatial), ("object", object())):
+        for kind, m in (("axes", axes), ("object", object())):
             try:
                 call(m)
                 refusals[name, kind] = None
-            except (TypeError, NotImplementedError) as e:
+            except (TypeError, ValueError) as e:
                 refusals[name, kind] = type(e).__name__
     out["refusals"] = refusals
     return out
@@ -201,7 +202,7 @@ def case_global_batchnorm(mesh, inputs, directory):
     global statistics and, as a naive port would, with per-rank ones."""
     images, targets = inputs["shifted"]
     out = {"global": one_step(mesh, inputs["variables"], images, targets)}
-    with _Patch((blocks, "active_group", lambda: None)):
+    with _Patch((blocks, "active_groups", lambda: None)):
         out["per_rank"] = one_step(mesh, inputs["variables"], images, targets)
     return out
 
