@@ -6,7 +6,9 @@ decoding (`datacoder.DataEncoderDecoder`), the three losses, streaming
 metrics, training (`train.Trainer`, the loader in `data.pipeline`),
 checkpoints, serving with NMS, Keras weight import (`keras_import`),
 self-contained serving bundles (`export`), data and spatial (H-axis)
-parallelism over ``torch.distributed`` (`parallel`), and the evaluators.  The JAX
+parallelism over ``torch.distributed`` (`parallel`), the evaluators, and the
+reference package's Keras-style surface (`compat`: ``import
+ssdseglib_torch.compat as ssdseglib``).  The JAX
 package's Pallas kernels are hand-written CUDA kernels here (``csrc/``),
 built with nvcc on first use, never on import.
 
@@ -39,6 +41,7 @@ __all__ = [
     "plot",
     # additions beyond the reference surface
     "checkpoint",
+    "compat",
     "export",
     "keras_import",
     "parallel",

@@ -175,7 +175,9 @@ class Trainer:
     """Trains the joint det+seg objective on one device."""
 
     model: SsdSegModel
-    anchors: Anchors
+    # the decoded-box IoU metric's anchors; None only with
+    # ``streaming_metrics='loss_only'``, which does not compute it
+    anchors: Optional[Anchors]
     config: TrainConfig
     # encoding standard deviations used by the decoded-box IoU metric; must
     # match the EncodingConfig the targets were encoded with
@@ -190,6 +192,8 @@ class Trainer:
                 "streaming_metrics must be 'full' or 'loss_only', got "
                 f"{cfg.streaming_metrics!r}"
             )
+        if self.anchors is None and cfg.streaming_metrics == "full":
+            raise ValueError("streaming_metrics='full' needs the anchors of the box IoU metric")
         for name in ("compute_dtype", "adam_mu_dtype"):
             if getattr(cfg, name) not in _DTYPES:
                 raise ValueError(
@@ -209,9 +213,8 @@ class Trainer:
         self._mask_iou = metrics_lib.jaccard_iou_segmentation_masks(
             list(cfg.mask_class_weights)
         )
-        self._box_iou = metrics_lib.jaccard_iou_bounding_boxes(
-            self.anchors, tuple(self.standard_deviations)
-        )
+        self._box_iou = None if self.anchors is None else (
+            metrics_lib.jaccard_iou_bounding_boxes(self.anchors, tuple(self.standard_deviations)))
         self._cat_acc = metrics_lib.categorical_accuracy(det_weights)
         self._lr = lr_schedule_fn(cfg)
         self._compute_dtype = _DTYPES[cfg.compute_dtype]

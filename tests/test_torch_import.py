@@ -59,6 +59,16 @@ SLICE_MODULES = (
     "ssdseglib_torch.data.native_loader",
     "ssdseglib_torch.utils.profiling",
     "ssdseglib_torch.utils.compile_cache",
+    "ssdseglib_torch.compat",
+    "ssdseglib_torch.compat.blocks",
+    "ssdseglib_torch.compat.boxes",
+    "ssdseglib_torch.compat.datacoder",
+    "ssdseglib_torch.compat.evaluators",
+    "ssdseglib_torch.compat.layers",
+    "ssdseglib_torch.compat.losses",
+    "ssdseglib_torch.compat.metrics",
+    "ssdseglib_torch.compat.models",
+    "ssdseglib_torch.compat.plot",
 )
 
 
@@ -69,7 +79,8 @@ def test_port_imports_no_jax_flax_tensorflow_triton():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                                    'tensorflow', 'triton', 'ssdseglib_tpu'))\n"
+        "                                    'tensorflow', 'h5py', 'triton',\n"
+        "                                    'ssdseglib_tpu', 'ssdseglib'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
