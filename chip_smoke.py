@@ -223,11 +223,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    images/s beside `Trainer.fit` over the same files.  One ``{"compat":
    ...}`` JSON line.
 
+15. int8 pointwise serving: the flagship through
+   ``get_model_for_inference(compute_dtype="bfloat16", fused_backbone=True,
+   mask_output="bfloat16", quantize_pointwise=True,
+   calibration_images=<phase 6's first uint8 b16 batch>)``: 10 MBConv
+   launches and no int8 launch in the calibration, which a second call of
+   `calibrate_pointwise_scales` repeats bit for bit (its seconds printed);
+   one forward launches the int8 kernel twice and MBConv 10 times; its
+   labels and boxes equal the unquantized fused forward's bits and its mask
+   is within INT8_MASK_BOUND absolute and INT8_MASK_MEAN mean of it (the JAX
+   package's own bounds); a b16 serving bundle of the quantized model
+   reloads and gives the live bits on two batches, the int8 op inside the
+   reloaded program; b16 images/s under phase 6's protocol in turns with the
+   unquantized model (default, int8, int8, default).  One
+   ``{"int8_serving": ...}`` JSON line.
+
 ``python3 chip_smoke.py --profile-train [aten|chain|depthwise|wgrad-dot|wgrad-cuda ...]`` instead
 builds the library and prints where the time of a bf16 b16 train step goes
 (torch.profiler, kernel time by name) under the named routes, and
 ``python3 chip_smoke.py --profile-serve`` where the device time of a bf16 b16
-serving step goes on the default path and on the option path, and
+serving step goes on the default path, the option path and the int8 path, and
 ``python3 chip_smoke.py --profile-fit`` what each stage of a `fit` epoch over
 the loader costs alone, and
 ``python3 chip_smoke.py --wgrad-variants`` times the three weight-gradient
@@ -247,8 +262,9 @@ backward kernels, `wgrad_fma` and phase 6's serving (b16 images/s, b1 ms) of
 an unpacked parent tree and of this one in turns (parent, change, change,
 parent; one process each), and ``python3 chip_smoke.py --deployment`` runs
 phase 11 alone, ``python3 chip_smoke.py --data-parallel`` phase 12,
-``python3 chip_smoke.py --spatial`` phase 13 and ``python3 chip_smoke.py
---compat`` phase 14; none of these prints result lines.
+``python3 chip_smoke.py --spatial`` phase 13, ``python3 chip_smoke.py
+--compat`` phase 14 and ``python3 chip_smoke.py --int8`` phase 15; none of
+these prints result lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
@@ -257,13 +273,16 @@ In the report, ``launches`` counts the kernel's launches over its main path
 (phase 6 for the MBConv kernel, the route's steps of phase 7b for the two
 backward kernels, phase 8b-c for the scan and stem kernels, the `fit` of
 phase 9 for the tensor-core weight-gradient kernel, the f32 step of phase 9a
-for the CUDA-core one, `wgrad_study` of phase 4b for the loads-alone kernel),
+for the CUDA-core one, `wgrad_study` of phase 4b for the loads-alone kernel,
+phase 15 for the int8 kernel),
 ``max_abs_err``
 is the largest kernel-vs-plain difference of its phase over every shape,
 dtype and output, and ``ms``, ``plain_ms``, ``library_ms``
 and ``bound_ms`` are at the main path's shapes in bf16 at batch 16 (the ten
 launches of one forward for the MBConv kernel, whose bound counts its 1x1s
-at the tensor cores' rate and its depthwise taps at the f32 rate; the two launches of one train
+at the tensor cores' rate and its depthwise taps at the f32 rate; the two
+launches of one forward for the int8 kernel, its products at the int8 rate,
+1,979 TOPS; the two launches of one train
 step for the tensor-core weight-gradient kernel; f32 at batch 16, the two
 layers of the training default's dtype at its flagship batch, for the
 CUDA-core one, whose phase-9a step runs them at batch 2).  ``library_ms`` of the
@@ -676,6 +695,111 @@ def phase_stem_kernel_vs_plain():
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=least, bound_by=by,
                           library_ms=None)
         torch.cuda.empty_cache()
+    return report
+
+
+# (B, H, W, Ci, Co) of the int8 pointwise kernel: the two quantized convs of one
+# b16 480x640 forward (the ASPP input pointwise at os16, the decoder SepConv's
+# pointwise half at os4), then a ragged shape (rows not a multiple of the CTA's
+# 128, Ci not of 32, Co not of the 64-column chunk)
+INT8_SHAPES = [(BATCH, 30, 40, 576, 256), (BATCH, 120, 160, 256, 256), (3, 37, 53, 72, 40)]
+INT8_OPS_PER_S = 1979e12  # the H100's dense int8 tensor-core peak
+
+
+def _int8_operands(gen, dtype, shape):
+    """Random activations (N(0, 2), a few beyond the calibrated amax so that
+    the clamp at +-127 runs) and the tables of a random 1x1 conv, built as
+    the serving path builds them."""
+    from ssdseglib_torch.models.fused_inference import _quantize_weight_int8, int8_tables
+
+    b, h, w, ci, co = shape
+    x = (torch.randn(b, h, w, ci, generator=gen) * 2.0).to("cuda", dtype)
+    kernel = (torch.randn(co, ci, 1, 1, generator=gen) * ci ** -0.5).numpy()
+    bias = (torch.randn(co, generator=gen) * 0.5).numpy()
+    amax = 0.8 * float(x.float().abs().max())
+    weights = {"t": (*_quantize_weight_int8(kernel), bias)}
+    return x, int8_tables(weights, {"t": amax}, "cuda")["t"]
+
+
+def _int8_eager(x, wq, inv_x_scale, dequant, bias):
+    """The same function as eager library calls, timed as information (the
+    port never runs it): quantize passes, ``torch._int_mm`` with its s32
+    output, then dequantize, bias, clamp and cast passes."""
+    q = torch.round(x.float() * inv_x_scale).clamp_(-127.0, 127.0).to(torch.int8)
+    acc = torch._int_mm(q.reshape(-1, x.shape[-1]), wq.t())
+    y = (acc.float() * dequant + bias).clamp_(0.0, 6.0).to(x.dtype)
+    return y.reshape(*x.shape[:-1], -1)
+
+
+def phase_int8_kernel_vs_plain():
+    """Phase 3d.  The int8 pointwise kernel against its plain version, bit for
+    bit, at INT8_SHAPES in bf16 and f32 (TF32 off), its s8 activations too;
+    timings at the two flagship shapes in bf16.  Returns its report: one
+    forward's two launches."""
+    from ssdseglib_torch.models.fused_inference import _conv
+    from ssdseglib_torch.ops import int8_pointwise as op
+
+    gen = torch.Generator().manual_seed(4)
+    report = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+              "library_ms": None}
+    bound_by = set()
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in INT8_SHAPES:
+            x, tables = _int8_operands(gen, dtype, shape)
+            got = op.int8_pointwise(x, *tables)
+            xq = torch.empty(x.shape, dtype=torch.int8, device="cuda")
+            op._launch(x, *tables, xq=xq)
+            torch.cuda.synchronize()
+            want = op.int8_pointwise_reference(x, *tables)
+            want_q = op.quantize_activations(x, tables[1])
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            differ = int((got != want).sum())
+            q_differ = int((xq != want_q).sum())
+            clipped = int((want_q.abs() == 127).sum())
+            tag = f"{str(dtype)[6:]:8s} {shape[:3]} {shape[3]}->{shape[4]}"
+            log(f"[int8] {tag}: {differ} of {got.numel()} outputs differ from the plain "
+                f"version (max |diff| {err:.3g}), {q_differ} s8 activations differ "
+                f"({clipped} clipped at +-127); limit 0 ulps")
+            if differ or q_differ or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"int8 kernel disagrees with its plain version at {tag}")
+            report["max_abs_err"] = max(report["max_abs_err"], err)
+            if dtype != torch.bfloat16 or shape == INT8_SHAPES[-1]:
+                continue
+            b, h, w, ci, co = shape
+            rows = b * h * w
+            ms = cuda_median_ms(lambda: op.int8_pointwise(x, *tables))
+            alone_ms = _events_ms(lambda: op._launch(x, *tables))
+            plain_ms = cuda_median_ms(lambda: op.int8_pointwise_reference(x, *tables))
+            nbytes = 2 * rows * (ci + co) + co * ci + 4 * (2 * co + 1)
+            least, by = bound_ms(nbytes, (2 * rows * ci * co, INT8_OPS_PER_S))
+            # information: the layer as the default path runs it (cuDNN 1x1 conv
+            # with bias, the clamp a pass of its own), and the eager int8 sequence
+            weight = (tables[0].float() * (tables[2] * tables[1])[:, None]).to(dtype)
+            weight = weight.reshape(co, ci, 1, 1).contiguous(memory_format=torch.channels_last)
+            bias = tables[3].to(dtype)
+            nchw = x.permute(0, 3, 1, 2)
+            cudnn_ms = cuda_median_ms(lambda: _conv(nchw, weight, bias).clamp_(0.0, 6.0))
+            eager_ms = cuda_median_ms(lambda: _int8_eager(x, *tables))
+            eager_same = torch.equal(_int8_eager(x, *tables), got)
+            log(f"[int8] {tag}: wrapper {ms:.4f} ms | kernel alone {alone_ms:.4f} ms (20 "
+                f"launches between CUDA events) | bound {least:.4f} ms ({by}; "
+                f"{nbytes / 1e6:.1f} MB, {2 * rows * ci * co / 1e9:.2f} G int8 operations) | "
+                f"plain {plain_ms:.4f} ms | information: cuDNN 1x1 conv with bias + clamp pass "
+                f"(bf16, the default path) {cudnn_ms:.4f} ms, eager int8 sequence (quantize "
+                f"passes, torch._int_mm s32, dequantize passes) {eager_ms:.4f} ms, its bits "
+                f"the kernel's: {eager_same}")
+            report["ms"] += ms
+            report["plain_ms"] += plain_ms
+            report["bound_ms"] += least
+            bound_by.add(by)
+            del weight, bias, nchw
+        del x, got, want, xq, want_q
+        torch.cuda.empty_cache()
+    report["bound_by"] = "bytes" if bound_by == {"bytes"} else "operations"
+    log(f"[int8] bf16 one forward (two launches): wrapper {report['ms']:.4f} ms | plain "
+        f"{report['plain_ms']:.4f} ms | bound {report['bound_ms']:.4f} ms "
+        f"({report['bound_by']})")
     return report
 
 
@@ -1698,17 +1822,18 @@ BF16_SERVE_TOLERANCE = 3e-2
 
 
 def _kernel_counters():
-    """The launch counters of the eight kernels' wrappers, by name."""
+    """The launch counters of the nine kernels' wrappers, by name."""
     from ssdseglib_torch.ops import depthwise_backward as dwb
     from ssdseglib_torch.ops import fused_chain_backward as fcb
-    from ssdseglib_torch.ops import fused_mbconv, nms_scan, s2d_stem
+    from ssdseglib_torch.ops import fused_mbconv, int8_pointwise, nms_scan, s2d_stem
     from ssdseglib_torch.ops import pointwise_wgrad as pw
 
     return {"fused_mbconv": fused_mbconv.fused_mbconv,
             "depthwise_backward": dwb.depthwise3x3_backward,
             "chain_backward": fcb.dw_bn_relu6_backward, "nms_scan": nms_scan.greedy_select,
             "stem_block1": s2d_stem.fused_stem_block1, "wgrad_mma": pw.wgrad_mma,
-            "wgrad_fma": pw.wgrad_fma, "wgrad_copy": pw.wgrad_copy}
+            "wgrad_fma": pw.wgrad_fma, "wgrad_copy": pw.wgrad_copy,
+            "int8_pointwise": int8_pointwise.int8_pointwise}
 
 
 def _notebook_encoding(directory: str, devices=("cuda", "cpu")) -> None:
@@ -3364,6 +3489,111 @@ def phase_compat(card: str) -> None:
 
 # (rows a warp stages per slab, CTAs) of the tensor-core weight-gradient kernel
 # (0: the source's choice), for `--wgrad-variants`
+INT8_MASK_BOUND, INT8_MASK_MEAN = 0.05, 5e-3  # tests/test_fused_inference.py's bounds
+
+
+def phase_int8_serving(card: str) -> int:
+    """Phase 15: the flagship's fused bf16 serving with ``quantize_pointwise``,
+    calibrated on phase 6's first uint8 b16 batch, against the unquantized
+    model.  Returns the int8 kernel's launches over the phase."""
+    import os
+    import tempfile
+
+    from ssdseglib_torch.export import load_serving_bundle
+    from ssdseglib_torch.models import fused_inference
+    from ssdseglib_torch.ops.fused_mbconv import fused_mbconv
+    from ssdseglib_torch.ops.int8_pointwise import int8_pointwise
+
+    builder, model, nms = _builder()
+    inputs, single = _serving_inputs()
+    calibration = inputs[0].cpu().numpy()
+    kwargs = dict(model_trained=model, compute_dtype="bfloat16", fused_backbone=True,
+                  mask_output="bfloat16", device="cuda", **nms)
+    default = builder.get_model_for_inference(**kwargs)
+    torch.cuda.synchronize()
+    fused_mbconv.launches = int8_pointwise.launches = 0
+    t0 = time.perf_counter()
+    quantized = builder.get_model_for_inference(
+        quantize_pointwise=True, calibration_images=calibration, **kwargs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert (fused_mbconv.launches, int8_pointwise.launches) == (10, 0), (
+        fused_mbconv.launches, int8_pointwise.launches)
+    t0 = time.perf_counter()
+    amaxes = fused_inference.calibrate_pointwise_scales(
+        model.cfg, model.state_dict(), calibration, torch.bfloat16, "cuda")
+    calibration_s = time.perf_counter() - t0
+    operands = quantized._operands["network"]
+    weights = fused_inference.quantize_pointwise_weights(
+        fused_inference.fold_heads(model.state_dict(), model.cfg))
+    for name, tables in fused_inference.int8_tables(weights, amaxes, "cuda").items():
+        for a, b in zip(tables, operands[name + fused_inference.INT8_SUFFIX]):
+            assert torch.equal(a, b), name  # the calibration repeats its bits
+    log(f"[int8-serve] calibration on phase 6's first b16 batch: amax "
+        f"{ {k: round(v, 4) for k, v in amaxes.items()} }, 10 MBConv launches; quantized "
+        f"build {build_s:.3f} s, calibration alone {calibration_s:.3f} s")
+
+    for infer in (default, quantized):
+        infer(inputs[0])
+        infer(single)
+    torch.cuda.synchronize()
+    fused_mbconv.launches = int8_pointwise.launches = 0  # the main path starts here
+    mask, det = quantized(inputs[0])
+    det_host = det.cpu()
+    assert (fused_mbconv.launches, int8_pointwise.launches) == (10, 2), (
+        fused_mbconv.launches, int8_pointwise.launches)
+    calls = 1
+    assert tuple(mask.shape) == (BATCH, 480, 640, 4) and mask.dtype == torch.bfloat16
+    assert tuple(det_host.shape) == (BATCH, 10, 6)
+    assert bool(torch.isfinite(mask).all()) and bool(torch.isfinite(det_host).all())
+
+    with torch.inference_mode():
+        got = quantized._network(operands, inputs[0])
+        want = default._network(default._operands["network"], inputs[0])
+    calls += 1
+    for key in ("output-labels", "output-boxes"):
+        assert torch.equal(got[key], want[key]), key
+    diff = (got["output-mask"].float() - want["output-mask"].float()).abs()
+    mask_max, mask_mean = float(diff.max()), float(diff.mean())
+    log(f"[int8-serve] bf16 b16 forward against the unquantized fused forward: labels and "
+        f"boxes the same bits; mask max |diff| {mask_max:.4g} (limit {INT8_MASK_BOUND}), "
+        f"mean {mask_mean:.4g} (limit {INT8_MASK_MEAN}); 10 MBConv and 2 int8 launches")
+    assert mask_max <= INT8_MASK_BOUND and mask_mean < INT8_MASK_MEAN, (mask_max, mask_mean)
+
+    with tempfile.TemporaryDirectory(prefix="ssdseg_smoke_int8_") as tmp:
+        t0 = time.perf_counter()
+        quantized.export_serving_bundle(os.path.join(tmp, "bundle"), batch=16)
+        export_s = time.perf_counter() - t0
+        bundle = load_serving_bundle(os.path.join(tmp, "bundle"))
+        before = int8_pointwise.launches
+        for x in inputs[:2]:
+            for a, b in zip(bundle(x), quantized(x)):
+                assert torch.equal(a, b), "the reloaded bundle's bits differ"
+        calls += 4
+        assert int8_pointwise.launches - before == 8, int8_pointwise.launches - before
+        assert bundle.metadata["quantize_pointwise"] is True
+    log(f"[int8-serve] b16 bundle: exported in {export_s:.2f} s, reloaded, the live model's "
+        f"bits on two batches, 2 int8 launches a forward inside the reloaded program")
+
+    rates = {"default": [], "int8": []}
+    for name in ("default", "int8", "int8", "default"):
+        infer = default if name == "default" else quantized
+        rates[name] += _images_per_second(infer, inputs)
+        calls += SERVE_STEPS * SERVE_ROUNDS if name == "int8" else 0
+    launches = int8_pointwise.launches
+    assert launches == 2 * calls, (launches, calls)
+    log(f"[int8-serve] b16 images/s in turns (default, int8, int8, default), rounds: "
+        f"default {[round(r, 2) for r in rates['default']]}, int8 "
+        f"{[round(r, 2) for r in rates['int8']]} | {card}")
+    log(json.dumps({"int8_serving": {
+        "images_per_s": statistics.median(rates["int8"]),
+        "default_images_per_s": statistics.median(rates["default"]),
+        "mask_max_abs_diff": mask_max, "mask_mean_abs_diff": mask_mean,
+        "calibration_s": calibration_s, "build_s": build_s, "launches": launches,
+        "card": card}}))
+    return launches
+
+
 WGRAD_VARIANTS = [(0, 0), (16, 132), (16, 264), (16, 396), (16, 528), (32, 132), (32, 264),
                   (32, 396), (32, 528)]
 # (rows a chunk, chunks in the ring, CTAs an SM, register block: 1-based in the
@@ -3822,13 +4052,14 @@ def _log_device_profile(tag: str, prof, wall_ms: float, steps: int, card: str, o
 def profile_serving(card: str, steps: int = 8) -> None:
     """``python3 chip_smoke.py --profile-serve``: where the device time of a
     bf16 b16 serving step goes (torch.profiler over ``steps`` pipelined
-    steps, kernel events only) on the default path and on the option path."""
+    steps, kernel events only) on the default path, on the option path and
+    on the default path with ``quantize_pointwise`` (phase 15's model)."""
     from torch.profiler import ProfilerActivity, profile
 
     builder, model, nms = _builder()
-    infer = builder.get_model_for_inference(
-        model_trained=model, compute_dtype="bfloat16", fused_backbone=True,
-        mask_output="bfloat16", device="cuda", **nms)
+    kwargs = dict(model_trained=model, compute_dtype="bfloat16", fused_backbone=True,
+                  mask_output="bfloat16", device="cuda", **nms)
+    infer = builder.get_model_for_inference(**kwargs)
     make_forward, _, postprocess, _, _ = _option_path_parts()
     option = make_forward(torch.bfloat16, "cuda")
 
@@ -3837,8 +4068,11 @@ def profile_serving(card: str, steps: int = 8) -> None:
         return out["output-mask"], postprocess(out, "topk")
 
     inputs, _ = _serving_inputs()
-    own = ("mbconv_bf16_kernel", "stem_block1", "nms_scan_kernel")
-    for tag, serve in (("default path", infer), ("option path", serve_option)):
+    quantized = builder.get_model_for_inference(
+        quantize_pointwise=True, calibration_images=inputs[0].cpu().numpy(), **kwargs)
+    own = ("mbconv_bf16_kernel", "stem_block1", "nms_scan_kernel", "int8_pointwise_kernel")
+    for tag, serve in (("default path", infer), ("option path", serve_option),
+                       ("int8 path", quantized)):
         for i in range(3):
             serve(inputs[i])[1].cpu()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3927,6 +4161,9 @@ def main() -> None:
     if "--compat" in sys.argv:
         phase_compat(card)
         return
+    if "--int8" in sys.argv:
+        phase_int8_serving(card)
+        return
     if "--profile-train" in sys.argv:
         routes = [a for a in sys.argv[1:] if a in ROUTES] or list(ROUTES)
         for route in routes:
@@ -3935,6 +4172,7 @@ def main() -> None:
     mbconv = phase_kernel_vs_twin()
     scan = phase_scan_kernel_vs_plain()
     stem = phase_stem_kernel_vs_plain()
+    int8 = phase_int8_kernel_vs_plain()
     backward = phase_backward_kernels_vs_plain(card)
     wgrad = phase_wgrad_kernels_vs_plain(card, backward["chain_backward"].pop("call"),
                                          backward["depthwise_backward"].pop("call"))
@@ -3951,6 +4189,7 @@ def main() -> None:
     phase_data_parallel(card)
     phase_spatial(card)
     phase_compat(card)
+    int8["launches"] = phase_int8_serving(card)
     wgrad["wgrad_mma"]["launches"] = fit_launches["wgrad_mma"]
     wgrad["wgrad_fma"]["launches"] = fit_launches["wgrad_fma"]
     described = {
@@ -3972,6 +4211,8 @@ def main() -> None:
                       "tests/tpu_scripts/mosaic_reshape_probe.py:80", wgrad["wgrad_fma"]),
         "wgrad_copy": ("ssdseglib_torch/csrc/pointwise_wgrad.cu",
                        "tests/tpu_scripts/mosaic_reshape_probe.py:53", wgrad["wgrad_copy"]),
+        "int8_pointwise": ("ssdseglib_torch/csrc/int8_pointwise.cu",
+                           "ssdseglib_tpu/models/fused_inference.py:72", int8),
     }
     for name, (_, _, report) in described.items():
         if report["launches"] < 1:

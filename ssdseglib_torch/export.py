@@ -25,7 +25,8 @@ Layout of a bundle directory:
                         on the device, so the kernels' 16-byte alignment
                         holds
     metadata.json       format version, image shape and dtype, batches,
-                        device type, mask output, background filter, the
+                        device type, mask output, whether int8
+                        pointwise convs are in, background filter, the
                         default thresholds, the torch version
 
 The thresholds stay inputs of every program, so `set_nms_operating_point`
@@ -33,8 +34,10 @@ retunes a reloaded bundle without a re-export, as it retunes the live model.
 
 Deviation from the JAX package: its bundles can carry a
 ``compiled_auto.pkl`` sidecar, the executable compiled with XLA's automatic
-input layout.  The port has no ``input_layout`` option, so that sidecar has
-no counterpart.
+input layout.  The port's ``input_layout="auto"`` serves through the same
+program as ``"default"`` (its stem reads the uint8 NHWC input in place), so
+that sidecar has no counterpart.  A model built with ``quantize_pointwise``
+exports like any other: its int8 tables are operands in ``operands.pt``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import torch.utils._pytree as pytree
 
 # the dispatcher ops a program may call are registered by these imports
 from ssdseglib_torch.ops import fused_mbconv as _fused_mbconv  # noqa: F401
+from ssdseglib_torch.ops import int8_pointwise as _int8_pointwise  # noqa: F401
 from ssdseglib_torch.ops import nms_scan as _nms_scan  # noqa: F401
 from ssdseglib_torch.ops import s2d_stem as _s2d_stem  # noqa: F401
 from ssdseglib_torch.utils.serving import (
@@ -123,6 +127,7 @@ def save_serving_bundle(infer, path: str, *, batch) -> None:
         "device_type": infer.device.type,
         "compute_dtype": infer.compute_dtype,
         "fused_backbone": infer._fused,
+        "quantize_pointwise": infer._quantized,
         "mask_output": infer._mask_output,
         "suppress_background_boxes": bool(infer._suppress_background),
         "default_iou_threshold": float(infer._iou_threshold),

@@ -212,6 +212,10 @@ class InferenceModel:
         mask_output: str = "float32",
         device="cuda",
         mesh=None,
+        input_layout: str = "default",
+        input_layout_batch: int = 16,
+        quantize_pointwise: bool = False,
+        calibration_images=None,
     ) -> None:
         """compute_dtype: 'bfloat16' is the serving fast path (weights and
         convs in bf16); decode, gating and NMS always run in f32.
@@ -226,7 +230,32 @@ class InferenceModel:
         serving, a ``("data", "spatial")`` one (`parallel.make_hybrid_mesh`)
         for batch- and row-parallel serving, or None.  A mesh that splits
         the rows refuses ``fused_backbone`` (NotImplementedError).
+
+        quantize_pointwise / calibration_images: int8 post-training
+        quantization of the two pointwise convs of
+        `fused_inference.QUANT_TARGETS`, calibrated on a representative
+        uint8 batch; requires ``fused_backbone``.  On a data mesh every rank
+        calibrates on the whole batch with the replicated weights, so every
+        rank holds the same tables.
+
+        input_layout / input_layout_batch: the JAX package's 'auto' compiles
+        a program with XLA-chosen input layouts for one batch size.  The
+        port's stem already reads the uint8 NHWC input in place as a
+        channels-last view, so 'auto' serves through the same program as
+        'default' and ``input_layout_batch`` changes nothing; the values are
+        validated as the JAX package validates them.
         """
+        if quantize_pointwise and not fused_backbone:
+            raise ValueError(
+                "quantize_pointwise requires fused_backbone=True (the int8 "
+                "pointwise convs live in the folded-heads serving path)"
+            )
+        if input_layout not in ("default", "auto"):
+            raise ValueError(
+                f"input_layout must be 'default' or 'auto', got {input_layout!r}"
+            )
+        if input_layout == "auto" and mesh is not None:
+            raise ValueError("input_layout='auto' is single-device only")
         if mesh is not None and mesh_lib.spatial_size(mesh) > 1 and fused_backbone:
             raise NotImplementedError(
                 "fused_backbone=True is not available on a spatial mesh: the fused MBConv "
@@ -249,6 +278,7 @@ class InferenceModel:
         self._mask_output = mask_output
         self._suppress_background = suppress_background_boxes
         self._fused = fused_backbone
+        self._quantized = bool(quantize_pointwise)
         self._standard_deviations = decode.standard_deviations
         self._nms = NonMaximumSuppression(
             nms.config.max_boxes_per_class, nms.config.max_boxes_per_sample,
@@ -280,7 +310,9 @@ class InferenceModel:
             cfg = module.cfg
             self._net = None
             # fold BN from the f32 weights, then cast to the compute dtype
-            weights = fused_operands(cfg, state_dict, self._dtype, self.device)
+            weights = fused_operands(cfg, state_dict, self._dtype, self.device,
+                                     quantize_pointwise=quantize_pointwise,
+                                     calibration_images=calibration_images)
 
             def network(weights, images):
                 return fused_forward(cfg, weights, images)
@@ -509,6 +541,10 @@ class _BuilderBase:
         mask_output: str = "float32",
         device="cuda",
         mesh=None,
+        input_layout: str = "default",
+        input_layout_batch: int = 16,
+        quantize_pointwise: bool = False,
+        calibration_images=None,
     ) -> InferenceModel:
         """Args:
             model_trained: the trained `SsdSegModel`, or its state_dict.
@@ -522,6 +558,12 @@ class _BuilderBase:
                 serving over its ranks, or a ``("data", "spatial")`` one
                 (`parallel.make_hybrid_mesh`) that splits the rows too
                 (`InferenceModel`).
+            input_layout / input_layout_batch: 'default' | 'auto'; the same
+                program either way on the port (`InferenceModel`).
+            quantize_pointwise / calibration_images: opt-in int8 PTQ of the
+                two pointwise convs of `fused_inference.QUANT_TARGETS`;
+                requires fused_backbone and a representative calibration
+                batch in [0, 255].
         """
         if isinstance(model_trained, SsdSegModel):
             module = model_trained
@@ -549,6 +591,10 @@ class _BuilderBase:
             mask_output=mask_output,
             device=device,
             mesh=mesh,
+            input_layout=input_layout,
+            input_layout_batch=input_layout_batch,
+            quantize_pointwise=quantize_pointwise,
+            calibration_images=calibration_images,
         )
 
 

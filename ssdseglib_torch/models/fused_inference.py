@@ -15,9 +15,12 @@ Options of `make_fused_forward`, all off the default path:
 - ``fused_heads=False``: the heads of `SsdSegModel` (unfolded, eval mode)
   under the folded backbone.
 - ``fold_input_rescale=False``: the standalone rescale at every shape.
-Still queued (ROADMAP.md): ``s2d_stem="xla"`` (the conv reformulation of
-the same study, Queue 1 #15) and ``quantize_pointwise`` (int8 PTQ of two
-pointwise convs, Queue 1 #2).
+- ``quantize_pointwise=True``: int8 post-training quantization of the two
+  `QUANT_TARGETS` pointwise convs, per-output-channel weight scales and
+  per-tensor activation scales calibrated on ``calibration_images``; each
+  runs as one int8 tensor-core kernel (`ops/int8_pointwise.py`).
+Not ported: ``s2d_stem="xla"``, the conv reformulation of the stem study,
+which lost on the TPU (ROADMAP.md Queue 1 #5).
 
 `fused_operands` gives every tensor the forward reads and `fused_forward`
 is the forward as a function of them, which ``torch.export`` captures with
@@ -40,6 +43,7 @@ from ssdseglib_torch.config import ModelConfig
 from ssdseglib_torch.models.blocks import bilinear_resize, conv2d_same
 from ssdseglib_torch.models.mobilenetv2 import _SEQUENCES
 from ssdseglib_torch.ops.fused_mbconv import fold_conv_bn, fused_mbconv
+from ssdseglib_torch.ops.int8_pointwise import int8_pointwise
 from ssdseglib_torch.ops.s2d_stem import fused_stem_block1, stem_block1_args
 from ssdseglib_torch.parallel import spatial
 
@@ -164,6 +168,66 @@ def _act(x, relu_max):
     return x.clamp(0.0, relu_max) if relu_max > 0.0 else F.relu(x)
 
 
+def _quantize_weight_int8(kernel):
+    """Per-output-channel symmetric int8 weight quantization of an OIHW
+    kernel: (int8 kernel, (Co,) f32 dequant scale).  The JAX package's
+    NumPy arithmetic on the HWIO transpose: the amax runs over the
+    in-channel and tap axes."""
+    k = np.asarray(kernel, np.float32)
+    amax = np.max(np.abs(k), axis=(1, 2, 3))
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    kq = np.clip(np.round(k / scale[:, None, None, None]), -127, 127).astype(np.int8)
+    return kq, scale
+
+
+# The pointwise convs that ``quantize_pointwise`` runs in int8: the ASPP input
+# pointwise (1x1 576 -> 256 at os16) and the decoder SepConv's pointwise half
+# (1x1 256 -> 256 at os4), the JAX package's choice.  Each runs as one kernel
+# (`ops/int8_pointwise.py`) that reads the activation once.
+QUANT_TARGETS = ("mask-encoder/aspp-pointwise", "mask-decoder/sepconv-pw")
+# the key of a target's tables among the operands
+INT8_SUFFIX = "/int8"
+
+
+def quantize_pointwise_weights(folded_heads_f32):
+    """The int8 weight tables of QUANT_TARGETS from the f32 folded heads
+    (`fold_heads`): {target: (int8 OIHW kernel, (Co,) w_scale, f32 bias)}.
+    The bias stays f32 whatever the serving dtype, as in the JAX package."""
+    k1, b1 = folded_heads_f32["mask-encoder/aspp-pointwise"]
+    _, pw2, b2 = folded_heads_f32["mask-decoder/sepconv"]
+    out = {}
+    kq, ws = _quantize_weight_int8(k1)
+    out["mask-encoder/aspp-pointwise"] = (kq, ws, np.asarray(b1, np.float32))
+    kq, ws = _quantize_weight_int8(pw2)
+    out["mask-decoder/sepconv-pw"] = (kq, ws, np.asarray(b2, np.float32))
+    return out
+
+
+def int8_tables(weights, amaxes, device) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """The kernel's operands of each target from `quantize_pointwise_weights`
+    and the calibrated input amax of each (`calibrate_pointwise_scales`):
+    {target: (wq (Co, Ci) int8, inv_x_scale () f32, dequant (Co,) f32,
+    bias (Co,) f32)} on ``device``.  The scales are the JAX package's:
+    ``x_scale = max(amax, 1e-6) / 127`` in float64, its f32 reciprocal (the
+    constant that `_conv_int8` multiplies by) and the f32 product
+    ``f32(w_scale) * f32(x_scale)``."""
+    out = {}
+    for name, (kq, w_scale, bias) in weights.items():
+        x_scale = max(amaxes[name], 1e-6) / 127.0
+        arrays = (kq.reshape(kq.shape[0], -1), np.asarray(1.0 / x_scale, np.float32),
+                  np.asarray(w_scale, np.float32) * np.float32(x_scale),
+                  np.asarray(bias, np.float32))
+        out[name] = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+    return out
+
+
+def _pointwise_int8(x, tables):
+    """A quantized target on the NCHW channels-last ``x``: the kernel on its
+    NHWC view, back as a channels-last view; ReLU6 included."""
+    y = int8_pointwise(x.permute(0, 2, 3, 1).contiguous(), *tables)
+    return y.permute(0, 3, 1, 2)
+
+
 def _block_convs(folded, block: int):
     """The folded (kernel, bias) of a block's expand, depthwise, project."""
     return tuple(
@@ -188,7 +252,7 @@ def _check_s2d_stem(s2d_stem) -> None:
     if s2d_stem == "xla":
         raise NotImplementedError(
             "s2d_stem='xla' (the conv reformulation of the stem study) is not "
-            "ported: ROADMAP.md Queue 1 #15"
+            "ported: ROADMAP.md Queue 1 #5"
         )
     if s2d_stem not in (False, "cuda"):
         # reject typos like 'cuba' / True instead of running another variant
@@ -258,13 +322,18 @@ def mobilenetv2_features_fused(folded, x: torch.Tensor, s2d_stem=False):
 mobilenetv2_features_fused.copies = 0
 
 
-def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip):
+def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip, quant=None,
+                         collect_amax: bool = False):
     """BN-folded, concat-free forward of the task heads (NCHW in, NHWC
     out).  Each ``concat -> conv`` pair (the ASPP merge and the decoder skip
     merge) runs as a sum of per-branch convs over kernel slices, so the
     concatenation is never materialised; the pooled ASPP branch is
-    spatially constant and enters as a bias."""
-    relu_max = 6.0  # mobilenetv2 head cap
+    spatially constant and enters as a bias.
+
+    quant: {target: `int8_tables` entry} of the QUANT_TARGETS that run in
+    int8.  collect_amax: also return {target: max |input|} as 0-d tensors,
+    the calibration's statistic."""
+    relu_max = 6.0  # mobilenetv2 head cap (the int8 kernel's ReLU6)
 
     def sep(x, name, stride=1, dilation=1, rm=relu_max):
         dw, pw, b = folded[name]
@@ -275,7 +344,14 @@ def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip):
     fm4 = sep(fm3, EXTRA_BLOCKS[1], stride=2)
 
     # -- ASPP encoder
-    pw_out = _act(_conv(fm1, *folded["mask-encoder/aspp-pointwise"]), relu_max)
+    quant = quant or {}
+    amaxes = {}
+    if collect_amax:
+        amaxes["mask-encoder/aspp-pointwise"] = fm1.abs().max()
+    if "mask-encoder/aspp-pointwise" in quant:
+        pw_out = _pointwise_int8(fm1, quant["mask-encoder/aspp-pointwise"])
+    else:
+        pw_out = _act(_conv(fm1, *folded["mask-encoder/aspp-pointwise"]), relu_max)
     atrous = [
         sep(fm1, f"mask-encoder/aspp-atrous{i + 1}", dilation=rate)
         for i, rate in enumerate(cfg.segmentation_dilation_rates)
@@ -296,7 +372,15 @@ def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip):
     red = _act(_conv(skip, *folded["mask-decoder/backbone-reduce"]), relu_max)
     kc, bc = folded["mask-decoder/conv"]  # (F, F + 48, 3, 3)
     x = _act(_conv(enc_up, kc[:, :f]) + _conv(red, kc[:, f:], bc), relu_max)
-    x = sep(x, "mask-decoder/sepconv", rm=relu_max)
+    # decoder SepConv, split so that its pointwise half can run int8
+    dw_k, pw_k, b_sep = folded["mask-decoder/sepconv"]
+    dw_out = _conv(x, dw_k, None, depthwise=True)
+    if collect_amax:
+        amaxes["mask-decoder/sepconv-pw"] = dw_out.abs().max()
+    if "mask-decoder/sepconv-pw" in quant:
+        x = _pointwise_int8(dw_out, quant["mask-decoder/sepconv-pw"])
+    else:
+        x = _act(_conv(dw_out, pw_k, b_sep), relu_max)
     (k_out,) = folded["mask-decoder/output-conv"]
     x = _conv(x, k_out)
     x = bilinear_resize(x, cfg.input_image_shape[0], cfg.input_image_shape[1])
@@ -323,7 +407,10 @@ def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip):
 
     labels = torch.softmax(branch("labels", 4), dim=-1)
     boxes = branch("boxes", cfg.number_of_classes)
-    return {"output-mask": mask, "output-labels": labels, "output-boxes": boxes}
+    outputs = {"output-mask": mask, "output-labels": labels, "output-boxes": boxes}
+    if collect_amax:
+        return outputs, amaxes
+    return outputs
 
 
 def _to_device(folded, dtype, device):
@@ -341,14 +428,26 @@ STEM_RESCALED = "backbone-block0-expand-rescaled"
 
 def fused_operands(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
                    device="cuda", s2d_stem=False, fold_input_rescale: bool = True,
-                   heads: bool = True) -> Dict[str, Tuple[torch.Tensor, ...]]:
+                   heads: bool = True, quantize_pointwise: bool = False,
+                   calibration_images=None) -> Dict[str, Tuple[torch.Tensor, ...]]:
     """Every tensor `fused_forward` reads, keyed by conv: the BN-folded
     backbone convs (OIHW kernel, bias), the stem with the input rescale
     folded in (under ``fold_input_rescale``, not under ``s2d_stem``), the
     kernels' arguments of each stride-1 residual repeat and of the stem +
-    block 1 (under ``s2d_stem``), and, with ``heads``, the folded head
-    convs.  Folding runs in f32; the tensors are then cast to
-    ``compute_dtype`` on ``device``, each in its own allocation."""
+    block 1 (under ``s2d_stem``), with ``heads`` the folded head convs, and
+    with ``quantize_pointwise`` the int8 tables of each QUANT_TARGETS conv
+    (`int8_tables`, keyed ``target + INT8_SUFFIX``), calibrated on
+    ``calibration_images`` by `calibrate_pointwise_scales`'s pass.  Folding
+    runs in f32; the tensors are then cast to ``compute_dtype`` on
+    ``device``, each in its own allocation (the int8 tables keep their
+    types)."""
+    if quantize_pointwise and not heads:
+        raise ValueError("quantize_pointwise requires fused_heads=True")
+    if quantize_pointwise and calibration_images is None:
+        raise ValueError(
+            "quantize_pointwise requires calibration_images (a "
+            "representative batch in [0, 255]) for the activation scales"
+        )
     folded_f32 = fold_mobilenetv2(state_dict)
     operands = _to_device(folded_f32, compute_dtype, device)
     if fold_input_rescale and not s2d_stem:
@@ -366,8 +465,40 @@ def fused_operands(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
             if n > 0:
                 operands[f"backbone-block{block}-mbconv"] = _mbconv_args(operands, block)
     if heads:
-        operands.update(_to_device(fold_heads(state_dict, cfg), compute_dtype, device))
+        heads_f32 = fold_heads(state_dict, cfg)
+        operands.update(_to_device(heads_f32, compute_dtype, device))
+        if quantize_pointwise:
+            amaxes = _calibrate(cfg, operands, calibration_images)
+            tables = int8_tables(quantize_pointwise_weights(heads_f32), amaxes, device)
+            operands.update({name + INT8_SUFFIX: t for name, t in tables.items()})
     return operands
+
+
+@torch.inference_mode()
+def _calibrate(cfg: ModelConfig, operands, images) -> Dict[str, float]:
+    """The input amax of every QUANT_TARGETS conv over ``images`` (NHWC, in
+    [0, 255]), through the backbone and heads of ``operands`` in their
+    dtype: the plain stem after the standalone rescale, as the JAX package
+    calibrates, whatever the serving stem."""
+    weight = operands["backbone-block0-project"][0]
+    images = images if isinstance(images, torch.Tensor) else torch.from_numpy(
+        np.asarray(images))
+    x = images.to(weight.device).to(weight.dtype).permute(0, 3, 1, 2) / 127.5 - 1.0
+    fm1, fm2, skip = mobilenetv2_features_fused(operands, x)
+    _, amaxes = heads_forward_folded(cfg, operands, fm1, fm2, skip, collect_amax=True)
+    return {name: float(amax) for name, amax in amaxes.items()}
+
+
+def calibrate_pointwise_scales(cfg: ModelConfig, state_dict, images,
+                               compute_dtype=torch.bfloat16, device="cuda"
+                               ) -> Dict[str, float]:
+    """One pass of the folded pipeline over calibration ``images`` (NHWC, in
+    [0, 255]) in the SERVING compute dtype, on ``device`` (the MBConv kernel
+    on the card), recording the input amax of every QUANT_TARGETS conv:
+    {target: float amax}."""
+    operands = fused_operands(cfg, state_dict, compute_dtype, device,
+                              fold_input_rescale=False)
+    return _calibrate(cfg, operands, images)
 
 
 def fused_forward(cfg: ModelConfig, operands: Mapping[str, Tuple[torch.Tensor, ...]],
@@ -389,13 +520,15 @@ def fused_forward(cfg: ModelConfig, operands: Mapping[str, Tuple[torch.Tensor, .
     fm1, fm2, skip = mobilenetv2_features_fused(backbone, x, s2d_stem=s2d_stem)
     if apply_heads is not None:
         return apply_heads(fm1, fm2, skip)
-    return heads_forward_folded(cfg, operands, fm1, fm2, skip)
+    quant = {name: operands[name + INT8_SUFFIX] for name in QUANT_TARGETS
+             if name + INT8_SUFFIX in operands}
+    return heads_forward_folded(cfg, operands, fm1, fm2, skip, quant=quant)
 
 
 def make_fused_forward(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
                        device="cuda", s2d_stem=False, fused_heads: bool = True,
-                       fold_input_rescale: bool = True
-                       ) -> Callable[[torch.Tensor], dict]:
+                       fold_input_rescale: bool = True, quantize_pointwise: bool = False,
+                       calibration_images=None) -> Callable[[torch.Tensor], dict]:
     """Build the BN-folded serving forward with the outputs of
     ``SsdSegModel`` in eval mode: a function of NHWC images (any real or
     uint8 dtype, on ``device``) returning the dict of NHWC outputs.
@@ -409,13 +542,21 @@ def make_fused_forward(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat1
     `mobilenetv2_features_fused`).  fused_heads: run the task heads through
     the BN-folded, concat-free `heads_forward_folded`; ``False`` runs the
     heads of `SsdSegModel` as they are.  Folding runs in f32; the weights
-    are then cast to ``compute_dtype``."""
+    are then cast to ``compute_dtype``.
+
+    quantize_pointwise: run the QUANT_TARGETS pointwise convs in int8
+    (per-output-channel weight scales, per-tensor activation scales
+    calibrated on ``calibration_images``, a representative batch in
+    [0, 255], which is then required).  Opt-in post-training quantization;
+    requires ``fused_heads``."""
     if cfg.backbone != "mobilenetv2":
         raise ValueError("fused inference currently supports mobilenetv2 only")
     _check_s2d_stem(s2d_stem)
     device = torch.device(device)
     operands = fused_operands(cfg, state_dict, compute_dtype, device, s2d_stem,
-                              fold_input_rescale, heads=fused_heads)
+                              fold_input_rescale, heads=fused_heads,
+                              quantize_pointwise=quantize_pointwise,
+                              calibration_images=calibration_images)
     apply_heads = None
     if not fused_heads:
         from ssdseglib_torch.models.builder import SsdSegModel

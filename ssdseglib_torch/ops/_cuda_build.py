@@ -31,6 +31,7 @@ SOURCES = (
     _CSRC / "nms_scan.cu",
     _CSRC / "s2d_stem.cu",
     _CSRC / "pointwise_wgrad.cu",
+    _CSRC / "int8_pointwise.cu",
 )
 HEADERS = (_CSRC / "common.cuh",)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -208,5 +209,9 @@ def load_library() -> ctypes.CDLL:
         + [ctypes.c_int] * 4 + [ptr]
     )
     lib.pointwise_wgrad_launch.restype = ctypes.c_int
+    # (dtype, x, wq, inv_x_scale, dequant, bias, y, xq or null, rows, Ci, Co,
+    #  stream)
+    lib.int8_pointwise_launch.argtypes = [ctypes.c_int] + [ptr] * 7 + [ctypes.c_int] * 3 + [ptr]
+    lib.int8_pointwise_launch.restype = ctypes.c_int
     _lib = lib
     return lib

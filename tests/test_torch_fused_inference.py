@@ -231,5 +231,5 @@ def test_make_fused_forward_rejects_unknown_s2d_stem(setup, bad):
 
 def test_make_fused_forward_names_the_queue_of_the_xla_variant(setup):
     _, _, state, _ = setup
-    with pytest.raises(NotImplementedError, match="Queue 1 #15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
         port_fused.make_fused_forward(PORT_CFG, state, device="cpu", s2d_stem="xla")

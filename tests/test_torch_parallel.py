@@ -392,6 +392,28 @@ def test_serving_on_two_ranks_matches_one_process(inputs, ranks, fused):
             np.testing.assert_allclose(got_det, det, rtol=1e-3, atol=1e-4)
 
 
+def test_quantized_serving_on_two_ranks_matches_one_process(inputs, ranks):
+    """``quantize_pointwise`` on the mesh: each rank calibrates on the whole
+    calibration batch with the replicated weights, so the two ranks hold the
+    same int8 tables bit for bit, those of one process (its amaxes within
+    f32 noise), and `predict` gives one process's outputs."""
+    images = inputs["serve_images"]
+    single = W.inference_model(inputs["variables"], fused=True, quantize_pointwise=True,
+                               calibration_images=images)
+    mask, det = single.predict(images)
+    want = W.int8_tables(single)
+    (first, first_tables), (second, second_tables) = (
+        result["serving"]["quantized"] for result in ranks.results())
+    assert len(want) == 2 and set(first_tables) == set(second_tables) == set(want)
+    for name, tables in want.items():
+        for a, b, c in zip(first_tables[name], second_tables[name], tables):
+            assert torch.equal(a, b), name
+            torch.testing.assert_close(a, c, rtol=1e-5, atol=0, msg=name)
+    for got_mask, got_det in (first, second):
+        np.testing.assert_allclose(got_mask, mask, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got_det, det, rtol=1e-3, atol=1e-4)
+
+
 def test_segmentation_suppression_is_global_on_the_mesh(inputs, ranks):
     """Class 3 is present in rank 1's images only: on the mesh rank 0 keeps
     its class-3 probabilities, as one process does; per rank it zeroes them."""

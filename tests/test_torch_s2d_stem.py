@@ -155,7 +155,7 @@ def test_s2d_stem_value_validation():
     for bad in ("palas", "pallas", True):
         with pytest.raises(ValueError, match="s2d_stem"):
             port_fused.mobilenetv2_features_fused({}, x, s2d_stem=bad)
-    with pytest.raises(NotImplementedError, match="Queue 1 #15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
         port_fused.mobilenetv2_features_fused({}, x, s2d_stem="xla")
     assert port_fused._s2d_stem_applicable(torch.zeros(3, 3, 36, 52))
     assert not port_fused._s2d_stem_applicable(torch.zeros(4, 3, 482, 640))

@@ -56,10 +56,6 @@ LEFT_OUT = {
     "ops/fused_mbconv.py": {
         "fold_block": "folds one block of a Flax tree; the port folds its state_dict in "
                       "models/fused_inference.fold_mobilenetv2"},
-    "models/fused_inference.py": {
-        "QUANT_TARGETS": "int8 serving (ROADMAP.md Queue 1 #4)",
-        "calibrate_pointwise_scales": "int8 serving (ROADMAP.md Queue 1 #4)",
-        "quantize_pointwise_weights": "int8 serving (ROADMAP.md Queue 1 #4)"},
     "models/builder.py": {
         "SsdSegHeads": "a Flax module of the heads alone; the port's model has apply_heads",
         "TrainableModel.init": "Flax's init / apply pair: the port's TrainableModel is the "

@@ -85,12 +85,19 @@ def builder() -> MobileNetV2SsdSegBuilder:
         centroids[:, 3], (0.1, 0.1, 0.2, 0.2))
 
 
-def inference_model(variables, mesh=None, fused=False):
-    """The serving model of ``variables`` (a ``state_dict``) on the CPU."""
+def inference_model(variables, mesh=None, fused=False, **options):
+    """The serving model of ``variables`` (a ``state_dict``) on the CPU;
+    ``options`` go to `get_model_for_inference`."""
     model = SsdSegModel(ModelConfig(**MODEL), torch.Generator().manual_seed(0))
     model.load_state_dict(variables)
     return builder().get_model_for_inference(model, device="cpu", mesh=mesh,
-                                             fused_backbone=fused, **SERVE)
+                                             fused_backbone=fused, **SERVE, **options)
+
+
+def int8_tables(infer) -> dict:
+    """The int8 tables among a quantized model's operands."""
+    return {name: [t.clone() for t in tables]
+            for name, tables in infer._operands["network"].items() if name.endswith("/int8")}
 
 
 def step_results(state, metrics) -> dict:
@@ -241,6 +248,10 @@ def case_serving(mesh, inputs, directory):
             for k, v in inputs["variables"].items()}
     infer.update_variables(mine)
     out["updated"] = infer.predict(images)
+    # int8 serving: every rank calibrates on the whole batch
+    infer = inference_model(inputs["variables"], mesh, True, quantize_pointwise=True,
+                            calibration_images=images)
+    out["quantized"] = infer.predict(images), int8_tables(infer)
     return out
 
 
