@@ -30,6 +30,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel alone (20 launches between two CUDA events), the plain version
    and, as information, the six cuDNN convs (with their bias and clamp
    passes) that the default path runs for the same function;
+   3d. the int8 pointwise kernel vs its plain version, bit for bit (0 of its
+   outputs and 0 of its s8 activations differ), in bf16 and f32 at
+   INT8_SHAPES: the two quantized convs of a b16 forward, then the design's
+   edges (ragged rows, Ci 8 and 1024, Co 8 and 264, weights that do not stay
+   resident).  The launcher's plan (``int8_pointwise_plan``) must equal
+   ``ops/int8_pointwise.py::_plan`` there and over a sweep of shapes.
+   Timings at the two flagship shapes in bf16: wrapper, kernel alone (also
+   over copies of x rotated past the L2 at the ASPP shape), share of the
+   bound, plain version and, as information, the cuDNN 1x1 conv + clamp it
+   replaces and the eager ``torch._int_mm`` sequence;
 4. the two backward kernels (depthwise 3x3 backward, dw + BN + ReLU6 chain
    backward) vs their plain versions, in bf16 and f32, at the training
    path's shape (16, 240, 320, 32), at two shapes outside the model's
@@ -258,13 +268,15 @@ channels, warps), ``python3 chip_smoke.py
 (tile rows, tile columns, chunk),
 all through the launchers' runtime arguments, and
 ``python3 chip_smoke.py --ab PARENT_ROOT`` the stem, chain and depthwise
-backward kernels, `wgrad_fma` and phase 6's serving (b16 images/s, b1 ms) of
+backward kernels, `wgrad_fma`, the int8 pointwise kernel at its two shapes
+and phase 6's serving (b16 images/s, b1 ms) of
 an unpacked parent tree and of this one in turns (parent, change, change,
 parent; one process each), and ``python3 chip_smoke.py --deployment`` runs
 phase 11 alone, ``python3 chip_smoke.py --data-parallel`` phase 12,
 ``python3 chip_smoke.py --spatial`` phase 13, ``python3 chip_smoke.py
---compat`` phase 14 and ``python3 chip_smoke.py --int8`` phase 15; none of
-these prints result lines.
+--compat`` phase 14, ``python3 chip_smoke.py --int8`` phase 15 and
+``python3 chip_smoke.py --int8-kernel`` phase 3d; none of these prints
+result lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
@@ -401,9 +413,15 @@ def phase_build() -> None:
     info = _cuda_build.build_info
     log(f"[build] {info.path.name}: nvcc {info.seconds:.2f} s, load "
         f"{time.perf_counter() - t0:.2f} s")
+    entry = ""
     for line in info.ptxas.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
         if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+            tag = " (int8_pointwise_kernel)" if "int8_pointwise_kernel" in entry else ""
+            log(f"[build] ptxas: {line.strip()}{tag}")
+        elif "warning" in line.lower() or "wgmma" in line:
+            log(f"[build] ptxas: {line.strip()} [{entry[:60]}]")
 
 
 def _mbconv_sequence(x, w1, b1, wd, b2, w3, b3):
@@ -700,9 +718,16 @@ def phase_stem_kernel_vs_plain():
 
 # (B, H, W, Ci, Co) of the int8 pointwise kernel: the two quantized convs of one
 # b16 480x640 forward (the ASPP input pointwise at os16, the decoder SepConv's
-# pointwise half at os4), then a ragged shape (rows not a multiple of the CTA's
-# 128, Ci not of 32, Co not of the 64-column chunk)
-INT8_SHAPES = [(BATCH, 30, 40, 576, 256), (BATCH, 120, 160, 256, 256), (3, 37, 53, 72, 40)]
+# pointwise half at os4), then shapes at the design's edges: rows not a
+# multiple of the 64-row tile with Ci not of 32 and Co not of 128; 63 rows (one
+# part tile, one CTA); Ci = 8 (one part box); Ci = 1024 (the deepest, eight
+# stages a tile); Co = 8; Co = 264 (a second chunk of 8 channels past two
+# resident blocks); Co = 1024 at Ci = 1024 (weights that do not stay resident:
+# eight chunks of 128)
+INT8_SHAPES = [(BATCH, 30, 40, 576, 256), (BATCH, 120, 160, 256, 256), (3, 37, 53, 72, 40),
+               (1, 7, 9, 256, 256), (2, 9, 11, 8, 64), (2, 13, 17, 1024, 256),
+               (2, 11, 13, 64, 8), (1, 10, 10, 128, 264), (1, 20, 30, 1024, 1024)]
+INT8_FLAGSHIP = INT8_SHAPES[:2]
 INT8_OPS_PER_S = 1979e12  # the H100's dense int8 tensor-core peak
 
 
@@ -731,18 +756,113 @@ def _int8_eager(x, wq, inv_x_scale, dequant, bias):
     return y.reshape(*x.shape[:-1], -1)
 
 
+def _int8_plans(lib, op) -> None:
+    """The launcher's plan (``int8_pointwise_plan``) against `_plan` at every
+    INT8_SHAPES entry and a sweep of shapes, both dtypes; the flagship
+    shapes' plans logged."""
+    import ctypes
+
+    sweep = [(rows, ci, co) for rows in (1, 64, 65, 19_200, 307_200)
+             for ci in (8, 72, 256, 576, 1024) for co in (8, 40, 128, 136, 256, 264, 1024)]
+    shapes = [(b * h * w, ci, co) for b, h, w, ci, co in INT8_SHAPES] + sweep
+    out = (ctypes.c_int * 11)()
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for rows, ci, co in shapes:
+            assert lib.int8_pointwise_plan(code, rows, ci, co, out) == 0, (rows, ci, co)
+            got = tuple(out)
+            want = op._plan(rows, ci, co, dtype, got[8], got[9], got[10])
+            if got[:8] != tuple(want):
+                raise AssertionError(f"int8 plan differs at {rows}x{ci}->{co} {dtype}: "
+                                     f"launcher {got[:8]}, _plan {want}")
+            if (rows, ci, co) in [(b * h * w, ci_, co_) for b, h, w, ci_, co_ in INT8_FLAGSHIP]:
+                log(f"[int8] plan {str(dtype)[6:]} {rows}x{ci}->{co}: {want} ({got[8]} SMs, "
+                    f"{got[10]} CTA(s) an SM, {got[9]} B of shared memory a block)")
+    log(f"[int8] the launcher's plan equals _plan at {2 * len(shapes)} shapes")
+
+
+def _rotated_ms(fn, inputs, launches: int = 20, warmup: int = 3) -> float:
+    """`_events_ms` with each launch on the next of ``inputs`` in turn, its
+    output kept until the input comes round again: with inputs enough to
+    pass the 50 MB L2, no launch finds its data there."""
+    outs = [None] * len(inputs)
+
+    def call(i):
+        outs[i % len(inputs)] = fn(inputs[i % len(inputs)])
+
+    for i in range(warmup):
+        call(i)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(launches):
+        call(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def _int8_host_path(op, x, tables) -> str:
+    """Host microseconds a call of each step of the wrapper's path takes
+    (200 calls on the host clock, the card left to run behind)."""
+    out = op._launch(x, *tables)
+    args = (op._DTYPE_CODES[x.dtype], x.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
+            tables[2].data_ptr(), tables[3].data_ptr(), out.data_ptr(), None, out.numel()
+            // out.shape[-1], x.shape[-1], out.shape[-1],
+            torch._C._cuda_getCurrentRawStream(x.device.index))
+    steps = {
+        "op": lambda: op.int8_pointwise(x, *tables),
+        "_check": lambda: op._check(x, *tables),
+        "_launch": lambda: op._launch(x, *tables),
+        "torch.empty": lambda: torch.empty(out.shape, dtype=x.dtype, device=x.device),
+        "the stream": lambda: torch._C._cuda_getCurrentRawStream(x.device.index),
+        "the C launcher alone": lambda: op._kernel(*args),
+    }
+    cells = []
+    for name, fn in steps.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        cells.append(f"{name} {us:.2f}")
+    return " | ".join(cells)
+
+
+def _int8_items_sweep(op, x, tables) -> str:
+    """The kernel alone at x's widths with 132 k tiles of 64 rows (k = 1..4):
+    with the plan's pairs of CTAs on the two halves of Co, k items a consumer
+    warpgroup; the least-squares line through them splits a launch's fixed
+    cost (startup, weights, drain) from an item's."""
+    flat = x.reshape(-1, x.shape[-1])
+    ks, times = [1, 2, 3, 4], []
+    for k in ks:
+        rows = 64 * 132 * k
+        xk = flat.repeat(-(-rows // flat.shape[0]), 1)[:rows].contiguous()
+        times.append(_events_ms(lambda: op._launch(xk, *tables)))
+    mean_k, mean_t = sum(ks) / 4, sum(times) / 4
+    slope = (sum((k - mean_k) * (t - mean_t) for k, t in zip(ks, times))
+             / sum((k - mean_k) ** 2 for k in ks))
+    return (f"alone at 1..4 items a warpgroup {[round(t, 4) for t in times]} ms: fixed "
+            f"{mean_t - slope * mean_k:.4f} ms + {slope:.4f} ms an item")
+
+
 def phase_int8_kernel_vs_plain():
     """Phase 3d.  The int8 pointwise kernel against its plain version, bit for
     bit, at INT8_SHAPES in bf16 and f32 (TF32 off), its s8 activations too;
-    timings at the two flagship shapes in bf16.  Returns its report: one
-    forward's two launches."""
+    the launcher's plan against `_plan`; timings at the two flagship shapes in
+    bf16 (at the ASPP shape, whose x and y fit in L2, also over copies of x
+    rotated past it).  Returns its report: one forward's two launches."""
     from ssdseglib_torch.models.fused_inference import _conv
+    from ssdseglib_torch.ops import _cuda_build
     from ssdseglib_torch.ops import int8_pointwise as op
+
+    _int8_plans(_cuda_build.load_library(), op)
 
     gen = torch.Generator().manual_seed(4)
     report = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
               "library_ms": None}
     bound_by = set()
+    failed = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape in INT8_SHAPES:
             x, tables = _int8_operands(gen, dtype, shape)
@@ -762,14 +882,34 @@ def phase_int8_kernel_vs_plain():
                 f"version (max |diff| {err:.3g}), {q_differ} s8 activations differ "
                 f"({clipped} clipped at +-127); limit 0 ulps")
             if differ or q_differ or not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"int8 kernel disagrees with its plain version at {tag}")
+                rows_at, cols_at = torch.nonzero((got != want).reshape(-1, shape[4]),
+                                                 as_tuple=True)
+                q_rows, q_cols = torch.nonzero((xq != want_q).reshape(-1, shape[3]),
+                                               as_tuple=True)
+                log(f"[int8] {tag}: FAILED; outputs differ at (row, channel) "
+                    f"{list(zip(rows_at[:8].tolist(), cols_at[:8].tolist()))}, got "
+                    f"{got.reshape(-1, shape[4])[rows_at[:4], cols_at[:4]].tolist()} want "
+                    f"{want.reshape(-1, shape[4])[rows_at[:4], cols_at[:4]].tolist()}; "
+                    f"rows {sorted(set(rows_at.tolist()))[:8]}..., channels "
+                    f"{sorted(set(cols_at.tolist()))[:16]}...; s8 activations differ at "
+                    f"{list(zip(q_rows[:8].tolist(), q_cols[:8].tolist()))}")
+                failed.append(tag)
+                continue
             report["max_abs_err"] = max(report["max_abs_err"], err)
-            if dtype != torch.bfloat16 or shape == INT8_SHAPES[-1]:
+            if dtype != torch.bfloat16 or shape not in INT8_FLAGSHIP:
                 continue
             b, h, w, ci, co = shape
             rows = b * h * w
             ms = cuda_median_ms(lambda: op.int8_pointwise(x, *tables))
             alone_ms = _events_ms(lambda: op._launch(x, *tables))
+            copies = -(-3 * 50_000_000 // (2 * rows * (ci + co)))  # x and y three times the L2
+            cold = ""
+            if 1 < copies <= 8:
+                xs = [x.clone() for _ in range(copies)]
+                cold_ms = _rotated_ms(lambda xi: op._launch(xi, *tables), xs)
+                cold = (f"; over {copies} copies of x rotated past the L2 {cold_ms:.4f} ms "
+                        f"(the row's reading: the L2-warm one, as the parent's)")
+                del xs
             plain_ms = cuda_median_ms(lambda: op.int8_pointwise_reference(x, *tables))
             nbytes = 2 * rows * (ci + co) + co * ci + 4 * (2 * co + 1)
             least, by = bound_ms(nbytes, (2 * rows * ci * co, INT8_OPS_PER_S))
@@ -782,8 +922,12 @@ def phase_int8_kernel_vs_plain():
             cudnn_ms = cuda_median_ms(lambda: _conv(nchw, weight, bias).clamp_(0.0, 6.0))
             eager_ms = cuda_median_ms(lambda: _int8_eager(x, *tables))
             eager_same = torch.equal(_int8_eager(x, *tables), got)
+            log(f"[int8] {tag}: host us a call, 200 calls: {_int8_host_path(op, x, tables)}")
+            if shape == INT8_FLAGSHIP[0]:
+                log(f"[int8] {tag}: {_int8_items_sweep(op, x, tables)}")
             log(f"[int8] {tag}: wrapper {ms:.4f} ms | kernel alone {alone_ms:.4f} ms (20 "
-                f"launches between CUDA events) | bound {least:.4f} ms ({by}; "
+                f"launches between CUDA events{cold}) | {least / alone_ms:.3f} of the bound "
+                f"alone | bound {least:.4f} ms ({by}; "
                 f"{nbytes / 1e6:.1f} MB, {2 * rows * ci * co / 1e9:.2f} G int8 operations) | "
                 f"plain {plain_ms:.4f} ms | information: cuDNN 1x1 conv with bias + clamp pass "
                 f"(bf16, the default path) {cudnn_ms:.4f} ms, eager int8 sequence (quantize "
@@ -796,6 +940,8 @@ def phase_int8_kernel_vs_plain():
             del weight, bias, nchw
         del x, got, want, xq, want_q
         torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"int8 kernel disagrees with its plain version at {failed}")
     report["bound_by"] = "bytes" if bound_by == {"bytes"} else "operations"
     log(f"[int8] bf16 one forward (two launches): wrapper {report['ms']:.4f} ms | plain "
         f"{report['plain_ms']:.4f} ms | bound {report['bound_ms']:.4f} ms "
@@ -3843,15 +3989,16 @@ def ab_arm(card: str) -> None:
     paths' shapes, the wrapper's and the kernel's alone time (its launcher
     called directly) of the bf16 stem kernel (with the six cuDNN convs of the
     same function), the bf16 chain backward (with the ATen route of the
-    unit), the bf16 depthwise backward and `wgrad_fma` at f32 batch 16 (both
-    layers summed; the library's weight gradient beside), then phase 6's
-    serving (b16 images/s, the median of its rounds, and b1 ms); one JSON
-    line."""
+    unit), the bf16 depthwise backward, `wgrad_fma` at f32 batch 16 (both
+    layers summed; the library's weight gradient beside) and the bf16 int8
+    pointwise kernel at INT8_FLAGSHIP's two shapes, then phase 6's serving
+    (b16 images/s, the median of its rounds, and b1 ms); one JSON line."""
     import torch.nn.functional as F
 
     from ssdseglib_torch.ops import _cuda_build
     from ssdseglib_torch.ops import depthwise_backward as dwb
     from ssdseglib_torch.ops import fused_chain_backward as fcb
+    from ssdseglib_torch.ops import int8_pointwise as op
     from ssdseglib_torch.ops import pointwise_wgrad as pw
     from ssdseglib_torch.ops import s2d_stem
 
@@ -3916,6 +4063,15 @@ def ab_arm(card: str) -> None:
             g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), zero, None, [1, 1], [0, 0], [1, 1],
             False, [0, 0], 1, [False, True, False]))
 
+    # the int8 pointwise kernel, through its op and its launcher alone
+    gen = torch.Generator().manual_seed(4)
+    for name, shape in zip(("aspp", "decoder"), INT8_FLAGSHIP):
+        x, tables = _int8_operands(gen, torch.bfloat16, shape)
+        row[f"int8_{name}_ms"] = cuda_median_ms(lambda: op.int8_pointwise(x, *tables))
+        row[f"int8_{name}_alone_ms"] = _events_ms(lambda: op._launch(x, *tables))
+        del x, tables
+    torch.cuda.empty_cache()
+
     # phase 6's serving: b16 images/s (median of the rounds) and b1 ms
     builder, model, nms = _builder()
     infer = builder.get_model_for_inference(
@@ -3948,7 +4104,8 @@ def ab_in_turns(card: str, parent_root: str) -> None:
         log(f"[ab] {arm}: " + " | ".join(f"{k} {v:.4f}" for k, v in row.items()
                                           if isinstance(v, float)) + f" | {row['package']}")
     for key in ("stem_ms", "stem_alone_ms", "chain_ms", "chain_alone_ms", "dw_ms",
-                "dw_alone_ms", "fma_ms", "fma_alone_ms", "serve_b1_ms"):
+                "dw_alone_ms", "fma_ms", "fma_alone_ms", "int8_aspp_ms", "int8_aspp_alone_ms",
+                "int8_decoder_ms", "int8_decoder_alone_ms", "serve_b1_ms"):
         parent = [r[key] for arm, r in rows if arm == "parent"]
         change = [r[key] for arm, r in rows if arm == "change"]
         log(f"[ab] {key}: change / parent = {max(change) / min(parent):.3f} at worst, "
@@ -4163,6 +4320,9 @@ def main() -> None:
         return
     if "--int8" in sys.argv:
         phase_int8_serving(card)
+        return
+    if "--int8-kernel" in sys.argv:
+        phase_int8_kernel_vs_plain()
         return
     if "--profile-train" in sys.argv:
         routes = [a for a in sys.argv[1:] if a in ROUTES] or list(ROUTES)

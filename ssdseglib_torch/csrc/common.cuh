@@ -1,9 +1,11 @@
 // Shared pieces of the port's kernels: dtype conversion, the values of a
 // 16-byte vector and the asynchronous 16-byte copy (all of them); the
 // tensor-core helpers (ldmatrix, mma.sync m16n8k16 bf16 -> f32, padded row
-// strides) of fused_mbconv.cu and s2d_stem.cu; and the one-launch
+// strides) of fused_mbconv.cu and s2d_stem.cu; the one-launch
 // deterministic cross-CTA reduction (`finish`) of pointwise_wgrad.cu,
-// fused_chain_backward.cu and depthwise_backward.cu.
+// fused_chain_backward.cu and depthwise_backward.cu; and Hopper's
+// asynchronous machinery (mbarriers, TMA tile copies, wgmma s8) of
+// int8_pointwise.cu.
 
 #pragma once
 
@@ -173,6 +175,148 @@ inline int finish_group(int n) {
 
 // Counters `finish` needs for n CTAs in groups of `group`.
 __host__ __device__ inline int finish_counters(int n, int group) { return (n + group - 1) / group + 1; }
+
+// ---------------------------------------------------------------------------
+// Hopper (sm_90a): mbarriers, TMA tile copies, warpgroup MMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Makes the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// One arrival that also expects `bytes` of TMA transactions on the phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Returns once the phase of parity `parity` has completed.  A wait of more
+// than 2^35 clocks (~20 s) traps: a deadlock fails the launch, not the run.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  long long since = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (since == 0) since = clock64();
+    else if (clock64() - since > (1ll << 35)) __trap();
+  }
+}
+
+// A barrier among `count` threads (a multiple of 32) of the CTA, number `id`
+// (1..15; 0 is __syncthreads).
+__device__ __forceinline__ void named_barrier(unsigned id, unsigned count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (wgmma operand reads, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA: the box at (c0, c1) (innermost first) of the tensor `map` (a
+// __grid_constant__ CUtensorMap) into shared memory at `dst`, completing
+// its bytes on the mbarrier `bar`; out-of-bounds elements read as zeros.
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const void* map, int c0, int c1,
+                                            unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// TMA: shared memory at `src` to the box at (c0, c1) of `map`; what lies out
+// of bounds is not written.  Tracked by bulk groups.
+__device__ __forceinline__ void tma_store_2d(const void* map, unsigned src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+                   map),
+               "r"(c0), "r"(c1), "r"(src)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until all of this thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
+// (rows of 128 bytes, 8-row atoms of 1024 bytes, 1024-byte aligned): start
+// address, stride between 8-row atoms 1024 bytes, layout SWIZZLE_128B.  One
+// step of 32 bytes along K adds 2 to it.
+__device__ __forceinline__ unsigned long long sw128_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N of the warpgroup's wgmma groups are in flight.
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// setmaxnreg: a warpgroup gives up registers (dec) or takes them (inc); every
+// warp of the warpgroup executes it.
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// Keeps the compiler from moving accesses of an accumulator register across
+// the asynchronous wgmma that owns it.
+__device__ __forceinline__ void wgmma_pin(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// d (64 x 128 s32, the warpgroup's accumulator fragment) = a (64 x 32 s8)
+// * b (128 x 32 s8)^T + (accumulate ? d : 0), both operands K-major in
+// shared memory (descriptors above).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], unsigned long long a,
+                                                    unsigned long long b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+      "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+      "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+      "%48, %49, %50, %51, %52, %53, %54, %55,\n"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 // The least power of two >= n.
 inline int next_pow2(int n) {

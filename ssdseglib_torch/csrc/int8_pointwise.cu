@@ -23,23 +23,51 @@
 // What bounds it on the H100: device memory.  At the serving path's shapes
 // (1x1 576 -> 256 at 19,200 rows, 256 -> 256 at 307,200) the int8 products
 // need 5.7 and 40 G operations, 3 and 20 us at 1,979 TOPS, against 9.6 and 94
-// us to read x and write y once in bf16.  So the design reads x from device
-// memory once and writes y once, with nothing in between: each CTA takes
-// kRows rows across all of Co; its threads load x 16 bytes at a time,
-// quantize in registers and keep the s8 tile in shared memory for every
-// chunk of Co; the s8 weights (at most 256 KB, from L2) stream through a
-// double-buffered ring of (kCols x kDepth) chunks staged with cp.async; the
-// products run on mma.sync m16n8k32 s8 x s8 -> s32; dequantize, bias, clamp
-// and the cast are the epilogue, written from registers.
+// us to read x and write y once in bf16.  So the design keeps device memory
+// busy from the first cycle to the last and reads nothing twice from it:
 //
-// Edges: a Ci that is not a multiple of 32 is zero-filled in shared memory (a
-// zero s8 adds nothing); rows past R are masked; Co must be a multiple of 8
-// (one mma column tile) and Ci a multiple of 8 (whole 16-byte loads of x and
-// 8-byte copies of the weights), both checked here and by the wrapper.
+// - Persistent CTAs, one an SM (the grid is the SM count times what the
+//   occupancy calculator admits), each with two consumer warpgroups and a
+//   producer warpgroup that gives its registers to them (setmaxnreg).  The work is (chunk of Co, tile of 64 rows) items in a
+//   static stride; consecutive items of a CTA alternate between its
+//   warpgroups, so one warpgroup's epilogue runs beside the other's products
+//   and the loads of both.
+// - The weights stay in shared memory: a CTA copies its chunk of Co (128 or
+//   256 output channels, in the 128-byte swizzled K-major layout wgmma reads
+//   for B) once, with cp.async, while its first x tiles arrive.  Where the
+//   whole of Co does not fit beside the ring (576 -> 256: 160 KB), Co is cut
+//   into chunks of 128 held by different CTAs that walk the same tiles in
+//   step, so a tile's second read comes from L2; where there are more chunks
+//   than CTAs, a CTA loops over chunks and copies each once.
+// - A ring of x tiles for each consumer warpgroup, 64 rows x 128 channels a
+//   stage (16 KB in bf16), fed by TMA (boxes of 64 rows x 128 bytes, 128-byte
+//   swizzle) from a lane of the producer's first warp behind full / empty
+//   mbarriers.
+//   A ring has one consumer, which takes its stages in order: an mbarrier's
+//   parity then names the phase a wait is for.  TMA's out-of-bounds fill
+//   gives the zero rows past R and the zero channels past Ci.
+// - A consumer warpgroup quantizes a stage into an s8 tile (64 x 128 bytes,
+//   swizzled, double-buffered), releases the stage, and runs wgmma
+//   m64n128k32 s8 x s8 -> s32 on it against the resident weights,
+//   accumulating over Ci in registers, while it quantizes the next stage.
+// - Epilogue: dequantize, bias, clamp, one rounding, into a swizzled staging
+//   tile that a TMA store writes out (clipped at R and Co) while the
+//   warpgroup goes on.
 //
-// Layout: x (R, Ci) and y (R, Co) contiguous, wq (Co, Ci) contiguous s8; xq,
-// when not null, receives the s8 activations (R, Ci), for the tests.
+// Edges: Ci a multiple of 8 (x's rows are whole 16-byte units for TMA; the
+// weights are copied 8 bytes at a time) and at most 1024; Co a multiple of 8;
+// both checked here and by the wrapper.  A Ci that is not a multiple of 32 is
+// zero-filled up to the next 128 (a zero s8 adds nothing), so that every
+// stage runs the same four k32 steps; the products run over 128 output
+// channels at a time, and channels past Co are computed on zero weights and
+// never stored.
+//
+// Layout: x (R, Ci) and y (R, Co) contiguous, 16-byte aligned; wq (Co, Ci)
+// contiguous s8; xq, when not null, receives the s8 activations (R, Ci), for
+// the tests.  ops/int8_pointwise.py::_plan computes the same plan as
+// make_plan below (chip_smoke.py holds the two equal).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -49,43 +77,67 @@
 
 namespace {
 
-using ssdseg::Vec;
-using ssdseg::cp_async_commit;
-using ssdseg::cp_async_wait;
-using ssdseg::round_up;
+using namespace ssdseg;
 
-constexpr int kThreads = 256;  // 8 warps: 4 along the rows x 2 along the columns
-constexpr int kRows = 128;     // rows of x a CTA takes
-constexpr int kCols = 64;      // output channels of a weight chunk
-constexpr int kDepth = 128;    // input channels (bytes) of a weight chunk
-constexpr int kLdw = kDepth + 16;  // row stride of a weight chunk: 16 mod 32, no bank conflicts
-constexpr int kUnroll = 4;     // 16-byte loads of x a thread has in flight
-constexpr int kMaxCi = 1024;   // 127^2 * Ci < 2^24: the s32 sum is an exact f32
+constexpr int kThreads = 384;   // consumer warpgroups 0 and 1, then the producer warpgroup
+constexpr int kTileRows = 64;   // rows of x a consumer warpgroup takes at a time (wgmma's M)
+constexpr int kChunk = 128;     // channels of x a ring stage holds: one 128-byte row of s8
+constexpr int kBlock = 128;     // output channels of one wgmma (N) and of a weight block
+constexpr int kBox = 8192;      // bytes of a TMA box and of an s8 tile: 64 rows x 128 bytes
+constexpr int kMaxStages = 8;
+constexpr int kMaxCi = 1024;    // 127^2 * Ci < 2^24: the s32 sum is an exact f32
+constexpr int kAlign = 1024;    // the 128-byte swizzle's atom
 
-// s8 x s8 -> s32: d += a (16 x 32, row-major) * b (32 x 8, "col").
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The launch plan (ops/int8_pointwise.py::_plan is the same rules).
+struct Plan {
+  int nc;       // 128-channel blocks of Co a CTA holds resident: 1 or 2
+  int n_k;      // ring stages a tile takes: ceil(Ci / 128)
+  int kp32;     // the depth of x and the weights read: Ci rounded up to 32
+  int stages;   // ring stages in all: (stages + 1) / 2 for warpgroup 0, the rest for
+                // warpgroup 1, which takes no items when it has none
+  int n_co;     // chunks of Co: ceil(Co / (128 nc))
+  int n_tiles;  // tiles of 64 rows: ceil(R / 64)
+  int grid;     // CTAs
+  int smem;     // dynamic shared memory, bytes
+};
+
+__host__ __device__ constexpr int stage_bytes(int elem) { return kTileRows * kChunk * elem; }
+
+// Shared memory besides the ring: alignment slack, the weights (n_k blocks of
+// 128 nc rows x 128 bytes), two s8 tiles and a two-box staging tile per
+// consumer warpgroup, dequant and bias, the ring's mbarriers.
+__host__ __device__ constexpr int fixed_bytes(int nc, int n_k) {
+  return kAlign + n_k * nc * kBlock * kChunk + 4 * kBox + 4 * kBox + 2 * nc * kBlock * 4 +
+         16 * kMaxStages;
 }
 
-// Asynchronous copy of G (8 or 16) bytes to shared memory; zero-filled when
-// `inside` is false (nothing is read).
-template <int G> __device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool inside);
-template <> __device__ __forceinline__ void cp_async<16>(void* smem, const void* gmem, bool inside) {
-  ssdseg::cp_async16(smem, gmem, inside);
+Plan make_plan(int R, int Ci, int Co, int elem, int sm_count, int smem_limit, int ctas_per_sm) {
+  Plan p{};
+  p.n_k = (Ci + kChunk - 1) / kChunk;
+  p.kp32 = round_up(Ci, 32);
+  const int stage = stage_bytes(elem);
+  p.nc = Co > kBlock && fixed_bytes(2, p.n_k) + 2 * stage <= smem_limit ? 2 : 1;
+  p.stages = (smem_limit - fixed_bytes(p.nc, p.n_k)) / stage;
+  if (p.stages > kMaxStages) p.stages = kMaxStages;
+  p.smem = fixed_bytes(p.nc, p.n_k) + p.stages * stage;
+  p.n_co = (Co + p.nc * kBlock - 1) / (p.nc * kBlock);
+  p.n_tiles = (R + kTileRows - 1) / kTileRows;
+  const int ctas = sm_count * ctas_per_sm;
+  if (p.n_co <= ctas) {  // each CTA keeps one chunk; at least two tiles a CTA
+    int groups = ctas / p.n_co;
+    const int pairs = (p.n_tiles + 1) / 2;
+    if (groups > pairs) groups = pairs;
+    p.grid = groups * p.n_co;
+  } else {
+    p.grid = ctas;
+  }
+  return p;
 }
-template <> __device__ __forceinline__ void cp_async<8>(void* smem, const void* gmem, bool inside) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(ssdseg::smem_addr(smem)),
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool inside) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(smem)),
                "l"(gmem), "r"(inside ? 8 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ unsigned lds32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
 }
 
 __device__ __forceinline__ unsigned quantize4(const float* f, float inv) {
@@ -98,25 +150,30 @@ __device__ __forceinline__ unsigned quantize4(const float* f, float inv) {
   return packed;
 }
 
-// The chunk (co0.., k0..) of the weights, kCols rows of kc (a multiple of 32)
-// bytes, into a ring slot; rows past Co and bytes past Ci are zero-filled.
-template <int G>
-__device__ __forceinline__ void stage_weights(int8_t* slot, const int8_t* __restrict__ wq, int co0,
-                                              int k0, int kc, int Ci, int Co) {
-  const int per_row = kc / G;
-  for (int i = threadIdx.x; i < kCols * per_row; i += kThreads) {
-    const int n = i / per_row, k = k0 + (i % per_row) * G;
-    const bool inside = co0 + n < Co && k < Ci;
-    cp_async<G>(slot + n * kLdw + (k - k0), inside ? wq + size_t(co0 + n) * Ci + k : wq, inside);
+// The 16 channels ca * 16 .. of row r of a ring stage (boxes of 128 bytes a
+// row, 128-byte swizzle: 16-byte unit u of row r sits at unit u ^ (r % 8)),
+// as f32.
+template <typename T>
+__device__ __forceinline__ void load16(const unsigned char* stage, int r, int ca,
+                                       float (&f)[16]) {
+  constexpr int kPer = 16 / sizeof(T), kBoxCols = 128 / sizeof(T);
+  const int c = ca * 16, u0 = (c % kBoxCols) / kPer;
+  const unsigned char* row = stage + (c / kBoxCols) * kBox + r * 128;
+#pragma unroll
+  for (int i = 0; i < int(sizeof(T)); ++i) {
+    float part[kPer];
+    Vec<T>::unpack(*reinterpret_cast<const uint4*>(row + (((u0 + i) ^ (r & 7)) << 4)), part);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) f[i * kPer + e] = part[e];
   }
 }
 
-template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
-template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+template <typename T> __device__ __forceinline__ void store2(unsigned char* p, float a, float b);
+template <> __device__ __forceinline__ void store2<float>(unsigned char* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
-                                                                  float b) {
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(unsigned char* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
@@ -125,141 +182,334 @@ __device__ __forceinline__ float epilogue(int acc, float dequant, float bias) {
   return fminf(fmaxf(v, 0.0f), 6.0f);
 }
 
-template <typename T, int G>
-__global__ void __launch_bounds__(kThreads)
-int8_pointwise_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+int8_pointwise_kernel(__grid_constant__ const CUtensorMap xmap,
+                      __grid_constant__ const CUtensorMap ymap, const int8_t* __restrict__ wq,
                       const float* __restrict__ inv_scale, const float* __restrict__ dequant,
-                      const float* __restrict__ bias, T* __restrict__ y, int8_t* __restrict__ xq,
-                      int R, int Ci, int Co) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Kp = round_up(Ci, 32), ldk = Kp + 16;  // ldk is 16 mod 32: no bank conflicts
-  int8_t* xs = reinterpret_cast<int8_t*>(smem);    // (kRows, ldk) s8 activations
-  int8_t* ring = xs + kRows * ldk;                 // 2 x (kCols, kLdw) s8 weights
-  const int r0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;  // this warp's 32 x 32 tile of the CTA's 128 x 64
-  const int n_k = (Kp + kDepth - 1) / kDepth;
-  const int chunks = n_k * ((Co + kCols - 1) / kCols);
+                      const float* __restrict__ bias, int8_t* __restrict__ xq, int R, int Ci,
+                      int Co, const Plan p) {
+  constexpr int kElem = sizeof(T);
+  constexpr int kBoxCols = 128 / kElem;             // channels of x or y in a box
+  constexpr int kRows = NC * kBlock;                // output channels a CTA holds
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_addr(smem_raw);
+  const unsigned pad = (kAlign - (raw & (kAlign - 1))) & (kAlign - 1);
+  unsigned char* base = smem_raw + pad;
+  const unsigned sbase = raw + pad;
+  const int stage = stage_bytes(kElem);
+  const int w_off = p.stages * stage;               // the weights: n_k blocks of kRows x 128 B
+  const int a_off = w_off + p.n_k * kRows * kChunk;  // s8 tiles: 2 a warpgroup
+  const int st_off = a_off + 4 * kBox;               // staging: 2 boxes a warpgroup
+  const int tb_off = st_off + 4 * kBox;              // dequant, then bias (kRows each)
+  const unsigned full = sbase + tb_off + 2 * kRows * 4, empty = full + 8 * p.stages;
+  const float* dq_s = reinterpret_cast<const float*>(base + tb_off);
+  const float* b_s = dq_s + kRows;
 
-  // the first weight chunk flies while the activations are quantized
-  stage_weights<G>(ring, wq, 0, 0, min(kDepth, Kp), Ci, Co);
-  cp_async_commit();
-
-  // x: read once, 16 bytes a thread, quantized in registers, kept as s8
-  const float inv = *inv_scale;
-  constexpr int n = Vec<T>::n;  // values of a 16-byte vector
-  const int per_row = Ci / n, total = kRows * per_row;
-  for (int base = tid; base < total; base += kThreads * kUnroll) {
-    uint4 v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = base + u * kThreads, row = i / per_row;
-      v[u] = i < total && r0 + row < R
-                 ? __ldg(reinterpret_cast<const uint4*>(x + size_t(r0 + row) * Ci) + i % per_row)
-                 : make_uint4(0u, 0u, 0u, 0u);
+  // the warp's number, broadcast so that the compiler sees it uniform in the warp
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + 8 * s, 1);      // the producer's arrival, plus the stage's bytes
+      mbar_init(empty + 8 * s, 128);   // every thread of the consuming warpgroup
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = base + u * kThreads, row = i / per_row, col = (i % per_row) * n;
-      if (i >= total) break;
-      float f[n];
-      Vec<T>::unpack(v[u], f);
-      if constexpr (n == 8) {
-        const uint2 q = make_uint2(quantize4(f, inv), quantize4(f + 4, inv));
-        *reinterpret_cast<uint2*>(xs + row * ldk + col) = q;
-        if (xq != nullptr && r0 + row < R)
-          *reinterpret_cast<uint2*>(xq + size_t(r0 + row) * Ci + col) = q;
-      } else {
-        const unsigned q = quantize4(f, inv);
-        *reinterpret_cast<unsigned*>(xs + row * ldk + col) = q;
-        if (xq != nullptr && r0 + row < R)
-          *reinterpret_cast<unsigned*>(xq + size_t(r0 + row) * Ci + col) = q;
-      }
-    }
+    mbar_init_fence();
   }
-  // channels Ci .. Kp: zeros, 8 bytes at a time (Ci is a multiple of 8)
-  const int pad = (Kp - Ci) / 8;
-  for (int i = tid; i < kRows * pad; i += kThreads)
-    *reinterpret_cast<uint2*>(xs + (i / pad) * ldk + Ci + (i % pad) * 8) = make_uint2(0u, 0u);
+  __syncthreads();
 
-  int acc[2][4][4];
-  for (int c = 0; c < chunks; ++c) {
-    const int co0 = (c / n_k) * kCols, kb = c % n_k, k0 = kb * kDepth;
-    const int kc = min(kDepth, Kp - k0);
-    if (c + 1 < chunks) {  // the next chunk into the other slot, read two chunks ago
-      const int k1 = ((c + 1) % n_k) * kDepth;
-      stage_weights<G>(ring + ((c + 1) & 1) * kCols * kLdw, wq, ((c + 1) / n_k) * kCols, k1,
-                       min(kDepth, Kp - k1), Ci, Co);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this chunk (and, the first time, the s8 tile) is visible
-    if (kb == 0) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-    }
-    const int8_t* slot = ring + (c & 1) * kCols * kLdw;
-#pragma unroll 4
-    for (int ks = 0; ks < kc; ks += 32) {
-      unsigned a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int8_t* pa = xs + (wm * 32 + mt * 16 + g) * ldk + k0 + ks + t * 4;
-        a[mt][0] = lds32(pa);
-        a[mt][1] = lds32(pa + 8 * ldk);
-        a[mt][2] = lds32(pa + 16);
-        a[mt][3] = lds32(pa + 8 * ldk + 16);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (co0 + wn * 32 + nt * 8 >= Co) continue;  // a whole column tile past Co
-        const int8_t* pb = slot + (wn * 32 + nt * 8 + g) * kLdw + ks + t * 4;
-        const unsigned b0 = lds32(pb), b1 = lds32(pb + 16);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_s8(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-    if (kb == n_k - 1) {  // this chunk of Co is summed: dequantize, bias, clamp, store
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = co0 + wn * 32 + nt * 8 + t * 2;
-        if (col >= Co) continue;
-        const float d0 = __ldg(dequant + col), d1 = __ldg(dequant + col + 1);
-        const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = r0 + wm * 32 + mt * 16 + g + h * 8;
-            if (row < R)
-              store2<T>(y + size_t(row) * Co + col, epilogue(acc[mt][nt][2 * h], d0, b0),
-                        epilogue(acc[mt][nt][2 * h + 1], d1, b1));
+  // this CTA's items: chunks of Co from chunk0 in steps of chunk_step, and
+  // for each chunk the tiles from tile0 in steps of tile_step; item j goes
+  // to warpgroup j % n_wg, whose ring holds stages first .. first + depth - 1
+  const int G = gridDim.x;
+  const bool grouped = p.n_co <= G;
+  const int chunk0 = grouped ? blockIdx.x % p.n_co : blockIdx.x;
+  const int chunk_step = grouped ? p.n_co : G;
+  const int tile0 = grouped ? blockIdx.x / p.n_co : 0;
+  const int tile_step = grouped ? G / p.n_co : 1;
+  const int n_wg = p.stages >= 2 ? 2 : 1;
+
+  if (warp >= 8) {  // the producer: lane w of its first warp feeds warpgroup w's ring
+    setmaxnreg_dec<40>();
+    if (warp == 8 && lane < n_wg) {
+      const int first = lane == 0 ? 0 : (p.stages + 1) / 2;
+      const int depth = lane == 0 ? (p.stages + 1) / 2 : p.stages / 2;
+      int j = 0, g = 0;
+      for (int chunk = chunk0; chunk < p.n_co; chunk += chunk_step)
+        for (int tile = tile0; tile < p.n_tiles; tile += tile_step, ++j) {
+          if (j % n_wg != lane) continue;
+          for (int kc = 0; kc < p.n_k; ++kc, ++g) {
+            const unsigned s = first + g % depth;
+            mbar_wait(empty + 8 * s, ((g / depth) & 1) ^ 1);
+            const int boxes =
+                min(kChunk / kBoxCols, (Ci - kc * kChunk + kBoxCols - 1) / kBoxCols);
+            mbar_arrive_expect_tx(full + 8 * s, boxes * kBox);
+            for (int b = 0; b < boxes; ++b)
+              tma_load_2d(sbase + s * stage + b * kBox, &xmap, kc * kChunk + b * kBoxCols,
+                          tile * kTileRows, full + 8 * s);
           }
+        }
+    }
+    return;
+  }
+
+  // the consumers
+  setmaxnreg_inc<232>();
+  const int wg = warp >> 2, lt = tid & 127;
+  unsigned char* a_tile = base + a_off + wg * 2 * kBox;
+  const unsigned a_addr = sbase + a_off + wg * 2 * kBox;
+  unsigned char* staging = base + st_off + wg * 2 * kBox;
+  const unsigned staging_addr = sbase + st_off + wg * 2 * kBox;
+  const float inv = *inv_scale;
+  // the accumulator fragment: thread lt holds rows r_lo and r_lo + 8 of the
+  // tile, columns 8 j + 2 q and 8 j + 2 q + 1 of each 8-column block j
+  const int r_lo = (lt >> 5) * 16 + (lane >> 2), q = lane & 3;
+  int acc[NC][64];
+#pragma unroll
+  for (int nc = 0; nc < NC; ++nc)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[nc][i] = 0;
+
+  const int first = wg == 0 ? 0 : (p.stages + 1) / 2;
+  const int depth = wg == 0 ? (p.stages + 1) / 2 : p.stages / 2;
+  int j = 0, g = 0;  // the CTA's items, this warpgroup's ring stages
+  for (int chunk = chunk0; chunk < p.n_co; chunk += chunk_step) {
+    const int co0 = chunk * kRows;
+    if (chunk != chunk0) named_barrier(1, 256);  // both warpgroups are done with the last chunk
+    {  // this chunk's weights, 8 bytes a copy, into the swizzled blocks; dequant and bias
+      unsigned char* w_s = base + w_off;
+      const int pieces = p.n_k * kChunk / 8;  // zeros past Ci
+      for (int i = tid; i < kRows * pieces; i += 256) {
+        const int n = i / pieces, k = (i - n * pieces) * 8;
+        const bool inside = co0 + n < Co && k < Ci;
+        cp_async8(w_s + (k / kChunk) * (kRows * kChunk) + n * kChunk +
+                      ((((k % kChunk) >> 4) ^ (n & 7)) << 4) + (k & 8),
+                  inside ? wq + size_t(co0 + n) * Ci + k : wq, inside);
+      }
+      cp_async_commit();
+      float* tables = reinterpret_cast<float*>(base + tb_off);
+      for (int c = tid; c < kRows; c += 256) {
+        const bool inside = co0 + c < Co;
+        tables[c] = inside ? dequant[co0 + c] : 0.0f;
+        tables[kRows + c] = inside ? bias[co0 + c] : 0.0f;
+      }
+      cp_async_wait<0>();
+      fence_proxy_async();
+      named_barrier(1, 256);
+    }
+
+    for (int tile = tile0; tile < p.n_tiles; tile += tile_step, ++j) {
+      if (j % n_wg != wg) continue;
+      const int row0 = tile * kTileRows;
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) wgmma_pin(acc[nc][i]);
+      for (int kc = 0; kc < p.n_k; ++kc) {
+        const int s = first + g % depth;
+        const int used = 2 * min(4, (p.kp32 - kc * kChunk) / 32);  // 16-channel units read
+        unsigned char* a_s = a_tile + (kc & 1) * kBox;
+        mbar_wait(full + 8 * s, (g / depth) & 1);
+        // quantize: 16 channels a thread and pass, 8 threads a row; the units
+        // past Ci rounded up to 32 (no box was loaded there) are zeros
+#pragma unroll
+        for (int it = 0; it < 4; ++it) {
+          const int idx = it * 128 + lt, r = idx >> 3, ca = idx & 7;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (ca < used) {
+            float f[16];
+            load16<T>(base + s * stage, r, ca, f);
+            v = make_uint4(quantize4(f, inv), quantize4(f + 4, inv), quantize4(f + 8, inv),
+                           quantize4(f + 12, inv));
+          }
+          *reinterpret_cast<uint4*>(a_s + r * 128 + ((ca ^ (r & 7)) << 4)) = v;
+          const int row = row0 + r, k = kc * kChunk + ca * 16;
+          if (xq != nullptr && row < R) {  // Ci is a multiple of 8: whole 8-byte halves
+            int8_t* out = xq + size_t(row) * Ci + k;
+            if (k < Ci) *reinterpret_cast<uint2*>(out) = make_uint2(v.x, v.y);
+            if (k + 8 < Ci) *reinterpret_cast<uint2*>(out + 8) = make_uint2(v.z, v.w);
+          }
+        }
+        mbar_arrive(empty + 8 * s);  // the stage may be refilled
+        fence_proxy_async();         // the s8 tile is visible to wgmma
+        named_barrier(2 + wg, 128);
+        wgmma_fence();
+        const unsigned long long da = sw128_desc(a_addr + (kc & 1) * kBox);
+        const unsigned w_block = sbase + w_off + kc * kRows * kChunk;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int nc = 0; nc < NC; ++nc)
+            wgmma_m64n128k32_s8(acc[nc], da + 2 * ks,
+                                sw128_desc(w_block + nc * kBlock * kChunk) + 2 * ks,
+                                (kc | ks) != 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the s8 tile written next is no longer read
+        ++g;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) wgmma_pin(acc[nc][i]);
+
+      // epilogue: rounds of two boxes (128 bf16 or 64 f32 channels) through
+      // the staging tile, each stored by TMA while the next one is computed
+      constexpr int kRoundCols = 2 * kBoxCols;
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc) {
+#pragma unroll
+        for (int round = 0; round < kBlock / kRoundCols; ++round) {
+          const int cb = nc * kBlock + round * kRoundCols;  // the round's first channel
+          if (co0 + cb >= Co) break;
+          if (lt == 0) bulk_wait_read<0>();  // the last round's store has read the staging
+          named_barrier(2 + wg, 128);
+#pragma unroll
+          for (int jj = 0; jj < kRoundCols / 8; ++jj) {
+            const int jb = round * (kRoundCols / 8) + jj;  // 8-column block of the 128
+            const int cl = cb + jj * 8 + 2 * q;
+            const float2 d = *reinterpret_cast<const float2*>(dq_s + cl);
+            const float2 b = *reinterpret_cast<const float2*>(b_s + cl);
+            const int byte = ((jj * 8) % kBoxCols + 2 * q) * kElem;
+            unsigned char* at = staging + (jj * 8 / kBoxCols) * kBox + r_lo * 128 +
+                                ((((byte >> 4) ^ (r_lo & 7)) << 4) | (byte & 15));
+            store2<T>(at, epilogue(acc[nc][4 * jb], d.x, b.x),
+                      epilogue(acc[nc][4 * jb + 1], d.y, b.y));
+            store2<T>(at + 8 * 128, epilogue(acc[nc][4 * jb + 2], d.x, b.x),
+                      epilogue(acc[nc][4 * jb + 3], d.y, b.y));
+          }
+          fence_proxy_async();
+          named_barrier(2 + wg, 128);
+          if (lt == 0) {
+#pragma unroll
+            for (int bx = 0; bx < 2; ++bx) {
+              const int col = co0 + cb + bx * kBoxCols;
+              if (col < Co) tma_store_2d(&ymap, staging_addr + bx * kBox, col, row0);
+            }
+            bulk_commit();
+          }
+        }
       }
     }
-    __syncthreads();  // every warp is done with this slot before it is refilled
   }
+  if (lt == 0) bulk_wait_all();
 }
 
-template <typename T, int G>
-cudaError_t launch(const void* x, const void* wq, const void* inv_scale, const void* dequant,
-                   const void* bias, void* y, void* xq, int R, int Ci, int Co, size_t smem,
-                   cudaStream_t stream) {
-  auto kernel = int8_pointwise_kernel<T, G>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (the library links no libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) tensor in boxes of 64 rows x 128 bytes, 128-byte
+// swizzle, zero fill out of bounds.
+bool tensor_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type, int elem,
+                const void* ptr, int rows, int cols) {
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * elem};
+  const cuuint32_t box[2] = {cuuint32_t(128 / elem), cuuint32_t(kTileRows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What a device and each instantiation need once: the SM count, the shared
+// memory a block may opt into, the attribute set, the last occupancy read.
+constexpr int kMaxDevices = 16;
+struct DeviceState {
+  int sm_count = 0, smem_limit = 0;
+  bool attribute[2][2] = {};
+  int occupancy_smem[2][2] = {}, occupancy[2][2] = {};
+};
+DeviceState devices[kMaxDevices];
+
+// The plan for this shape on the current device, and the kernel for it.
+template <typename T, int NC>
+cudaError_t occupancy(DeviceState& dev, int d, int smem, int* ctas) {
+  auto kernel = int8_pointwise_kernel<T, NC>;
+  if (!dev.attribute[d][NC - 1]) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           dev.smem_limit);
+    if (err != cudaSuccess) return err;
+    dev.attribute[d][NC - 1] = true;
+  }
+  if (dev.occupancy_smem[d][NC - 1] != smem) {
+    cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, kThreads, size_t(smem));
+    if (err != cudaSuccess) return err;
+    dev.occupancy_smem[d][NC - 1] = smem;
+    dev.occupancy[d][NC - 1] = *ctas;
+  }
+  *ctas = dev.occupancy[d][NC - 1];
+  return cudaSuccess;
+}
+
+cudaError_t prepare(int dtype, int R, int Ci, int Co, Plan* plan, int* ctas_per_sm,
+                    DeviceState** state) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  kernel<<<(R + kRows - 1) / kRows, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(wq),
-      static_cast<const float*>(inv_scale), static_cast<const float*>(dequant),
-      static_cast<const float*>(bias), static_cast<T*>(y), static_cast<int8_t*>(xq), R, Ci, Co);
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceState& dev = devices[device];
+  if (dev.sm_count == 0) {
+    err = cudaDeviceGetAttribute(&dev.sm_count, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&dev.smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                   device);
+    if (err != cudaSuccess) {
+      dev.sm_count = 0;
+      return err;
+    }
+  }
+  const int elem = dtype == 1 ? 2 : 4;
+  // the smem and NC do not depend on the occupancy: plan with one CTA an SM
+  // first, then read how many fit
+  Plan p = make_plan(R, Ci, Co, elem, dev.sm_count, dev.smem_limit, 1);
+  if (p.stages < 1) return cudaErrorInvalidValue;
+  const int d = dtype == 1 ? 1 : 0;
+  int ctas = 0;
+  if (dtype == 1)
+    err = p.nc == 2 ? occupancy<__nv_bfloat16, 2>(dev, d, p.smem, &ctas)
+                    : occupancy<__nv_bfloat16, 1>(dev, d, p.smem, &ctas);
+  else
+    err = p.nc == 2 ? occupancy<float, 2>(dev, d, p.smem, &ctas)
+                    : occupancy<float, 1>(dev, d, p.smem, &ctas);
+  if (err != cudaSuccess) return err;
+  if (ctas < 1) return cudaErrorInvalidConfiguration;
+  *plan = make_plan(R, Ci, Co, elem, dev.sm_count, dev.smem_limit, ctas);
+  *ctas_per_sm = ctas;
+  *state = &dev;
+  return cudaSuccess;
+}
+
+bool valid(int dtype, int R, int Ci, int Co) {
+  return R >= 1 && Ci >= 8 && Ci % 8 == 0 && Ci <= kMaxCi && Co >= 8 && Co % 8 == 0 &&
+         (dtype == 0 || dtype == 1);
+}
+
+template <typename T, int NC>
+cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& ymap, const void* wq,
+                   const void* inv_scale, const void* dequant, const void* bias, void* xq, int R,
+                   int Ci, int Co, const Plan& p, cudaStream_t stream) {
+  int8_pointwise_kernel<T, NC><<<p.grid, kThreads, p.smem, stream>>>(
+      xmap, ymap, static_cast<const int8_t*>(wq), static_cast<const float*>(inv_scale),
+      static_cast<const float*>(dequant), static_cast<const float*>(bias),
+      static_cast<int8_t*>(xq), R, Ci, Co, p);
   return cudaGetLastError();
 }
 
@@ -271,16 +521,44 @@ cudaError_t launch(const void* x, const void* wq, const void* inv_scale, const v
 extern "C" int int8_pointwise_launch(int dtype, const void* x, const void* wq,
                                      const void* inv_scale, const void* dequant, const void* bias,
                                      void* y, void* xq, int R, int Ci, int Co, void* stream) {
-  if (R < 1 || Ci < 8 || Ci % 8 || Ci > kMaxCi || Co < 8 || Co % 8 || (dtype != 0 && dtype != 1))
+  if (!valid(dtype, R, Ci, Co)) return cudaErrorInvalidValue;
+  Plan p;
+  int ctas = 0;
+  DeviceState* dev = nullptr;
+  cudaError_t err = prepare(dtype, R, Ci, Co, &p, &ctas, &dev);
+  if (err != cudaSuccess) return err;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const int elem = dtype == 1 ? 2 : 4;
+  const CUtensorMapDataType type =
+      dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap xmap, ymap;
+  if (!tensor_map(&xmap, encode, type, elem, x, R, Ci) ||
+      !tensor_map(&ymap, encode, type, elem, y, R, Co))
     return cudaErrorInvalidValue;
-  const size_t smem = size_t(kRows) * (round_up(Ci, 32) + 16) + 2 * kCols * kLdw;
   auto s = static_cast<cudaStream_t>(stream);
-  const bool wide = Ci % 16 == 0;  // 16-byte weight copies stay aligned
   if (dtype == 1)
-    return wide ? launch<__nv_bfloat16, 16>(x, wq, inv_scale, dequant, bias, y, xq, R, Ci, Co,
-                                            smem, s)
-                : launch<__nv_bfloat16, 8>(x, wq, inv_scale, dequant, bias, y, xq, R, Ci, Co,
-                                           smem, s);
-  return wide ? launch<float, 16>(x, wq, inv_scale, dequant, bias, y, xq, R, Ci, Co, smem, s)
-              : launch<float, 8>(x, wq, inv_scale, dequant, bias, y, xq, R, Ci, Co, smem, s);
+    return p.nc == 2 ? launch<__nv_bfloat16, 2>(xmap, ymap, wq, inv_scale, dequant, bias, xq, R,
+                                                Ci, Co, p, s)
+                     : launch<__nv_bfloat16, 1>(xmap, ymap, wq, inv_scale, dequant, bias, xq, R,
+                                                Ci, Co, p, s);
+  return p.nc == 2
+             ? launch<float, 2>(xmap, ymap, wq, inv_scale, dequant, bias, xq, R, Ci, Co, p, s)
+             : launch<float, 1>(xmap, ymap, wq, inv_scale, dequant, bias, xq, R, Ci, Co, p, s);
+}
+
+// The plan int8_pointwise_launch takes for this shape on the current device:
+// out[11] = nc, n_k, kp32, stages, n_co, n_tiles, grid, smem, SM count, the
+// shared memory a block may opt into, CTAs an SM.  Returns a cudaError_t.
+extern "C" int int8_pointwise_plan(int dtype, int R, int Ci, int Co, int* out) {
+  if (!valid(dtype, R, Ci, Co)) return cudaErrorInvalidValue;
+  Plan p;
+  int ctas = 0;
+  DeviceState* dev = nullptr;
+  cudaError_t err = prepare(dtype, R, Ci, Co, &p, &ctas, &dev);
+  if (err != cudaSuccess) return err;
+  const int values[11] = {p.nc,   p.n_k,  p.kp32,        p.stages,        p.n_co, p.n_tiles,
+                          p.grid, p.smem, dev->sm_count, dev->smem_limit, ctas};
+  for (int i = 0; i < 11; ++i) out[i] = values[i];
+  return cudaSuccess;
 }

@@ -213,5 +213,8 @@ def load_library() -> ctypes.CDLL:
     #  stream)
     lib.int8_pointwise_launch.argtypes = [ctypes.c_int] + [ptr] * 7 + [ctypes.c_int] * 3 + [ptr]
     lib.int8_pointwise_launch.restype = ctypes.c_int
+    # (dtype, rows, Ci, Co, *out[11])
+    lib.int8_pointwise_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.int8_pointwise_plan.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -16,10 +16,14 @@ channels-last activation:
 
 It is bound by device memory on the H100 (at the serving path's shapes the
 int8 products take a fifth to a third of the time it takes to read x and
-write y once in bf16), so the kernel reads x once, quantizes it in
-registers, multiplies on the int8 tensor cores (``mma.sync`` m16n8k32) and
-writes y once from its epilogue.  The activation is the heads' ReLU6, which
-follows both quantized convs.
+write y once in bf16), so the kernel keeps device memory busy throughout:
+persistent CTAs with the weights resident in shared memory, a TMA-fed ring
+of x tiles for each of two consumer warpgroups, which quantize a tile to s8
+and multiply it on the int8 tensor cores (``wgmma`` m64n128k32), and an
+epilogue that a TMA store writes out while the next tile is loaded.
+`_plan` is the kernel's launch plan (the source's ``make_plan``, the same
+rules).  The activation is the heads' ReLU6, which follows both quantized
+convs.
 
 ``int8_pointwise`` calls the dispatcher op ``torch.ops.ssdseglib.int8_pointwise``
 (so ``torch.export`` records it as one node and a serving bundle captures
@@ -32,7 +36,7 @@ its plain version give the same bits (see the source).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,6 +44,59 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # 127^2 * Ci < 2^24: the int32 sum is exact as an f32 sum in any order, which
 # makes the plain version's f32 product exact and the two equal
 MAX_CI = 1024
+
+# the kernel's geometry (csrc/int8_pointwise.cu: kTileRows, kChunk, kBlock,
+# kBox, kMaxStages, kAlign)
+TILE_ROWS = 64      # rows of x a consumer warpgroup takes at a time
+CHUNK = 128         # channels of x a ring stage holds
+BLOCK = 128         # output channels of one wgmma and of a weight block
+BOX = 8192          # bytes of a TMA box and of an s8 tile
+MAX_STAGES = 8
+ALIGN = 1024
+SMEM_LIMIT = 232448  # the H100's shared memory a block may opt into
+
+
+class Plan(NamedTuple):
+    """The kernel's launch plan for one shape (see the source's `Plan`)."""
+    nc: int       # 128-channel blocks of Co a CTA holds resident: 1 or 2
+    n_k: int      # ring stages a tile takes: ceil(Ci / 128)
+    kp32: int     # the depth of x and the weights read: Ci rounded up to 32
+    stages: int   # ring stages in all, (stages + 1) // 2 for warpgroup 0
+    n_co: int     # chunks of Co: ceil(Co / (128 nc)); 1 = all weights resident
+    n_tiles: int  # tiles of 64 rows
+    grid: int     # CTAs
+    smem: int     # dynamic shared memory, bytes
+
+
+def _fixed_bytes(nc: int, n_k: int) -> int:
+    """Shared memory besides the ring: alignment slack, the weights, two s8
+    tiles and two staging boxes a consumer warpgroup, dequant and bias, the
+    mbarriers."""
+    return ALIGN + n_k * nc * BLOCK * CHUNK + 8 * BOX + 2 * nc * BLOCK * 4 + 16 * MAX_STAGES
+
+
+def _plan(rows: int, ci: int, co: int, dtype: torch.dtype, sm_count: int,
+          smem_limit: int = SMEM_LIMIT, ctas_per_sm: int = 1) -> Plan:
+    """The launch plan of the kernel for x (rows, ci) -> y (rows, co) in
+    ``dtype`` on a card of ``sm_count`` SMs, ``ctas_per_sm`` being what the
+    occupancy calculator admits: all of Co resident when it fits beside a
+    ring of two stages, else chunks of 128 output channels, each CTA holding
+    one (or, with more chunks than CTAs, looping over them); the rest of the
+    shared memory goes to the ring, at most MAX_STAGES stages."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    n_k = -(-ci // CHUNK)
+    stage = TILE_ROWS * CHUNK * elem
+    nc = 2 if co > BLOCK and _fixed_bytes(2, n_k) + 2 * stage <= smem_limit else 1
+    stages = min(MAX_STAGES, (smem_limit - _fixed_bytes(nc, n_k)) // stage)
+    n_co = -(-co // (nc * BLOCK))
+    n_tiles = -(-rows // TILE_ROWS)
+    ctas = sm_count * ctas_per_sm
+    if n_co <= ctas:  # each CTA keeps one chunk; at least two tiles a CTA
+        grid = min(ctas // n_co, (n_tiles + 1) // 2) * n_co
+    else:
+        grid = ctas
+    return Plan(nc, n_k, -(-ci // 32) * 32, stages, n_co, n_tiles, grid,
+                _fixed_bytes(nc, n_k) + stages * stage)
 
 
 def _check(x, wq, inv_x_scale, dequant, bias) -> None:
@@ -118,31 +175,38 @@ _LIBRARY.impl("int8_pointwise", _cpu_op, "CPU")
 torch.library.register_fake("ssdseglib::int8_pointwise", _fake_op, lib=_LIBRARY)
 
 
+_kernel = None  # the library's int8_pointwise_launch, once loaded
+
+
 def _launch(x, wq, inv_x_scale, dequant, bias,
             xq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch on CUDA tensors that passed `_check`; counts nothing.
     ``xq``, an int8 tensor of x's shape, receives the kernel's quantized
     activations."""
-    if x.device.type != "cuda":
-        raise ValueError(f"int8_pointwise runs on cuda or cpu, not {x.device}")
-    if any(t.data_ptr() % 16 for t in (x, wq)):
+    global _kernel
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError(f"int8_pointwise runs on cuda or cpu, not {device}")
+    if x.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("int8_pointwise: x and wq must be 16-byte aligned")
+    if _kernel is None:
+        from ssdseglib_torch.ops._cuda_build import load_library
 
-    from ssdseglib_torch.ops._cuda_build import load_library
-
-    lib = load_library()
+        _kernel = load_library().int8_pointwise_launch
     ci, co = x.shape[-1], wq.shape[0]
     rows = x.numel() // ci
-    out = torch.empty((*x.shape[:-1], co), dtype=x.dtype, device=x.device)
+    out = torch.empty((*x.shape[:-1], co), dtype=x.dtype, device=device)
     if rows == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = lib.int8_pointwise_launch(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), wq.data_ptr(), inv_x_scale.data_ptr(),
+    args = (_DTYPE_CODES[x.dtype], x.data_ptr(), wq.data_ptr(), inv_x_scale.data_ptr(),
             dequant.data_ptr(), bias.data_ptr(), out.data_ptr(),
             None if xq is None else xq.data_ptr(), rows, ci, co,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+            torch._C._cuda_getCurrentRawStream(device.index))
+    if device.index == torch.cuda.current_device():
+        err = _kernel(*args)
+    else:  # the launcher plans for, and launches on, the current device
+        with torch.cuda.device(device):
+            err = _kernel(*args)
     if err != 0:
         raise RuntimeError(
             f"int8_pointwise kernel launch failed with cudaError {err} "

@@ -24,6 +24,7 @@ from tests.torch_parity import (  # noqa: F401
     images,
     jax_model_and_variables,
     port_model,
+    source_constants,
     two_torch_threads,
 )
 
@@ -167,6 +168,89 @@ def test_op_refuses_what_the_kernel_cannot_take(bad, match):
     wq = torch.zeros(co, ci, dtype=bad.get("wq_dtype", torch.int8))
     with pytest.raises(ValueError, match=match):
         port_op.int8_pointwise(x, wq, torch.tensor(1.0), torch.ones(co), torch.zeros(co))
+
+
+# -- (b2) the kernel's launch plan ---------------------------------------------
+
+PLAN_CASES = [(ci, co, dtype) for ci in (8, 72, 256, 576, 1024)
+              for co in (8, 40, 136, 256, 264, 1024)
+              for dtype in (torch.bfloat16, torch.float32)]
+
+
+def _cta_items(plan, cta):
+    """(chunk of Co, tile of rows, consumer warpgroup) of CTA ``cta``'s items
+    in the order csrc/int8_pointwise.cu's kernel takes them."""
+    grouped = plan.n_co <= plan.grid
+    chunks = (range(cta % plan.n_co, plan.n_co, plan.n_co) if grouped
+              else range(cta, plan.n_co, plan.grid))
+    tiles = (range(cta // plan.n_co, plan.n_tiles, plan.grid // plan.n_co) if grouped
+             else range(plan.n_tiles))
+    n_wg = 2 if plan.stages >= 2 else 1
+    j = 0
+    for chunk in chunks:
+        for tile in tiles:
+            yield chunk, tile, j % n_wg
+            j += 1
+
+
+def test_plan_follows_the_kernel_source_s_geometry():
+    got = source_constants("int8_pointwise.cu", "kTileRows", "kChunk", "kBlock", "kBox",
+                           "kMaxStages", "kAlign", "kMaxCi")
+    assert got == {"kTileRows": port_op.TILE_ROWS, "kChunk": port_op.CHUNK,
+                   "kBlock": port_op.BLOCK, "kBox": port_op.BOX,
+                   "kMaxStages": port_op.MAX_STAGES, "kAlign": port_op.ALIGN,
+                   "kMaxCi": port_op.MAX_CI}
+
+
+@pytest.mark.parametrize("ci, co, dtype", PLAN_CASES,
+                         ids=[f"{ci}-{co}-{str(d)[6:]}" for ci, co, d in PLAN_CASES])
+def test_plan_fits_shared_memory_and_covers_every_row_once(ci, co, dtype):
+    """For every accepted (Ci, Co, dtype) and a range of row counts on a
+    132-SM card: the plan's shared memory (ring, resident weights, s8 and
+    staging tiles, tables, barriers) stays within the 227 KB a block may
+    have, every (chunk of Co, tile of 64 rows) item goes to exactly one CTA,
+    the tiles cover rows 0 .. R - 1 once, the chunks Co once, and a CTA's
+    items alternate between its warpgroups when both have a ring."""
+    for rows in (1, 63, 64, 65, 1000, 19_200, 307_200):
+        for ctas_per_sm in (1, 2):
+            plan = port_op._plan(rows, ci, co, dtype, 132, ctas_per_sm=ctas_per_sm)
+            elem = 2 if dtype == torch.bfloat16 else 4
+            stage = port_op.TILE_ROWS * port_op.CHUNK * elem
+            assert 1 <= plan.stages <= port_op.MAX_STAGES
+            assert plan.smem <= port_op.SMEM_LIMIT == 232_448
+            assert plan.smem == port_op._fixed_bytes(plan.nc, plan.n_k) + plan.stages * stage
+            assert plan.nc * port_op.BLOCK * plan.n_k * port_op.CHUNK < plan.smem
+            assert plan.kp32 >= ci and plan.kp32 % 32 == 0 and plan.n_k * port_op.CHUNK >= ci
+            assert 1 <= plan.grid <= 132 * ctas_per_sm
+            seen = {}
+            for cta in range(plan.grid):
+                last_wg = None
+                for chunk, tile, wg in _cta_items(plan, cta):
+                    assert (chunk, tile) not in seen, (chunk, tile, cta, seen.get((chunk, tile)))
+                    seen[chunk, tile] = cta
+                    if plan.stages >= 2 and last_wg is not None:
+                        assert wg == 1 - last_wg
+                    last_wg = wg
+            assert set(seen) == {(c, t) for c in range(plan.n_co) for t in range(plan.n_tiles)}
+            covered = np.zeros(rows, np.int64)
+            for t in range(plan.n_tiles):
+                covered[t * port_op.TILE_ROWS:(t + 1) * port_op.TILE_ROWS] += 1
+            assert (covered == 1).all() and plan.n_tiles * port_op.TILE_ROWS - rows < 64
+            width = plan.nc * port_op.BLOCK
+            assert (plan.n_co - 1) * width < co <= plan.n_co * width
+
+
+def test_plan_at_the_serving_shapes():
+    """The two quantized convs of a b16 480x640 forward: the decoder's 256 ->
+    256 keeps all its weights resident (one chunk of Co); the ASPP's 576 ->
+    256 (160 KB of weights in 128-byte rows) splits Co between pairs of
+    CTAs; both keep a ring of 5 bf16 stages (80 KB of x in flight an SM)
+    and fill the card with one CTA an SM."""
+    decoder = port_op._plan(16 * 120 * 160, 256, 256, torch.bfloat16, 132)
+    aspp = port_op._plan(16 * 30 * 40, 576, 256, torch.bfloat16, 132)
+    assert (decoder.nc, decoder.n_co, decoder.stages, decoder.grid) == (2, 1, 5, 132)
+    assert (aspp.nc, aspp.n_co, aspp.stages, aspp.grid) == (1, 2, 5, 132)
+    assert (aspp.n_tiles, decoder.n_tiles) == (300, 4800)
 
 
 # -- (c) calibration ----------------------------------------------------------
