@@ -62,6 +62,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    needed before any du, and u and dy do not stay in the 50 MB L2 between
    the passes).  The chain unit's forward is compared with the ATen route
    (conv, ``F.batch_norm``, clamp);
+   4a. the kernels of phases 3, 3c and 4 on row windows (a mesh that splits
+   the rows runs them on a rank's window, ``parallel/spatial.py``): on the
+   top, an inner and the bottom window of the 1x4 partition at the
+   flagship's shapes, in bf16 and f32, each against its plain version on the
+   same window at its phase's gate -- the MBConv kernel at the two widths of
+   the levels 1x4 splits (one real row each side), the stem + block 1 kernel
+   in its row window mode ((16, 480, 640, 3): 2 image rows above, 6 below),
+   the depthwise and chain backward at (16, 240, 320, 32) (one fill row each
+   side, dy padded by a zero row at each end, the chain's du on the own rows);
+   how many of the own rows' outputs differ from the whole map's kernel, and
+   the inner window's kernel alone against the whole map's alone over 4;
    4b. the three 1x1 weight-gradient kernels (tensor-core product, CUDA-core
    product, loads alone) vs their plain versions at the training path's two
    layers, (16, 240, 320, 32 -> 16) and (16, 240, 320, 16 -> 96), at the same
@@ -204,9 +215,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    DP_STEP_GATE, the f64 gradient (aten route) within SP_GRAD_F64 (the f32
    one's BatchNorm noise printed), replicas bitwise equal, running
    statistics within 1e-5; `wgrad_fma` launched on every rank; the bf16 step
-   at phase 12a's bf16 gate with `wgrad_mma` launched on every rank.  One
-   ``{"spatial_parallel": ...}`` JSON line and the phase's seconds (budget
-   SP_BUDGET_S).
+   at phase 12a's bf16 gate with `wgrad_mma` launched on every rank.
+   (c) the hand-written kernels on row windows: bf16 fused `predict`
+   (``fused_backbone=True, mask_output="bfloat16"``) on every mesh, int8
+   (``quantize_pointwise=True``) on SP_INT8_MESH and the option path
+   (``s2d_stem="cuda"``, ``method="topk"``) on SP_OPTION_MESH, each against one
+   process making the same call at (a)'s bf16 gates; per rank the MBConv,
+   stem, int8 and scan launches of one forward and how many ran on windows
+   (the MBConv kernel's on every mesh, the stem's on the option path's, > 0).
+   (d) one f32 step at b4 on 2x2 with the depthwise and with the chain
+   backward kernel's gate 'cuda' (each alone: with both on, the chain takes
+   the one layer inside both envelopes), against one process with the same
+   gate and against the mesh's own ATen route at (b)'s f32 gates, the
+   kernel launched on every rank.  One ``{"spatial_parallel": ...}`` JSON
+   line and the phase's seconds (budget SP_BUDGET_S).
 
 14. the Keras-style facade (``ssdseglib_torch.compat``, notebook 03's object
    API) on the flagship built through it from the reference constructor
@@ -275,8 +297,8 @@ parent; one process each), and ``python3 chip_smoke.py --deployment`` runs
 phase 11 alone, ``python3 chip_smoke.py --data-parallel`` phase 12,
 ``python3 chip_smoke.py --spatial`` phase 13, ``python3 chip_smoke.py
 --compat`` phase 14, ``python3 chip_smoke.py --int8`` phase 15 and
-``python3 chip_smoke.py --int8-kernel`` phase 3d; none of these prints
-result lines.
+``python3 chip_smoke.py --int8-kernel`` phase 3d and ``python3
+chip_smoke.py --windows`` phase 4a; none of these prints result lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
@@ -1077,6 +1099,174 @@ def phase_backward_kernels_vs_plain(card: str):
     return reports
 
 
+# The 1x4 partition of the flagship (480x640): the ranks whose windows phases
+# 3, 3c and 4 check (top, an inner, bottom) and the split shapes at its levels
+WINDOW_RANKS = (0, 1, 3)
+WINDOW_SPLIT = 4
+# (Cin, H, W, E) of the MBConv repeats at the levels 1x4 splits (os4, os8;
+# os16 and os32 stay whole and run the kernel whole, phase 3's shapes)
+WINDOW_MBCONV = [(24, 120, 160, 144), (32, 60, 80, 192)]
+
+
+def _row_window(rows: int, rank: int, before: int, after: int):
+    """(first, stop) of rank ``rank``'s window of a map of ``rows`` rows split
+    WINDOW_SPLIT ways, clipped to the map (`parallel.spatial.edge_window`)."""
+    h = rows // WINDOW_SPLIT
+    return max(rank * h - before, 0), min((rank + 1) * h + after, rows)
+
+
+def _window_bits(got, whole) -> str:
+    """How many elements of a window's own rows differ from the whole map's
+    kernel output (information: the windows run the same arithmetic)."""
+    return f"{int((got != whole).sum())} of {got.numel()} differ from the whole map's kernel"
+
+
+def phase_windowed_kernels(card: str) -> dict:
+    """Phases 3, 3c and 4 on row windows: each kernel of the mesh path on the
+    top, an inner and the bottom window of the 1x4 partition at the
+    flagship's shapes, against its plain version on the same window at the
+    phase's gate (MBConv and stem TOLERANCE of 1 + |plain|, the stem's bf16
+    against the k-group twin; the backward kernels' dx TOLERANCE, their sums
+    SUM_TOLERANCE of the largest); the inner window's kernel alone against
+    the whole map's kernel alone over WINDOW_SPLIT.  Returns {kernel: {"ms":
+    inner window alone, "whole_ms": whole map alone / WINDOW_SPLIT}} in bf16."""
+    import torch.nn.functional as F
+
+    from ssdseglib_torch.models.fused_inference import STEM_HALO
+    from ssdseglib_torch.ops import depthwise_backward as dwb
+    from ssdseglib_torch.ops import fused_chain_backward as fcb
+    from ssdseglib_torch.ops import fused_mbconv as fm
+    from ssdseglib_torch.ops import s2d_stem
+
+    gen = torch.Generator().manual_seed(12)
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        # -- phase 3: MBConv on windows of one real row each side
+        for cin, h, w, e in WINDOW_MBCONV:
+            x, args = _mbconv_operands(gen, dtype, cin, h, w, e)
+            whole = fm.fused_mbconv(x, *args)
+            line = []
+            for rank in WINDOW_RANKS:
+                first, stop = _row_window(h, rank, 1, 1)
+                xw = x[:, first:stop].contiguous()
+                got = fm.fused_mbconv(xw, *args)
+                err = _check_close(f"MBConv window {rank} {tag} Cin={cin} {h}x{w}", got,
+                                   fm.fused_mbconv_reference(xw, *args), TOLERANCE[dtype])
+                own = rank * (h // WINDOW_SPLIT)
+                line.append(f"rank {rank} rows [{first}, {stop}) max_abs_err {err:.3g}, "
+                            f"{_window_bits(got[:, own - first:own - first + h // WINDOW_SPLIT], whole[:, own:own + h // WINDOW_SPLIT])}")
+            first, stop = _row_window(h, 1, 1, 1)
+            xw = x[:, first:stop].contiguous()
+            window_ms = _events_ms(lambda: fm._launch(xw, args[0], args[1], args[2], args[3],
+                                                      args[4], args[5], True))
+            whole_ms = _events_ms(lambda: fm._launch(x, *args, True)) / WINDOW_SPLIT
+            log(f"[kernel-window] {tag:8s} Cin={cin} {h}x{w} E={e} b{BATCH}, 1x4: "
+                f"{'; '.join(line)} (limit {TOLERANCE[dtype]} of 1 + |twin|) | inner window "
+                f"({stop - first} rows) alone {window_ms:.4f} ms | whole map alone / "
+                f"{WINDOW_SPLIT} {whole_ms:.4f} ms | {card}")
+            if dtype == torch.bfloat16:
+                entry = times.setdefault("fused_mbconv", {"ms": 0.0, "whole_ms": 0.0})
+                entry["ms"] += window_ms * (1 if cin == 24 else 2)  # blocks a forward
+                entry["whole_ms"] += whole_ms * (1 if cin == 24 else 2)
+            del x, args, whole
+        # -- phase 3c: the stem + block 1 in its row window mode
+        folded, args = _stem_weights(gen, dtype)
+        x = (torch.rand(BATCH, 480, 640, 3, generator=gen) * 2.0 - 1.0).to("cuda", dtype)
+        whole = s2d_stem.fused_stem_block1(x, args)
+        line = []
+        for rank in WINDOW_RANKS:
+            first, stop = _row_window(480, rank, *STEM_HALO)
+            window = (first, 480, rank * 30, 30)
+            xw = x[:, first:stop].contiguous()
+            got = s2d_stem.fused_stem_block1(xw, args, window=window)
+            plain = s2d_stem.fused_stem_block1_reference(xw, args,
+                                                         k_groups=dtype == torch.bfloat16,
+                                                         window=window)
+            err = _check_close(f"stem window {rank} {tag}", got, plain, TOLERANCE[dtype])
+            line.append(f"rank {rank} image rows [{first}, {stop}) -> output rows "
+                        f"[{rank * 30}, {rank * 30 + 30}) max_abs_err {err:.3g}, "
+                        f"{_window_bits(got, whole[:, rank * 30:rank * 30 + 30])}")
+        first, stop = _row_window(480, 1, *STEM_HALO)
+        xw = x[:, first:stop].contiguous()
+        window_ms = _events_ms(lambda: s2d_stem._launch(xw, args, window=(first, 480, 30, 30)))
+        whole_ms = _events_ms(lambda: s2d_stem._launch(x, args)) / WINDOW_SPLIT
+        log(f"[stem-window] {tag:8s} ({BATCH}, 480, 640, 3), 1x4: {'; '.join(line)} (limit "
+            f"{TOLERANCE[dtype]} of 1 + |twin|{', the k-group twin' if dtype == torch.bfloat16 else ''}) "
+            f"| inner window ({stop - first} image rows) alone {window_ms:.4f} ms | whole map "
+            f"alone / {WINDOW_SPLIT} {whole_ms:.4f} ms | {card}")
+        if dtype == torch.bfloat16:
+            times["stem_block1"] = {"ms": window_ms, "whole_ms": whole_ms}
+        del x, xw, whole, folded, args
+        # -- phase 4: the depthwise and chain backward on the window of one
+        #    fill row each side, dy padded by a zero row at each end
+        b, h, w, c = BACKWARD_SHAPES[0]
+        rows = h // WINDOW_SPLIT
+
+        def draw(*dims, scale=1.0, shift=0.0):
+            return (torch.randn(*dims, generator=gen) * scale + shift).to("cuda")
+
+        x = draw(b, h, w, c, scale=2.0).to(dtype)
+        dy = draw(b, h, w, c).to(dtype)
+        kernel = draw(3, 3, 1, c, scale=0.5).to(dtype)
+        gamma, beta = draw(c, scale=0.1, shift=1.0), draw(c, scale=0.1)
+        weight = kernel.permute(3, 2, 0, 1).contiguous()
+        taps = weight.permute(2, 3, 1, 0)
+        _, _, mean, var, coefficients = fcb._forward_math(x.permute(0, 3, 1, 2), weight,
+                                                          gamma, beta)
+        xp = F.pad(x, (0, 0, 0, 0, 1, 1))
+        dw_line, chain_line = [], []
+        windows = {}
+        for rank in WINDOW_RANKS:
+            xw = xp[:, rank * rows:(rank + 1) * rows + 2].contiguous()
+            dyw = F.pad(dy[:, rank * rows:(rank + 1) * rows], (0, 0, 0, 0, 1, 1))
+            dx, dk = dwb.depthwise3x3_backward(xw, dyw, kernel)
+            dx_ref, dk_ref = dwb.depthwise3x3_backward_reference(xw, dyw, kernel)
+            errs = [_check_close(f"depthwise backward window {rank} dx {tag}", dx, dx_ref,
+                                 TOLERANCE[dtype]),
+                    _check_close(f"depthwise backward window {rank} dk {tag}", dk, dk_ref,
+                                 SUM_TOLERANCE, scale_by_max=True)]
+            dw_line.append(f"rank {rank} dx {errs[0]:.3g} dk {errs[1]:.3g}")
+            uw = F.conv2d(xw.permute(0, 3, 1, 2), weight, None, 1, 1, 1, c).permute(0, 2, 3, 1)
+            args = (xw, uw, dyw, taps, gamma, beta, mean, var, coefficients, None, (1, rows + 1))
+            got = fcb.dw_bn_relu6_backward(*args)
+            want = fcb.dw_bn_relu6_backward_reference(xw, uw, dyw, kernel, gamma, beta, mean,
+                                                      var, coefficients, None, (1, rows + 1))
+            errs = [_check_close(f"chain backward window {rank} dx {tag}", got[0], want[0],
+                                 TOLERANCE[dtype])]
+            errs += [_check_close(f"chain backward window {rank} {name} {tag}", g, r,
+                                  SUM_TOLERANCE, scale_by_max=True)
+                     for name, g, r in zip(("dk", "dgamma", "dbeta"), got[1:], want[1:])]
+            chain_line.append(f"rank {rank} dx {errs[0]:.3g} dk {errs[1]:.3g} dgamma "
+                              f"{errs[2]:.3g} dbeta {errs[3]:.3g}")
+            windows[rank] = (xw, uw, dyw)
+            del dx, dk, dx_ref, dk_ref, got, want
+        xw, uw, dyw = windows[1]
+        u = F.conv2d(x.permute(0, 3, 1, 2), weight, None, 1, 1, 1, c).permute(0, 2, 3, 1)
+        dw_ms = _events_ms(lambda: dwb._launch(xw, dyw, kernel))
+        dw_whole = _events_ms(lambda: dwb._launch(x, dy, kernel)) / WINDOW_SPLIT
+        chain_ms = _events_ms(lambda: fcb._launch_split(xw, uw, dyw, taps, coefficients, None,
+                                                        rows=(1, rows + 1)))
+        chain_whole = _events_ms(lambda: fcb._launch_split(x, u, dy, taps, coefficients,
+                                                           None)) / WINDOW_SPLIT
+        log(f"[dw-bwd-window] {tag:8s} {BACKWARD_SHAPES[0]}, 1x4 windows of {rows + 2} rows "
+            f"(one fill row each side, dy padded by zero rows): {'; '.join(dw_line)} (limits "
+            f"dx {TOLERANCE[dtype]} of 1 + |plain|, dk {SUM_TOLERANCE} of the largest) | inner "
+            f"window alone {dw_ms:.4f} ms | whole map alone / {WINDOW_SPLIT} {dw_whole:.4f} ms "
+            f"| {card}")
+        log(f"[chain-bwd-window] {tag:8s} {BACKWARD_SHAPES[0]}, 1x4 windows, du on the own "
+            f"rows [1, {rows + 1}): {'; '.join(chain_line)} (same limits) | inner window's two "
+            f"launches alone {chain_ms:.4f} ms | whole map's (split path, no collective) / "
+            f"{WINDOW_SPLIT} {chain_whole:.4f} ms | {card}")
+        if dtype == torch.bfloat16:
+            times["depthwise_backward"] = {"ms": dw_ms, "whole_ms": dw_whole}
+            times["chain_backward"] = {"ms": chain_ms, "whole_ms": chain_whole}
+        del x, dy, xp, u, windows, xw, uw, dyw
+        torch.cuda.empty_cache()
+    log(json.dumps({"windowed_kernels_bf16": times, "card": card}))
+    return times
+
+
 def _kernel_name(key: str) -> str:
     """A profiler kernel key without its namespace, template and signature."""
     return key.replace("(anonymous namespace)::", "").replace("void ", "").split("<")[0] \
@@ -1489,18 +1679,17 @@ def _serving_kernel_vs_plain(infer) -> None:
     """Phase 6, last: the default path's raw outputs (mask, class
     probabilities, decoded boxes) with the kernel against the same path with
     `fused_mbconv_reference` in the kernel's place, on the card, bf16 b16."""
-    from ssdseglib_torch.models import fused_inference
-    from ssdseglib_torch.ops.fused_mbconv import fused_mbconv_reference
+    from ssdseglib_torch.ops import fused_mbconv as fm
 
     images = _uint8_images(3, BATCH)
     got = [t.float() for t in infer.raw_outputs(images)]
-    real = fused_inference.fused_mbconv
-    fused_inference.fused_mbconv = lambda x, *args, residual=True: fused_mbconv_reference(
+    real = fm.fused_mbconv  # what `fused_mbconv_rows` calls, the model's route to the kernel
+    fm.fused_mbconv = lambda x, *args, residual=True: fm.fused_mbconv_reference(
         x, *args, residual=residual)
     try:
         want = [t.float() for t in infer.raw_outputs(images)]
     finally:
-        fused_inference.fused_mbconv = real
+        fm.fused_mbconv = real
     for name, a, b in zip(("mask", "labels", "boxes"), got, want):
         # probabilities element by element; box corners (pixels, decoded
         # from bf16 offsets times the anchor's size) against the image's scale
@@ -2915,12 +3104,21 @@ def phase_data_parallel(card: str) -> None:
 # the card.  One card shows correctness and the machinery's price, not scaling.
 SP_WORLD = 4
 SP_TIMEOUT_S = 300
-SP_BUDGET_S = 60
+SP_BUDGET_S = 120
 # (mesh, data ranks, spatial ranks, batch, segmentation suppression): b1 on
 # 1x2 (os16 split, 15 rows a rank against ASPP's 12-row halo) and on 1x4 (os16
 # whole: 7.5 rows a rank), b2 on 2x2 with the suppression
 SP_SERVE = (("1x2", 1, 2, 1, False), ("1x4", 1, 4, 1, False), ("2x2", 2, 2, 2, True))
 SP_STEP_BATCH = 4  # 2x2: b2 a data group
+# the hand-written kernels on row windows: bf16 fused serving on every mesh of
+# SP_SERVE, the option path (stem + block 1 kernel, top-K NMS scan) on
+# SP_OPTION_MESH at b1, int8 pointwise serving on SP_INT8_MESH at b2 with the
+# suppression; the backward kernels' f32 steps on 2x2 (each gate alone: with
+# both on, the chain takes the one layer inside both envelopes)
+SP_FUSED = dict(compute_dtype="bfloat16", fused_backbone=True, mask_output="bfloat16")
+SP_OPTION_MESH = "1x4"
+SP_INT8_MESH = "2x2"
+SP_KERNEL_ROUTES = ("aten", "depthwise", "chain")
 SP_MASK_F32 = 1e-4  # f32 serving: |mask difference|
 SP_GRAD_F64 = 1e-4  # f64 gradient, the relative-norm metric (the CPU test's gate)
 # the layer whose output is the first map of an output stride (MobileNetV2):
@@ -3034,6 +3232,113 @@ def _sp_serve(builder, model, nms, mesh, images, suppression: bool) -> dict:
     return out
 
 
+def _sp_counters():
+    """The forward kernels' counters phase 13 reads: (name, wrapper,
+    attribute) of the launches and of the launches on row windows."""
+    from ssdseglib_torch.ops import fused_mbconv, int8_pointwise, nms_scan, s2d_stem
+
+    return (("mbconv", fused_mbconv.fused_mbconv, "launches"),
+            ("mbconv_windows", fused_mbconv.fused_mbconv, "window_launches"),
+            ("stem", s2d_stem.fused_stem_block1, "launches"),
+            ("stem_windows", s2d_stem.fused_stem_block1, "window_launches"),
+            ("int8", int8_pointwise.int8_pointwise, "launches"),
+            ("scan", nms_scan.greedy_select, "launches"))
+
+
+@contextlib.contextmanager
+def _sp_count(into: dict):
+    """The counters of `_sp_counters` set to 0 on entry and read into
+    ``into`` on exit, after a synchronize."""
+    counters = _sp_counters()
+    for _, wrapper, attribute in counters:
+        setattr(wrapper, attribute, 0)
+    yield
+    torch.cuda.synchronize()
+    into.update({name: getattr(wrapper, attribute) for name, wrapper, attribute in counters})
+
+
+def _sp_fused(builder, model, nms, mesh, images, suppression: bool, **options) -> dict:
+    """bf16 fused `predict` of ``images`` on ``mesh`` (None: one process)
+    with ``options`` (the int8 ones), and the kernels' launches of one
+    forward: on a mesh, this rank's, and how many ran on row windows."""
+    infer = builder.get_model_for_inference(
+        model_trained=model, device="cuda:0", mesh=mesh, **SP_FUSED,
+        **{**nms, "use_segmentation_suppression": suppression}, **options)
+    infer.predict(images)  # warm-up
+    launches = {}
+    with _sp_count(launches):
+        mask, det = infer.predict(images)
+    return {"mask": mask, "det": det, "launches": launches}
+
+
+def _sp_option(mesh, images) -> dict:
+    """The option path as a caller writes it (`_option_path_parts`: bf16
+    ``make_fused_forward(s2d_stem='cuda')``, then the suppression, decoding
+    and ``combined_nms(method='topk')``) on ``mesh`` (None: one process), in
+    the mesh's scope on this rank's block; the mask's rows gathered; the
+    kernels' launches of one call."""
+    from ssdseglib_torch.parallel import mesh as mesh_lib
+    from ssdseglib_torch.utils.serving import gather_outputs
+
+    make_forward, _, postprocess, _, _ = _option_path_parts()
+    forward = make_forward(torch.bfloat16, "cuda")
+    x = torch.from_numpy(images).to("cuda:0")
+
+    def serve():
+        with mesh_lib.data_parallel(mesh):
+            out = forward(x if mesh is None else mesh_lib.shard_images(mesh, x))
+            det = postprocess(out, "topk")
+        mask = out["output-mask"]
+        return (mask.float(), det) if mesh is None else gather_outputs(mask, det, mesh)
+
+    serve()  # warm-up
+    launches = {}
+    with _sp_count(launches):
+        mask, det = serve()
+    return {"mask": mask.cpu().numpy(), "det": det.cpu().numpy(), "launches": launches}
+
+
+def _sp_kernel_steps(mesh, variables, images, targets) -> dict:
+    """One f32 step at SP_STEP_BATCH from ``variables`` under each route of
+    SP_KERNEL_ROUTES on ``mesh`` (None: one process): metrics, the f32
+    gradient (Adam's first moment over 0.1), parameters, statistics and the
+    backward kernels' launches."""
+    from ssdseglib_torch.boxes import Anchors
+    from ssdseglib_torch.config import TrainConfig, reference_warehouse_config
+    from ssdseglib_torch.models.builder import SsdSegModel
+    from ssdseglib_torch.ops import depthwise_backward as dwb
+    from ssdseglib_torch.ops import fused_chain_backward as fcb
+    from ssdseglib_torch.parallel import shard_batch
+    from ssdseglib_torch.train import Trainer
+
+    anchors_cfg, enc_cfg, model_cfg, _, _ = reference_warehouse_config()
+    anchors = Anchors.from_config(anchors_cfg, enc_cfg.image_shape)
+    trainer = Trainer(model=SsdSegModel(model_cfg, torch.Generator().manual_seed(0)),
+                      anchors=anchors, device="cuda:0",
+                      config=TrainConfig(batch_size=SP_STEP_BATCH, compute_dtype="float32"))
+    batch = (images, targets) if mesh is None else shard_batch(mesh, (images, targets))
+    out = {}
+    for route in SP_KERNEL_ROUTES:
+        state = trainer.init_state(variables=variables, mesh=mesh)
+        _set_route(route)
+        try:
+            dwb.depthwise3x3_backward.launches = 0
+            fcb.dw_bn_relu6_backward.launches = fcb.dw_bn_relu6_backward.split_launches = 0
+            state, metrics = trainer.train_step(state, *batch)
+            torch.cuda.synchronize()
+            launches = {"depthwise": dwb.depthwise3x3_backward.launches,
+                        "chain": fcb.dw_bn_relu6_backward.launches
+                        + fcb.dw_bn_relu6_backward.split_launches}
+        finally:
+            _set_route("aten")
+        out[route] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                      "launches": launches,
+                      "grads": {k: v.float().cpu() * 10.0 for k, v in state.opt_state.mu.items()},
+                      "params": {k: v.cpu() for k, v in state.params.items()},
+                      "batch_stats": {k: v.cpu() for k, v in state.batch_stats.items()}}
+    return out
+
+
 def _sp_rank(rank: int, directory: str) -> None:
     """Phase 13: one of SP_WORLD gloo ranks on cuda:0 (spawned): serving on
     each mesh of SP_SERVE it belongs to and the steps on 2x2; the results go
@@ -3053,15 +3358,27 @@ def _sp_rank(rank: int, directory: str) -> None:
         meshes = {name: make_hybrid_mesh(n_data, n_spatial, device="cuda:0")
                   for name, n_data, n_spatial, _, _ in SP_SERVE}
         builder, model, nms = _builder()
-        out = {"serve": {}}
+        out = {"serve": {}, "fused": {}}
         for name, _, _, batch, suppression in SP_SERVE:
             if meshes[name].get_coordinate() is not None:
                 out["serve"][name] = _sp_serve(builder, model, nms, meshes[name],
                                                _uint8_images(3, batch), suppression)
+                out["fused"][name] = _sp_fused(builder, model, nms, meshes[name],
+                                               _uint8_images(3, batch), suppression)
+        out["fused"]["int8"] = _sp_fused(builder, model, nms, meshes[SP_INT8_MESH],
+                                         _uint8_images(3, 2), True, quantize_pointwise=True,
+                                         calibration_images=_uint8_images(4, 2))
+        out["option"] = _sp_option(meshes[SP_OPTION_MESH], _uint8_images(3, 1))
         variables = model.state_dict()
         del builder, model
+        # four ranks and this script share the card: each rank gives back
+        # its cached blocks between its serving and its steps
+        torch.cuda.empty_cache()
         _, _, images, targets, _ = _train_batch(SP_STEP_BATCH)
         out["steps"] = _sp_steps(meshes["2x2"], variables, images, targets)
+        torch.cuda.empty_cache()
+        out["kernel_steps"] = _sp_kernel_steps(meshes["2x2"], variables, images, targets)
+        out["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
         torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -3216,6 +3533,122 @@ def _sp_check_steps(ranks, single, card: str) -> dict:
     return report
 
 
+def _sp_hold_bf16(tag: str, got: dict, want: dict, slices, n_data: int) -> dict:
+    """A bf16 `predict` of a mesh against one process at the phase's gates:
+    with one data rank, the mask within one bf16 ulp and the detections bit
+    for bit; with two (whose batch split changes the library's bf16 sums),
+    phase 12b's gates against one process at the global batch and one ulp
+    against one process on each data slice alone.  Returns the numbers."""
+    assert got["mask"].shape == want["mask"].shape and got["det"].shape == want["det"].shape
+    ulps = _bf16_ulps(got["mask"], want["mask"])
+    det_err = float(np.abs(got["det"] - want["det"]).max())
+    if n_data == 1:
+        assert ulps <= 1.0, (tag, ulps)
+        assert np.array_equal(got["det"], want["det"]), (tag, det_err)
+        return {"mask_ulps": ulps, "det_err": det_err}
+    bad = int((np.abs(got["mask"] - want["mask"])
+               > TOLERANCE[torch.bfloat16] * (1 + np.abs(want["mask"]))).sum())
+    bad_det = int((np.abs(got["det"] - want["det"])
+                   > DP_DETECTION_TOLERANCE * (1 + np.abs(want["det"]))).sum())
+    assert bad == 0 and bad_det == 0, (tag, bad, bad_det)
+    sliced = _bf16_ulps(got["mask"], np.concatenate([s["mask"] for s in slices]))
+    assert sliced <= 1.0, (tag, sliced)
+    return {"mask_ulps": ulps, "det_err": det_err, "mask_ulps_vs_slices": sliced}
+
+
+def _sp_check_fused(ranks, single, card: str) -> dict:
+    """Every rank's bf16 fused `predict` of each mesh, the int8 one and the
+    option path against one process (`_sp_hold_bf16`), and the kernels'
+    launches of one forward on every rank: the MBConv kernel on windows on
+    every mesh, the stem kernel on windows and the scan on the option path's
+    mesh, the two int8 launches."""
+    cases = [(name, n_data, n_spatial, single[batch, suppression], "slices")
+             for name, n_data, n_spatial, batch, suppression in SP_SERVE]
+    n_data, n_spatial = (2, 2) if SP_INT8_MESH == "2x2" else (1, int(SP_INT8_MESH[2:]))
+    cases.append(("int8", n_data, n_spatial, single["int8"], "int8_slices"))
+    report = {}
+    for name, n_data, n_spatial, want, slices in cases:
+        mesh = SP_INT8_MESH if name == "int8" else name
+        entry = {"launches": [], "one_process_launches": want["launches"]}
+        for rank, got in enumerate(ranks):
+            if name not in got["fused"]:
+                continue
+            g = got["fused"][name]
+            entry[f"rank{rank}"] = _sp_hold_bf16(f"fused {name} rank {rank}", g, want,
+                                                 single[slices], n_data)
+            launches = g["launches"]
+            entry["launches"].append(launches)
+            assert launches["mbconv"] == 10 and launches["mbconv_windows"] > 0, (name, rank,
+                                                                                  launches)
+            if name == "int8":
+                assert launches["int8"] == 2, (rank, launches)
+        ulps = max(v["mask_ulps"] for k, v in entry.items() if k.startswith("rank"))
+        log(f"[spatial] (c) bf16 fused serving {name} on {mesh} ({n_data} x {n_spatial}): mask "
+            f"{ulps:.3g} ulps from one process, detections "
+            f"{'equal' if n_data == 1 else 'within the 2x2 gates'}; launches a forward per "
+            f"rank {entry['launches']} (one process: {want['launches']}) | {card}")
+        report[name] = entry
+    want = single["option"]
+    entry = {"launches": [], "one_process_launches": want["launches"]}
+    for rank, got in enumerate(ranks):
+        g = got["option"]
+        entry[f"rank{rank}"] = _sp_hold_bf16(f"option path rank {rank}", g, want, None, 1)
+        launches = g["launches"]
+        entry["launches"].append(launches)
+        assert (launches["stem"] == 1 and launches["stem_windows"] == 1
+                and launches["scan"] == 1 and launches["mbconv_windows"] > 0), (rank, launches)
+    log(f"[spatial] (c) option path (s2d_stem='cuda', method='topk') bf16 b1 on "
+        f"{SP_OPTION_MESH}: mask {max(v['mask_ulps'] for k, v in entry.items() if k.startswith('rank')):.3g} "
+        f"ulps from one process, detections equal; launches per rank {entry['launches']} "
+        f"(one process: {want['launches']}) | {card}")
+    report["option"] = entry
+    return report
+
+
+def _sp_check_kernel_steps(ranks, single, card: str) -> dict:
+    """The 2x2 f32 steps under each backward kernel's gate against one
+    process with the same gate and against the mesh's own ATen route: the
+    phase's f32 step gates (metrics within DP_STEP_GATE, running statistics
+    within 1e-5 of each tensor's largest, replicas bitwise equal; the f32
+    gradient's BatchNorm noise printed, not held), the route's kernel
+    launched on every rank."""
+    report = {}
+    for route in SP_KERNEL_ROUTES[1:]:
+        entry = {"metric_err": 0.0, "metric_err_vs_aten": 0.0, "stats_err": 0.0,
+                 "grad_err": 0.0, "grad_err_vs_aten": 0.0, "launches": []}
+        want = single[route]
+        for rank, got in enumerate(ranks):
+            step, aten = got["kernel_steps"][route], got["kernel_steps"]["aten"]
+            for k, v in want["metrics"].items():
+                for ref, key in ((v, "metric_err"), (aten["metrics"][k], "metric_err_vs_aten")):
+                    np.testing.assert_allclose(step["metrics"][k], ref,
+                                               err_msg=f"{route} rank {rank} {k}", **DP_STEP_GATE)
+                    entry[key] = max(entry[key], abs(step["metrics"][k] - ref)
+                                     / max(abs(ref), 1e-12))
+            stats = max((float((step["batch_stats"][k] - v).abs().max())
+                         / float(v.abs().max()), k) for k, v in want["batch_stats"].items())
+            assert stats[0] <= 1e-5, (route, rank, stats)
+            entry["stats_err"] = max(entry["stats_err"], stats[0])
+            entry["grad_err"] = max(entry["grad_err"],
+                                    _relative_norm_error(step["grads"], want["grads"])[0])
+            entry["grad_err_vs_aten"] = max(entry["grad_err_vs_aten"], _relative_norm_error(
+                step["grads"], aten["grads"])[0])
+            assert step["launches"][route] >= 1, (route, rank, step["launches"])
+            entry["launches"].append(step["launches"])
+            for k, v in ranks[0]["kernel_steps"][route]["params"].items():
+                assert torch.equal(v, step["params"][k]), f"{route}: replicas differ at {k}"
+        entry["one_process_launches"] = want["launches"]
+        log(f"[spatial] (d) 2x2 one f32 step at b{SP_STEP_BATCH} with the {route} backward "
+            f"kernel's gate 'cuda': metrics {entry['metric_err']:.3g} from one process with the "
+            f"gate and {entry['metric_err_vs_aten']:.3g} from the mesh's ATen route (gate rtol "
+            f"{DP_STEP_GATE['rtol']}), running statistics {entry['stats_err']:.3g} (limit 1e-5), "
+            f"replicas bitwise equal; f32 gradient {entry['grad_err']:.3g} / "
+            f"{entry['grad_err_vs_aten']:.3g} (BatchNorm noise, not held); launches per rank "
+            f"{entry['launches']} (one process {want['launches']}) | {card}")
+        report[route] = entry
+    return report
+
+
 def phase_spatial(card: str) -> None:
     """Phase 13: spatial parallelism, the references in this process, then
     SP_WORLD gloo ranks on cuda:0; one JSON line with the numbers."""
@@ -3234,12 +3667,29 @@ def phase_spatial(card: str) -> None:
     images = _uint8_images(3, 2)
     single["slices"] = [_sp_serve(builder, model, nms, None, images[i:i + 1], False)
                         for i in range(2)]
+    fused = {}
+    for _, _, _, batch, suppression in SP_SERVE:
+        if (batch, suppression) not in fused:
+            fused[batch, suppression] = _sp_fused(builder, model, nms, None,
+                                                  _uint8_images(3, batch), suppression)
+    fused["slices"] = [_sp_fused(builder, model, nms, None, images[i:i + 1], False)
+                       for i in range(2)]
+    int8 = dict(quantize_pointwise=True, calibration_images=_uint8_images(4, 2))
+    fused["int8"] = _sp_fused(builder, model, nms, None, images, True, **int8)
+    fused["int8_slices"] = [_sp_fused(builder, model, nms, None, images[i:i + 1], False, **int8)
+                            for i in range(2)]
+    fused["option"] = _sp_option(None, _uint8_images(3, 1))
     variables = model.state_dict()
     del builder, model
     _, _, images, targets, _ = _train_batch(SP_STEP_BATCH)
     steps = _sp_steps(None, variables, images, targets)
+    kernel_steps = _sp_kernel_steps(None, variables, images, targets)
     del images, targets
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[spatial] before the ranks: {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free on "
+        f"the card, this process holding {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB "
+        f"reserved | {card}")
     directory = tempfile.mkdtemp(prefix="ssdseg_smoke_spatial_")
     try:
         seconds = _sp_spawn(directory)
@@ -3249,10 +3699,14 @@ def phase_spatial(card: str) -> None:
         shutil.rmtree(directory, ignore_errors=True)
     serving = _sp_check_serving(ranks, single, card)
     stepping = _sp_check_steps(ranks, steps, card)
+    kernels = {"fused": _sp_check_fused(ranks, fused, card),
+               "kernel_steps": _sp_check_kernel_steps(ranks, kernel_steps, card)}
     total = time.perf_counter() - t0
+    peaks = [r["peak_reserved_gib"] for r in ranks]
     log(json.dumps({"spatial_parallel": {"serving": serving, "steps": stepping,
-                                         "ranks_seconds": seconds, "seconds": total,
-                                         "card": card}}, default=float))
+                                         "kernels": kernels, "ranks_seconds": seconds,
+                                         "ranks_peak_reserved_gib": peaks,
+                                         "seconds": total, "card": card}}, default=float))
     log(f"[spatial] phase 13 took {total:.1f} s (budget {SP_BUDGET_S} s; the ranks "
         f"{seconds:.1f} s) | {card}")
 
@@ -4324,6 +4778,9 @@ def main() -> None:
     if "--int8-kernel" in sys.argv:
         phase_int8_kernel_vs_plain()
         return
+    if "--windows" in sys.argv:
+        phase_windowed_kernels(card)
+        return
     if "--profile-train" in sys.argv:
         routes = [a for a in sys.argv[1:] if a in ROUTES] or list(ROUTES)
         for route in routes:
@@ -4334,6 +4791,7 @@ def main() -> None:
     stem = phase_stem_kernel_vs_plain()
     int8 = phase_int8_kernel_vs_plain()
     backward = phase_backward_kernels_vs_plain(card)
+    phase_windowed_kernels(card)
     wgrad = phase_wgrad_kernels_vs_plain(card, backward["chain_backward"].pop("call"),
                                          backward["depthwise_backward"].pop("call"))
     phase_whole_path_parity()

@@ -56,6 +56,14 @@
 // `chain_backward_apply` is pass 2 on the global sums and the global pixel
 // count N, forming Bc and D at its head, per CTA, from the same expression
 // pass 1's `finish` uses, so a group of one gives the two-launch path's bits.
+// On a mesh that splits the image rows (`parallel/spatial.py`) the chain
+// runs on a rank's window: x, u and dy hold the rank's own rows plus one halo
+// row at each end, dy zero in the halo rows (so pass 1 sums the own rows
+// only), and `chain_backward_apply` confines du to the own rows [lo, hi)
+// of the window: du is the BatchNorm gradient of the own rows, nonzero where
+// dz is zero, so zero rows of dy alone would leave -Bc - D * xhat in the halo.
+// dx then covers the window (its halo rows go back to their owners) and dk
+// sums the own rows' products.
 // Every sum is taken in an order fixed by the grid, so the bits repeat from
 // run to run.  Where C is not a multiple of V the rows are not 16-byte
 // aligned and both passes take their scalar paths.  The tile (tr, tw) is a
@@ -202,6 +210,7 @@ chain_sums_kernel(const T* __restrict__ u, const T* __restrict__ dy, Coef cf,
 // host.
 struct ChainGeo {
   int B, H, W, C;
+  int lo, hi;     // the rows whose du is computed; du is zero outside them
   int tr, tw;     // tile rows and columns
   int cc;         // channels of a chunk: a power of two <= kMaxChunk
   int chunks;
@@ -334,7 +343,7 @@ chain_bwd_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __re
       for (int pix = tid >> cv_log2; pix < npix; pix += kThreads >> cv_log2) {
         const int ly = __umulhi(pix, g.wp_magic), lx = pix - ly * wp;
         const int gy = y0 - 1 + ly, gx = x0 - 1 + lx;
-        const bool inside = gy >= 0 && gy < g.H && gx >= 0 && gx < g.W;
+        const bool inside = gy >= g.lo && gy < g.hi && gx >= 0 && gx < g.W;
         unsigned char* vec = uds + size_t(pix * cv + j) * 32;
         float uf[V], gf[V], d[V];
         Vec<T>::unpack(*reinterpret_cast<const uint4*>(vec), uf);
@@ -346,7 +355,7 @@ chain_bwd_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __re
           dz_xhat<T>(uf[q], gf[q], cq, &dz, &xhat);
           d[q] = inside ? __fsub_rn(__fsub_rn(__fmul_rn(cq.a, dz), co[4][q]),
                                     __fmul_rn(co[5][q], xhat))
-                        : 0.0f;  // outside the image: the correlation's padding
+                        : 0.0f;  // outside the image (or the valid rows): the padding
         }
         float4* dst = reinterpret_cast<float4*>(vec);
 #pragma unroll
@@ -359,10 +368,13 @@ chain_bwd_kernel(const T* __restrict__ x, const T* __restrict__ u, const T* __re
         const int gy = y0 - 1 + ly, gx = x0 - 1 + lx, ci = c0 + chi;
         const bool inside = gy >= 0 && gy < g.H && gx >= 0 && gx < g.W && ci < g.C;
         T xv = from_f<T>(0.0f);
-        float d = 0.0f;  // outside the image: the correlation's padding
+        float d = 0.0f;  // outside the image (or the valid rows): the correlation's padding
         if (inside) {
           const size_t idx = (img + size_t(gy) * g.W + gx) * g.C + ci;
           xv = x[idx];
+        }
+        if (inside && gy >= g.lo && gy < g.hi) {
+          const size_t idx = (img + size_t(gy) * g.W + gx) * g.C + ci;
           const ChannelCoef co = {cfs[chi], cfs[cc + chi], cfs[2 * cc + chi], cfs[3 * cc + chi]};
           float dz, xhat;
           dz_xhat<T>(to_f<T>(u[idx]), to_f<T>(dy[idx]), co, &dz, &xhat);
@@ -500,6 +512,7 @@ template <typename T, bool VEC>
 cudaError_t make_chain_geo(int B, int H, int W, int C, int tr, int tw, ChainGeo* g) {
   if (tr < 1 || tw < 1) return cudaErrorInvalidValue;
   g->B = B, g->H = H, g->W = W, g->C = C, g->tr = tr, g->tw = tw;
+  g->lo = 0, g->hi = H;
   g->cc = next_pow2(C < kMaxChunk ? C : kMaxChunk);
   g->cc_log2 = 0;
   while ((1 << g->cc_log2) < g->cc) ++g->cc_log2;
@@ -610,15 +623,17 @@ cudaError_t launch(const void* x, const void* u, const void* dy, const void* ker
                          counters, g, stream);
 }
 
-// The split path's pass 2 (`chain_backward_apply`).
+// The split path's pass 2 (`chain_backward_apply`), du on rows [lo, hi).
 template <typename T>
 cudaError_t launch_split_apply(const void* x, const void* u, const void* dy, const void* kern,
                                int kern_bf16, int kts, int kcs, Coef cf, const float* sums,
                                float n, void* dx, float* dk, float* scratch, int* counters, int B,
-                               int H, int W, int C, int tr, int tw, cudaStream_t stream) {
+                               int H, int W, int C, int tr, int tw, int lo, int hi,
+                               cudaStream_t stream) {
   ChainGeo g;
   const cudaError_t err = geometry<T>(B, H, W, C, tr, tw, &g);
   if (err != cudaSuccess) return err;
+  g.lo = lo, g.hi = hi;
   return launch_apply<T>(x, u, dy, kern, kern_bf16, kts, kcs, cf, sums, n, dx, dk,
                          scratch + 2 * C, counters, g, stream);
 }
@@ -697,15 +712,18 @@ extern "C" int chain_backward_sums(int dtype, const void* u, const void* dy, con
 }
 
 // The split path's pass 2: dx and dk from the GLOBAL sums (2, C) f32 =
-// (dbeta, dgamma) over n_total pixels of all ranks.  Arguments otherwise as
-// for `chain_backward_launch`.
+// (dbeta, dgamma) over n_total pixels of all ranks, du confined to rows
+// [lo, hi) (a window's own rows; 0, H for the whole map).  Arguments
+// otherwise as for `chain_backward_launch`.
 extern "C" int chain_backward_apply(int dtype, const void* x, const void* u, const void* dy,
                                     const void* kern, int kern_bf16, int kts, int kcs,
                                     const void* mean, const void* inv, const void* a,
                                     const void* beta, const void* sums, long long n_total,
                                     void* dx, void* dk, void* scratch, void* counters, int B,
-                                    int H, int W, int C, int tr, int tw, void* stream) {
-  if (bad_shape(B, H, W, C) || n_total < 1) return cudaErrorInvalidValue;
+                                    int H, int W, int C, int tr, int tw, int lo, int hi,
+                                    void* stream) {
+  if (bad_shape(B, H, W, C) || n_total < 1 || lo < 0 || hi > H || lo >= hi)
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const Coef cf = {static_cast<const float*>(mean), static_cast<const float*>(inv),
                    static_cast<const float*>(a), static_cast<const float*>(beta)};
@@ -716,9 +734,9 @@ extern "C" int chain_backward_apply(int dtype, const void* x, const void* u, con
   const float n = float(n_total);
   if (dtype == 0)
     return launch_split_apply<float>(x, u, dy, kern, kern_bf16, kts, kcs, cf, gs, n, dx, dkf, scr,
-                                     ct, B, H, W, C, tr, tw, s);
+                                     ct, B, H, W, C, tr, tw, lo, hi, s);
   if (dtype == 1)
     return launch_split_apply<__nv_bfloat16>(x, u, dy, kern, kern_bf16, kts, kcs, cf, gs, n, dx,
-                                             dkf, scr, ct, B, H, W, C, tr, tw, s);
+                                             dkf, scr, ct, B, H, W, C, tr, tw, lo, hi, s);
   return cudaErrorInvalidValue;
 }

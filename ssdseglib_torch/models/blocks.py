@@ -21,8 +21,9 @@ the convs, the pool and the resize read and write the global map through
 `parallel.spatial` (halo rows, global SAME padding, global resize
 coordinates).  Three module-level gates, named as in the JAX package, choose
 a backward route: of the depthwise layers inside the envelope
-(`set_depthwise_bwd_impl`, `set_chain_bwd_impl`; their kernels refuse split
-rows) and of the weight gradient of the dense convs (`set_wgrad_impl`).
+(`set_depthwise_bwd_impl`, `set_chain_bwd_impl`; on split rows their kernels
+run on this rank's window of rows, and the envelope reads the global map)
+and of the weight gradient of the dense convs (`set_wgrad_impl`).
 """
 
 from __future__ import annotations
@@ -167,8 +168,7 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         rank of the mesh for a map whose rows are split, over the data group
         for a whole one (its spatial copies are no samples).  The running
         statistics move by the global mean and the biased global variance."""
-        split = groups.partition is not None and groups.partition.rows_of(x) is not None
-        group = groups.whole if split else groups.data
+        group = spatial.split_group(x)
         count = x.numel() // x.shape[1] * torch.distributed.get_world_size(group)
         y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, group, count)
         with torch.no_grad():
@@ -225,14 +225,15 @@ def depthwise_conv(conv: "SameConv2d", x: torch.Tensor) -> torch.Tensor:
     """A depthwise `SameConv2d` applied through the selected backward route
     (DEPTHWISE_BWD_IMPL)."""
     if DEPTHWISE_BWD_IMPL == "cuda":
-        spatial.refuse("the depthwise backward kernel (set_depthwise_bwd_impl('cuda'))")
         from ssdseglib_torch.ops.depthwise_backward import (
             depthwise_conv3x3_fused_bwd,
             pallas_bwd_applicable,
         )
 
-        _, c, h, w = x.shape
-        if pallas_bwd_applicable(h, w, c, conv.kernel_size, conv.stride, conv.dilation):
+        # the envelope reads the global map: a shard routes where one process does
+        h, w = spatial.global_size(x)
+        if pallas_bwd_applicable(h, w, x.shape[1], conv.kernel_size, conv.stride,
+                                 conv.dilation):
             return depthwise_conv3x3_fused_bwd(x, conv.weight)
     return conv(x)
 
@@ -292,11 +293,11 @@ class DepthwiseConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and CHAIN_BWD_IMPL == "cuda":
-            spatial.refuse("the chain backward kernel (set_chain_bwd_impl('cuda'))")
             from ssdseglib_torch.ops.fused_chain_backward import chain_applicable
 
-            _, c, h, w = x.shape
-            if chain_applicable(h, w, c, self.conv.kernel_size, self.conv.stride,
+            # the envelope reads the global map: a shard routes where one process does
+            h, w = spatial.global_size(x)
+            if chain_applicable(h, w, x.shape[1], self.conv.kernel_size, self.conv.stride,
                                 self.conv.dilation, self.relu_max):
                 return self._fused_chain(x)
         x = depthwise_conv(self.conv, x)

@@ -228,15 +228,18 @@ class InferenceModel:
 
         mesh: a 1-D data mesh (`parallel.make_mesh`) for batch-parallel
         serving, a ``("data", "spatial")`` one (`parallel.make_hybrid_mesh`)
-        for batch- and row-parallel serving, or None.  A mesh that splits
-        the rows refuses ``fused_backbone`` (NotImplementedError).
+        for batch- and row-parallel serving, or None.  On a mesh that splits
+        the rows the fused forward runs under the model's row partition
+        (`fused_inference.fused_forward`): its kernels on this rank's windows
+        of rows, the int8 1x1s on its rows as they are.
 
         quantize_pointwise / calibration_images: int8 post-training
         quantization of the two pointwise convs of
         `fused_inference.QUANT_TARGETS`, calibrated on a representative
-        uint8 batch; requires ``fused_backbone``.  On a data mesh every rank
-        calibrates on the whole batch with the replicated weights, so every
-        rank holds the same tables.
+        uint8 batch; requires ``fused_backbone``.  On a mesh (data or
+        spatial) every rank calibrates on the whole batch with the replicated
+        weights, outside any row partition, so every rank holds one
+        process's tables.
 
         input_layout / input_layout_batch: the JAX package's 'auto' compiles
         a program with XLA-chosen input layouts for one batch size.  The
@@ -256,11 +259,6 @@ class InferenceModel:
             )
         if input_layout == "auto" and mesh is not None:
             raise ValueError("input_layout='auto' is single-device only")
-        if mesh is not None and mesh_lib.spatial_size(mesh) > 1 and fused_backbone:
-            raise NotImplementedError(
-                "fused_backbone=True is not available on a spatial mesh: the fused MBConv "
-                f"kernel pads SAME inside the kernel ({spatial.ROADMAP_ITEM})"
-            )
         if compute_dtype not in _DTYPES:
             raise ValueError(
                 f"compute_dtype must be 'float32' or 'bfloat16', got {compute_dtype!r}"

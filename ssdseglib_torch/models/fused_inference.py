@@ -29,6 +29,12 @@ the tensors as inputs (``export.py``); `make_fused_forward` binds the two.
 Activations are NCHW in the channels-last memory format, so the NHWC view
 the fused kernels take is a permute, not a copy.  The public forward takes
 NHWC images and returns NHWC outputs, like the JAX package.
+
+On a ``("data", "spatial")`` mesh (inside `parallel.mesh.data_parallel`,
+on this rank's rows of the images) the forward runs under the model's row
+partition, as `SsdSegModel.forward` does: every kernel of a split level runs
+on this rank's window of rows (`parallel/spatial.py`), a whole level runs
+whole on every rank, and the heads' outputs are gathered.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import torch.nn.functional as F
 from ssdseglib_torch.config import ModelConfig
 from ssdseglib_torch.models.blocks import bilinear_resize, conv2d_same
 from ssdseglib_torch.models.mobilenetv2 import _SEQUENCES
-from ssdseglib_torch.ops.fused_mbconv import fold_conv_bn, fused_mbconv
+from ssdseglib_torch.ops.fused_mbconv import fold_conv_bn, fused_mbconv_rows
 from ssdseglib_torch.ops.int8_pointwise import int8_pointwise
 from ssdseglib_torch.ops.s2d_stem import fused_stem_block1, stem_block1_args
 from ssdseglib_torch.parallel import spatial
@@ -150,12 +156,13 @@ def fold_stem_rescale(kernel, bias, input_hw):
 def _conv(x, kernel, bias=None, stride: int = 1, depthwise: bool = False,
           relu6: bool = False, dilation: int = 1):
     """Folded conv + bias (+ relu6), SAME padding.  A bias of more than one
-    dimension is the stem's (1, C, H, W) border bias map."""
+    dimension is the stem's (1, C, H, W) border bias map of the global
+    image, of which split rows take their own."""
     groups = x.shape[1] if depthwise else 1
     vector_bias = bias if bias is not None and bias.dim() == 1 else None
     y = conv2d_same(x, kernel, vector_bias, stride, dilation, groups)
     if bias is not None and vector_bias is None:
-        y = y + bias
+        y = y + spatial.own_rows(bias)
     if relu6:
         y = y.clamp(0.0, 6.0)
     return y
@@ -260,9 +267,41 @@ def _check_s2d_stem(s2d_stem) -> None:
 
 
 def _s2d_stem_applicable(x: torch.Tensor) -> bool:
-    """Shape gate of the fused stem + block 1 kernel on an NCHW input: the
-    two stride-2 convs pad 0 before and 1 after only on even sizes."""
-    return x.shape[2] % 4 == 0 and x.shape[3] % 4 == 0
+    """Shape gate of the fused stem + block 1 kernel on an NCHW input, read
+    on the global image (a shard's rows are the mesh's, not the image's):
+    the two stride-2 convs pad 0 before and 1 after only on even sizes."""
+    rows, cols = spatial.global_size(x)
+    return rows % 4 == 0 and cols % 4 == 0
+
+
+# image rows above and below a shard's own that the stem + block 1 kernel
+# reads: block 1's output row r reads the stem's rows 2r - 1 .. 2r + 3, which
+# read image rows 4r - 2 .. 4r + 8; one more below keeps the window's rows
+# even (its 16-byte rows in bf16)
+STEM_HALO = (2, 6)
+
+
+def _stem_block1(x: torch.Tensor, args) -> torch.Tensor:
+    """Stem + block 1 on the NCHW channels-last image ``x``: the kernel on
+    the NHWC view (a copy that view needs is counted on
+    ``mobilenetv2_features_fused.copies``), on split rows on this rank's
+    window of image rows (`STEM_HALO`; the kernel's row window mode), the
+    whole image on every rank where block 1's output level is whole."""
+    rows, cols = spatial.global_size(x)
+    if not spatial.split_at(-(-rows // 4), -(-cols // 4)):
+        x = spatial.whole(x)
+    window = spatial.edge_window(x, *STEM_HALO)
+    if window is not None:
+        images = window.rows.permute(0, 2, 3, 1).contiguous()
+        y = fused_stem_block1(images, args, window=(window.first, window.height,
+                                                    window.own_first // 4,
+                                                    x.shape[2] // 4))
+        return y.permute(0, 3, 1, 2)
+    nhwc = x.permute(0, 2, 3, 1)
+    if not nhwc.is_contiguous():
+        mobilenetv2_features_fused.copies += 1
+        nhwc = nhwc.contiguous()
+    return fused_stem_block1(nhwc, args).permute(0, 3, 1, 2)
 
 
 def mobilenetv2_features_fused(folded, x: torch.Tensor, s2d_stem=False):
@@ -274,18 +313,14 @@ def mobilenetv2_features_fused(folded, x: torch.Tensor, s2d_stem=False):
 
     s2d_stem: ``"cuda"`` runs stem + block 1 as one fused kernel
     (`ops/s2d_stem.py`, arguments under ``backbone-stem-block1-args``) when
-    the input shape allows it, on the NHWC view of the channels-last input;
-    a copy that view needs is counted on
-    ``mobilenetv2_features_fused.copies``.  Default off."""
+    the input shape allows it (`_stem_block1`).  Default off.  Each stride-1
+    residual repeat runs the MBConv kernel (`ops/fused_mbconv.
+    fused_mbconv_rows`: on split rows, on this rank's window)."""
     _check_s2d_stem(s2d_stem)
     use_s2d = bool(s2d_stem) and _s2d_stem_applicable(x)
     if use_s2d:
-        nhwc = x.permute(0, 2, 3, 1)
-        if not nhwc.is_contiguous():
-            mobilenetv2_features_fused.copies += 1
-            nhwc = nhwc.contiguous()
-        y = fused_stem_block1(nhwc, folded["backbone-stem-block1-args"])
-        x = y.permute(0, 3, 1, 2)  # a channels-last view, as the convs below take it
+        # a channels-last view, as the convs below take it
+        x = _stem_block1(x, folded["backbone-stem-block1-args"])
     else:
         (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 0)
         x = _conv(x, we, be, stride=2, relu6=True)
@@ -309,11 +344,9 @@ def mobilenetv2_features_fused(folded, x: torch.Tensor, s2d_stem=False):
                 x = _conv(d, wp, bp)
             else:
                 # stride-1 residual repeat: one fused kernel launch on the
-                # NHWC view of the channels-last activation
-                nhwc = x.permute(0, 2, 3, 1).contiguous()
-                y = fused_mbconv(nhwc, *folded[f"backbone-block{block}-mbconv"],
-                                 residual=True)
-                x = y.permute(0, 3, 1, 2)
+                # NHWC view of the channels-last activation (of its window)
+                x = fused_mbconv_rows(x, *folded[f"backbone-block{block}-mbconv"],
+                                      residual=True)
         taps[f"block{block}-out"] = x
 
     return taps["block13-expand"], taps["block16-out"], taps["block3-expand"]
@@ -331,8 +364,14 @@ def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip, quant=None,
     spatially constant and enters as a bias.
 
     quant: {target: `int8_tables` entry} of the QUANT_TARGETS that run in
-    int8.  collect_amax: also return {target: max |input|} as 0-d tensors,
-    the calibration's statistic."""
+    int8 (on split rows as they are: a 1x1 reads no halo).  collect_amax:
+    also return {target: max |input|} as 0-d tensors, the calibration's
+    statistic (taken outside any row partition).
+
+    Under a row partition the pooled ASPP branch is the global mean
+    (`parallel.spatial.mean_hw`), the decoder resizes to the skip's global
+    size, and each SSDLite branch's output is gathered whole before the
+    reshape, as in `models/heads.py`."""
     relu_max = 6.0  # mobilenetv2 head cap (the int8 kernel's ReLU6)
 
     def sep(x, name, stride=1, dilation=1, rm=relu_max):
@@ -356,19 +395,19 @@ def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip, quant=None,
         sep(fm1, f"mask-encoder/aspp-atrous{i + 1}", dilation=rate)
         for i, rate in enumerate(cfg.segmentation_dilation_rates)
     ]
-    pooled = fm1.mean(dim=(2, 3), keepdim=True)
+    pooled = spatial.mean_hw(fm1)
     pooled = _act(_conv(pooled, *folded["mask-encoder/pooling"]), relu_max)
     ko, bo = folded["mask-encoder/output"]  # (F, 5F, 1, 1)
     f = ko.shape[0]
     enc = _conv(pw_out, ko[:, :f])
     for i, branch in enumerate(atrous):
         enc = enc + _conv(branch, ko[:, (i + 1) * f:(i + 2) * f])
-    enc = enc + _conv(pooled, ko[:, (len(atrous) + 1) * f:], bo)
+    enc = enc + spatial.expand_rows(_conv(pooled, ko[:, (len(atrous) + 1) * f:], bo), enc)
     enc = _act(enc, relu_max)
 
     # -- DeepLabV3+ decoder: the 3x3 conv over concat([upsampled encoder,
     # reduced skip]) runs as two sliced convs
-    enc_up = bilinear_resize(enc, skip.shape[2], skip.shape[3])
+    enc_up = bilinear_resize(enc, *spatial.global_size(skip))
     red = _act(_conv(skip, *folded["mask-decoder/backbone-reduce"]), relu_max)
     kc, bc = folded["mask-decoder/conv"]  # (F, F + 48, 3, 3)
     x = _act(_conv(enc_up, kc[:, :f]) + _conv(red, kc[:, f:], bc), relu_max)
@@ -398,7 +437,7 @@ def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip, quant=None,
     def branch(kind, channels):
         return torch.cat(
             [
-                sep(fm, f"heads/{kind}{i + 1}/sepconv", rm=head_rm)
+                spatial.whole(sep(fm, f"heads/{kind}{i + 1}/sepconv", rm=head_rm))
                 .permute(0, 2, 3, 1).reshape(b, -1, channels)
                 for i, fm in enumerate(fms)
             ],
@@ -479,7 +518,9 @@ def _calibrate(cfg: ModelConfig, operands, images) -> Dict[str, float]:
     """The input amax of every QUANT_TARGETS conv over ``images`` (NHWC, in
     [0, 255]), through the backbone and heads of ``operands`` in their
     dtype: the plain stem after the standalone rescale, as the JAX package
-    calibrates, whatever the serving stem."""
+    calibrates, whatever the serving stem.  Outside any mesh scope: on a
+    mesh every rank calibrates on the whole batch with the replicated
+    weights, so every rank holds one process's tables."""
     weight = operands["backbone-block0-project"][0]
     images = images if isinstance(images, torch.Tensor) else torch.from_numpy(
         np.asarray(images))
@@ -507,22 +548,26 @@ def fused_forward(cfg: ModelConfig, operands: Mapping[str, Tuple[torch.Tensor, .
     with the tensors of `fused_operands`: a dict of NHWC outputs.  A
     function of its arguments only, so ``torch.export`` captures it with
     the operands as inputs.  ``apply_heads`` replaces the folded heads.
-    Refused on a mesh that splits the rows (`parallel.spatial.refuse`)."""
-    spatial.refuse("the fused serving path (fused_backbone=True, s2d_stem)")
-    x = images.to(operands["backbone-block0-project"][0].dtype).permute(0, 3, 1, 2)
-    backbone = operands
-    if STEM_RESCALED in operands and (
-            tuple(images.shape[1:3]) == tuple(cfg.input_image_shape[:2])):
-        # raw-input path: rescale folded into the stem
-        backbone = {**operands, "backbone-block0-expand": operands[STEM_RESCALED]}
-    else:
-        x = x / 127.5 - 1.0
-    fm1, fm2, skip = mobilenetv2_features_fused(backbone, x, s2d_stem=s2d_stem)
-    if apply_heads is not None:
-        return apply_heads(fm1, fm2, skip)
-    quant = {name: operands[name + INT8_SUFFIX] for name in QUANT_TARGETS
-             if name + INT8_SUFFIX in operands}
-    return heads_forward_folded(cfg, operands, fm1, fm2, skip, quant=quant)
+    Inside a `parallel.mesh.data_parallel` scope whose mesh splits the rows,
+    ``images`` are this rank's rows and the forward runs under the model's
+    row partition (with `SsdSegModel.forward`'s halos): the outputs are
+    this rank's rows of the mask and the whole heads' outputs."""
+    halos = {16: max(cfg.segmentation_dilation_rates)}
+    with spatial.row_partition(images, halos):
+        x = images.to(operands["backbone-block0-project"][0].dtype).permute(0, 3, 1, 2)
+        backbone = operands
+        if STEM_RESCALED in operands and (
+                spatial.global_size(x) == tuple(cfg.input_image_shape[:2])):
+            # raw-input path: rescale folded into the stem
+            backbone = {**operands, "backbone-block0-expand": operands[STEM_RESCALED]}
+        else:
+            x = x / 127.5 - 1.0
+        fm1, fm2, skip = mobilenetv2_features_fused(backbone, x, s2d_stem=s2d_stem)
+        if apply_heads is not None:
+            return apply_heads(fm1, fm2, skip)
+        quant = {name: operands[name + INT8_SUFFIX] for name in QUANT_TARGETS
+                 if name + INT8_SUFFIX in operands}
+        return heads_forward_folded(cfg, operands, fm1, fm2, skip, quant=quant)
 
 
 def make_fused_forward(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,

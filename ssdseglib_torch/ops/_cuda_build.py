@@ -164,21 +164,21 @@ def load_library() -> ctypes.CDLL:
     # the split path: (dtype, u, dy, mean, inv, A, beta, sums, scratch,
     # counters, B, H, W, C, stream), then (dtype, x, u, dy, k, k_bf16, kts,
     # kcs, mean, inv, A, beta, global sums, n_total, dx, dk, scratch,
-    # counters, B, H, W, C, tr, tw, stream)
+    # counters, B, H, W, C, tr, tw, du's rows lo, hi, stream)
     lib.chain_backward_sums.argtypes = [ctypes.c_int] + [ptr] * 9 + [ctypes.c_int] * 4 + [ptr]
     lib.chain_backward_sums.restype = ctypes.c_int
     lib.chain_backward_apply.argtypes = (
         [ctypes.c_int] + [ptr] * 4 + [ctypes.c_int] * 3 + [ptr] * 5 + [ctypes.c_longlong]
-        + [ptr] * 4 + [ctypes.c_int] * 6 + [ptr]
+        + [ptr] * 4 + [ctypes.c_int] * 8 + [ptr]
     )
     lib.chain_backward_apply.restype = ctypes.c_int
     # (iou, valid, threshold, keep, rows, K, max_keep, stream)
     lib.nms_scan_launch.argtypes = [ptr] * 4 + [ctypes.c_int] * 3 + [ptr]
     lib.nms_scan_launch.restype = ctypes.c_int
-    # (dtype, images, six (weight, bias) pairs, out, B, H, W, to, tw, ec, warps,
-    #  stream)
+    # (dtype, images, six (weight, bias) pairs, out, B, H, W, row0, hm, o0, ho,
+    #  to, tw, ec, warps, stream)
     lib.stem_block1_launch.argtypes = (
-        [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 7 + [ptr]
+        [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 11 + [ptr]
     )
     lib.stem_block1_launch.restype = ctypes.c_int
     # (H, W, *to, *tw, *ec, *warps, *smem)

@@ -16,6 +16,14 @@ plain version ``depthwise3x3_backward_reference`` on CPU tensors; a CUDA call
 the kernel cannot take raises.  ``depthwise3x3_backward.launches`` counts the
 calls that reached the kernel.  ``depthwise_conv3x3_fused_bwd`` is the
 autograd unit the model uses: its forward is the plain convolution.
+
+On a mesh that splits the rows (`parallel/spatial.py`) the unit's forward
+is the convolution on this rank's window (`parallel.spatial.window_rows`:
+one halo row each side, fill 0 past the global border) with no row padding,
+and its backward pads dy with one zero row at each end of the window: the
+kernel's SAME backward over the window is then exactly this rank's share --
+dx over the window (the halo rows' gradients go back to their owners), dk
+from the own output rows (summed over the mesh by the step's gradient mean).
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ssdseglib_torch.parallel import spatial
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -208,18 +218,20 @@ def pallas_bwd_applicable(h: int, w: int, c: int, kernel_size, strides,
 
 class _DepthwiseConv3x3FusedBwd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight):
+    def forward(ctx, x, weight, window):
         ctx.save_for_backward(x, weight)
-        return F.conv2d(x, weight, None, 1, 1, 1, x.shape[1])
+        ctx.window = window
+        return F.conv2d(x, weight, None, 1, (0, 1) if window else 1, 1, x.shape[1])
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         counter = depthwise_conv3x3_fused_bwd
-        dx, dk = depthwise3x3_backward(
-            nhwc_view(x, counter), nhwc_view(dy, counter), weight.permute(2, 3, 1, 0)
-        )
-        return dx.permute(0, 3, 1, 2), _weight_grad(dk, weight)
+        dy = nhwc_view(dy, counter)
+        if ctx.window:  # the window's rows: a zero row at each end
+            dy = F.pad(dy, (0, 0, 0, 0, 1, 1))
+        dx, dk = depthwise3x3_backward(nhwc_view(x, counter), dy, weight.permute(2, 3, 1, 0))
+        return dx.permute(0, 3, 1, 2), _weight_grad(dk, weight), None
 
 
 def depthwise_conv3x3_fused_bwd(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -230,7 +242,8 @@ def depthwise_conv3x3_fused_bwd(x: torch.Tensor, weight: torch.Tensor) -> torch.
     of summation).
 
     Args:
-        x: (B, C, H, W); the kernel reads it in place when it is in the
+        x: (B, C, H, W), this rank's rows on split rows (module
+            docstring); the kernel reads it in place when it is in the
             channels-last memory format, else a copy is made and counted on
             ``depthwise_conv3x3_fused_bwd.copies``.
         weight: (C, 1, 3, 3) depthwise conv weight in x's dtype.
@@ -239,7 +252,8 @@ def depthwise_conv3x3_fused_bwd(x: torch.Tensor, weight: torch.Tensor) -> torch.
         raise ValueError(
             f"weight has shape {tuple(weight.shape)}, expected ({x.shape[1]}, 1, 3, 3)"
         )
-    return _DepthwiseConv3x3FusedBwd.apply(x, weight)
+    x, padding = spatial.window_rows(x, 3, 1, 1)
+    return _DepthwiseConv3x3FusedBwd.apply(x, weight, padding == (0, 0))
 
 
 depthwise_conv3x3_fused_bwd.copies = 0

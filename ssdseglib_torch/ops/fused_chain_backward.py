@@ -39,6 +39,15 @@ the kernels cannot take raises.  ``dw_bn_relu6_backward.launches`` counts the
 calls that reached the two-launch path, ``.split_launches`` those that
 reached the split path.  ``dw_bn_relu6_chain`` is the autograd unit the model
 uses.
+
+On a mesh that splits the rows (`parallel/spatial.py`) the unit runs on this
+rank's window: x with one halo row each side (`parallel.spatial.
+window_rows`), u over the window, the statistics over the rank's own rows and
+the whole mesh (the data group for a map that stays whole), and in the
+backward dy padded by a zero row at each end and du confined to the own rows
+(``rows``, the kernel's valid-row range): du = A dz - Bc - D xhat is nonzero
+where dz is zero, so the zero rows of dy alone would not do.  dx covers the
+window; its halo rows go back to their owners through the halo's backward.
 """
 
 from __future__ import annotations
@@ -56,7 +65,8 @@ from ssdseglib_torch.ops.depthwise_backward import (
     check_nhwc_operands,
     nhwc_view,
 )
-from ssdseglib_torch.parallel.mesh import active_group, all_reduce_, global_moments
+from ssdseglib_torch.parallel.mesh import all_reduce_, global_moments
+from ssdseglib_torch.parallel.spatial import split_group, window_rows
 
 BN_EPSILON = 1e-3  # the blocks' BatchNorm epsilon (models/blocks.py)
 
@@ -116,6 +126,7 @@ def dw_bn_relu6_backward(
     gamma: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     coefficients: Optional[Tuple[torch.Tensor, ...]] = None,
     group: Optional[dist.ProcessGroup] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused (dx, dk, dgamma, dbeta) for the dw3x3 + BN(train) + ReLU6 chain.
 
@@ -131,8 +142,12 @@ def dw_bn_relu6_backward(
         coefficients: the forward's (mean, inv, A = gamma * inv, beta), (C,)
             f32 each, as `_forward_math` returns them; computed from gamma,
             beta, mean and var when None.
-        group: the data-parallel group whose global batch mean and var are
-            the statistics of (the split path), or None.
+        group: the group whose global batch mean and var are the
+            statistics of (the split path), or None.
+        rows: (lo, hi), the rows of a window whose du is computed (the
+            rank's own rows; dy must be zero outside them), or None for
+            every row.  The split path takes it; the pixel count is that of
+            the rows.
     Returns:
         dx like x; dk (3, 3, 1, C), dgamma (C,), dbeta (C,) in f32; under a
         group, dgamma and dbeta are this rank's sums.
@@ -147,20 +162,22 @@ def dw_bn_relu6_backward(
     if coefficients is None:
         coefficients = _coefficients(gamma, beta, mean, var)
     _check_coefficients(c, x.device, coefficients)
+    if rows is not None and not 0 <= rows[0] < rows[1] <= h:
+        raise ValueError(f"dw_bn_relu6_backward: rows {rows} outside the {h} rows")
     if x.device.type == "cpu":
         return dw_bn_relu6_backward_reference(x, u, dy, kernel, gamma, beta, mean, var,
-                                              coefficients, group)
+                                              coefficients, group, rows)
     if x.device.type != "cuda":
         raise ValueError(f"dw_bn_relu6_backward runs on cuda or cpu, not {x.device}")
     if any(t.data_ptr() % 16 for t in (x, u, dy)):
         raise ValueError("dw_bn_relu6_backward: x, u and dy must be 16-byte aligned")
     if kernel.stride(0) != 3 * kernel.stride(1):
         kernel = kernel.contiguous()
-    if group is None:
+    if group is None and rows is None:
         dx, dk, sums = _launch(x, u, dy, kernel, coefficients)
         dw_bn_relu6_backward.launches += 1
     else:
-        dx, dk, sums = _launch_split(x, u, dy, kernel, coefficients, group)
+        dx, dk, sums = _launch_split(x, u, dy, kernel, coefficients, group, rows=rows)
         dw_bn_relu6_backward.split_launches += 1
     return dx, dk.reshape(3, 3, 1, c), sums[1], sums[0]
 
@@ -211,11 +228,13 @@ def _launch(x, u, dy, kernel, coefficients, config=BUILT_IN, out=None):
     return dx, dk, sums
 
 
-def _launch_split(x, u, dy, kernel, coefficients, group, config=BUILT_IN):
+def _launch_split(x, u, dy, kernel, coefficients, group, config=BUILT_IN, rows=None):
     """The split path on checked CUDA operands: pass 1 writes this rank's
-    (dbeta, dgamma); their all_reduce over ``group`` runs on the stream; pass
-    2 takes the global sums and the global pixel count (the ranks' shards are
-    equal).  Counts nothing.  Returns (dx, dk (9, C), this rank's sums (2, C))."""
+    (dbeta, dgamma); their all_reduce over ``group`` (None: no other rank)
+    runs on the stream; pass 2 takes the global sums and the global pixel
+    count (the ranks' shards are equal), du on ``rows`` (lo, hi) of the map
+    only (None: every row).  Counts nothing.  Returns (dx, dk (9, C), this
+    rank's sums (2, C))."""
     from ssdseglib_torch.ops._cuda_build import load_library
 
     lib = load_library()
@@ -234,44 +253,51 @@ def _launch_split(x, u, dy, kernel, coefficients, group, config=BUILT_IN):
         raise RuntimeError(f"chain backward pass 1 launch failed with cudaError {err} "
                            f"(B, H, W, C = {dims}, {x.dtype})")
     total.copy_(sums)
-    all_reduce_(total, group)
-    n_total = dims[0] * dims[1] * dims[2] * dist.get_world_size(group)
+    lo, hi = rows or (0, dims[1])
+    n_total = dims[0] * (hi - lo) * dims[2]
+    if group is not None:
+        all_reduce_(total, group)
+        n_total *= dist.get_world_size(group)
     err = _call(device, lambda: lib.chain_backward_apply(
         code, x.data_ptr(), u.data_ptr(), dy.data_ptr(), kernel.data_ptr(),
         _DTYPE_CODES[kernel.dtype], kernel.stride(1), kernel.stride(3), *coef,
         total.data_ptr(), n_total, dx.data_ptr(), dk.data_ptr(), scratch.data_ptr(),
-        counters.data_ptr(), *dims, *config, stream))
+        counters.data_ptr(), *dims, *config, lo, hi, stream))
     if err != 0:
         raise RuntimeError(f"chain backward pass 2 launch failed with cudaError {err} "
                            f"(B, H, W, C = {dims}, {x.dtype}, config {tuple(config)})")
     return dx, dk, sums
 
 
-def dw_bn_relu6_backward_reference(x, u, dy, kernel, gamma, beta, mean, var,
-                                   coefficients=None, group=None):
-    """Plain PyTorch version of the kernels, with the same rounding points:
-    z in f32 by Flax's association, cast to the I/O dtype and compared there;
-    everything else f32; du zero outside the image (it is the correlation's
-    padding there); dx rounded once.  Under a ``group`` the split path: du
-    from the all-reduced sums over the global pixel count.  Same arguments
-    and results as `dw_bn_relu6_backward`."""
-    batch, h, w, c = x.shape
-    n = float(batch * h * w)
-    if coefficients is None:
-        coefficients = _coefficients(gamma, beta, mean, var)
+def _dz_xhat(u, dy, coefficients):
+    """dz and xhat in f32, the mask's rounding point the forward's."""
     mean32, inv, a_coef, beta32 = coefficients
     d = u.float() - mean32
     z = (d * a_coef + beta32).to(u.dtype).float()
-    dz = torch.where((z > 0.0) & (z <= 6.0), dy.float(), torch.zeros((), device=x.device))
-    xhat = d * inv
-    dbeta = dz.sum(dim=(0, 1, 2))
-    dgamma = (dz * xhat).sum(dim=(0, 1, 2))
-    total_beta, total_gamma = dbeta, dgamma
-    if group is not None:
-        total_beta, total_gamma = all_reduce_(torch.stack([dbeta, dgamma]), group)
-        n *= dist.get_world_size(group)
-    du = a_coef * dz - a_coef * (total_beta / n) - (a_coef * (total_gamma / n)) * xhat
+    dz = torch.where((z > 0.0) & (z <= 6.0), dy.float(), torch.zeros((), device=u.device))
+    return dz, d * inv
 
+
+def chain_sums_reference(u, dy, coefficients) -> torch.Tensor:
+    """Pass 1's plain version: (dbeta, dgamma) = (sum dz, sum dz * xhat) over
+    the pixels of NHWC ``u`` and ``dy``, (2, C) f32."""
+    dz, xhat = _dz_xhat(u, dy, coefficients)
+    return torch.stack([dz.sum(dim=(0, 1, 2)), (dz * xhat).sum(dim=(0, 1, 2))])
+
+
+def chain_apply_reference(x, u, dy, kernel, coefficients, totals, n: float, rows=None):
+    """Pass 2's plain version: (dx, dk (3, 3, 1, C)) from the sums ``totals``
+    (2, C) = (dbeta, dgamma) over ``n`` pixels (the global batch's, on a
+    mesh), du zero outside the image and outside ``rows`` (lo, hi) of the
+    map (None: every row), dx rounded once."""
+    batch, h, w, c = x.shape
+    _, _, a_coef, _ = coefficients
+    dz, xhat = _dz_xhat(u, dy, coefficients)
+    du = a_coef * dz - a_coef * (totals[0] / n) - (a_coef * (totals[1] / n)) * xhat
+    if rows is not None:
+        valid = torch.zeros((1, h, 1, 1), dtype=torch.bool, device=x.device)
+        valid[:, rows[0]:rows[1]] = True
+        du = torch.where(valid, du, torch.zeros((), device=x.device))
     k = kernel.float().reshape(3, 3, c)
     g = F.pad(du, (0, 0, 1, 1, 1, 1))
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
@@ -281,7 +307,31 @@ def dw_bn_relu6_backward_reference(x, u, dy, kernel, gamma, beta, mean, var,
         for j in range(3):
             dx = dx + k[i, j] * g[:, 2 - i:2 - i + h, 2 - j:2 - j + w]
             dk.append((xp[:, i:i + h, j:j + w] * du).sum(dim=(0, 1, 2)))
-    return dx.to(x.dtype), torch.stack(dk).reshape(3, 3, 1, c), dgamma, dbeta
+    return dx.to(x.dtype), torch.stack(dk).reshape(3, 3, 1, c)
+
+
+def dw_bn_relu6_backward_reference(x, u, dy, kernel, gamma, beta, mean, var,
+                                   coefficients=None, group=None, rows=None):
+    """Plain PyTorch version of the kernels, with the same rounding points:
+    z in f32 by Flax's association, cast to the I/O dtype and compared there;
+    everything else f32; du zero outside the image (it is the correlation's
+    padding there) and outside ``rows``; dx rounded once.  Pass 1
+    (`chain_sums_reference`), then, under a ``group``, the split path's
+    all_reduce of the sums and the global pixel count, then pass 2
+    (`chain_apply_reference`).  Same arguments and results as
+    `dw_bn_relu6_backward`."""
+    batch, h, w, c = x.shape
+    lo, hi = rows or (0, h)
+    n = float(batch * (hi - lo) * w)
+    if coefficients is None:
+        coefficients = _coefficients(gamma, beta, mean, var)
+    sums = chain_sums_reference(u, dy, coefficients)
+    totals = sums
+    if group is not None:
+        totals = all_reduce_(sums.clone(), group)
+        n *= dist.get_world_size(group)
+    dx, dk = chain_apply_reference(x, u, dy, kernel, coefficients, totals, n, rows)
+    return dx, dk, sums[1], sums[0]
 
 
 def chain_applicable(h: int, w: int, c: int, kernel_size, strides, dilation,
@@ -311,11 +361,13 @@ def _stats(u32: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean, var
 
 
-def _forward_math(x, weight, gamma, beta, group=None):
+def _forward_math(x, weight, gamma, beta, group=None, window: bool = False):
     """(y, u, mean, var, coefficients): the coefficients (mean, inv, A,
-    beta) are the f32 tensors z was computed with."""
+    beta) are the f32 tensors z was computed with.  With ``window``, x is a
+    window with one halo row each side: u covers the window, y and the
+    statistics the rows between."""
     u = F.conv2d(x, weight, None, 1, 1, 1, x.shape[1])
-    u32 = u.float()
+    u32 = (u[:, :, 1:-1] if window else u).float()
     mean, var = _stats(u32, group)
     coefficients = _coefficients(gamma, beta, mean, var)
     mean32, _, a_coef, beta32 = coefficients
@@ -326,27 +378,32 @@ def _forward_math(x, weight, gamma, beta, group=None):
 
 class _DwBnRelu6Chain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, gamma, beta, group):
-        y, u, mean, var, coefficients = _forward_math(x, weight, gamma, beta, group)
+    def forward(ctx, x, weight, gamma, beta, group, window):
+        y, u, mean, var, coefficients = _forward_math(x, weight, gamma, beta, group, window)
         ctx.save_for_backward(x, u, weight, gamma, beta, mean, var, *coefficients)
         ctx.mark_non_differentiable(mean, var)
-        ctx.group = group
+        ctx.group, ctx.window = group, window
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, u, weight, gamma, beta, mean, var, *coefficients = ctx.saved_tensors
         counter = dw_bn_relu6_chain
+        dy = nhwc_view(dy, counter)
+        rows = None
+        if ctx.window:  # the window's rows: a zero row of dy at each end
+            dy, rows = F.pad(dy, (0, 0, 0, 0, 1, 1)), (1, dy.shape[1] + 1)
         dx, dk, dgamma, dbeta = dw_bn_relu6_backward(
-            nhwc_view(x, counter), nhwc_view(u, counter), nhwc_view(dy, counter),
+            nhwc_view(x, counter), nhwc_view(u, counter), dy,
             weight.permute(2, 3, 1, 0), gamma, beta, mean, var, tuple(coefficients),
-            ctx.group,
+            ctx.group, rows,
         )
         return (
             dx.permute(0, 3, 1, 2),
             _weight_grad(dk, weight),
             dgamma.to(gamma.dtype),
             dbeta.to(beta.dtype),
+            None,
             None,
         )
 
@@ -365,13 +422,16 @@ def dw_bn_relu6_chain(x, weight, gamma, beta):
         (y, batch_mean, batch_var).  The statistics are f32, not
         differentiable, and exist for the caller's running-average update.
         Inside a `parallel.mesh.data_parallel` scope they are those of the
-        global batch, and the backward takes the split path.
+        global batch, and the backward takes the split path; on split rows
+        the unit runs on this rank's window (module docstring).
     """
     if tuple(weight.shape) != (x.shape[1], 1, 3, 3):
         raise ValueError(
             f"weight has shape {tuple(weight.shape)}, expected ({x.shape[1]}, 1, 3, 3)"
         )
-    return _DwBnRelu6Chain.apply(x, weight, gamma, beta, active_group())
+    group = split_group(x)
+    x, padding = window_rows(x, 3, 1, 1)
+    return _DwBnRelu6Chain.apply(x, weight, gamma, beta, group, padding == (0, 0))
 
 
 dw_bn_relu6_chain.copies = 0

@@ -19,6 +19,16 @@ launches the kernel and whose CPU implementation is the plain twin
 ``fused_mbconv_reference``; a CUDA call the kernel cannot take raises.
 ``fused_mbconv.launches`` counts kernel launches, from a live call or from
 inside an exported program alike.
+
+On a mesh that splits the rows (`parallel/spatial.py`), `fused_mbconv_rows`
+runs the block on this rank's WINDOW: its own rows plus one real row of each
+neighbour at an inner edge and none past the global border.  The kernel pads
+the window's edges with zero *expanded* values, which is the SAME padding at
+the global border; at an inner edge it gets only the halo row's own output
+wrong, and that row is dropped.  So the kernel runs unchanged, at one row of
+extra work an inner edge, and x is never padded where the expanded tensor
+must be (a zero row of x expands to relu6(b_expand), not to 0).
+``fused_mbconv.window_launches`` counts the launches on windows.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ import ctypes
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ssdseglib_torch.parallel import spatial
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BN_EPSILON = 1e-3  # the blocks' BatchNorm epsilon (models/blocks.py)
@@ -115,6 +127,23 @@ def fused_mbconv(
 
 
 fused_mbconv.launches = 0
+fused_mbconv.window_launches = 0
+
+
+def fused_mbconv_rows(x: torch.Tensor, *args, residual: bool = True) -> torch.Tensor:
+    """`fused_mbconv` on the NCHW map ``x`` in the channels-last memory
+    format (its NHWC view is then free), returned as a channels-last NCHW
+    view; ``args`` are `fused_mbconv`'s weights.  On split rows the block
+    runs on this rank's window (`parallel.spatial.edge_window` with one row
+    each side) and the window's halo rows' outputs are dropped."""
+    window = spatial.edge_window(x, 1, 1)
+    if window is None:
+        return fused_mbconv(x.permute(0, 2, 3, 1).contiguous(), *args,
+                            residual=residual).permute(0, 3, 1, 2)
+    y = fused_mbconv(window.rows.permute(0, 2, 3, 1).contiguous(), *args, residual=residual)
+    if y.is_cuda:
+        fused_mbconv.window_launches += 1
+    return y[:, window.top:y.shape[1] - window.bottom].permute(0, 3, 1, 2)
 
 
 def _cuda_op(x, w1, b1, wd, b2, w3, b3, residual):

@@ -50,9 +50,21 @@ Only ``all_reduce`` is used (`parallel/mesh.py`): a halo goes through a zeroed
 (n, 2, k, ...) buffer, one slot per rank and edge, summed.  It runs on gloo
 with CUDA tensors, where several ranks share one card.
 
-The fused serving kernels and the depthwise and chain backward kernels pad
-SAME inside the kernel, which is wrong at a shard's inner edge: they raise
-NotImplementedError on a spatial mesh (`refuse`), never fall back.
+The hand-written kernels pad SAME inside the kernel, which is right at the
+global border and wrong at a shard's inner edge, so each runs on this rank's
+WINDOW of rows -- its own rows plus the halo rows its output reads, fetched
+from the neighbours -- and pads only at the global border:
+- the fused MBConv and the stem + block 1 kernels take `edge_window`'s
+  window, real rows at inner edges and none past the global border; the
+  MBConv kernel pads the window's edges itself and the rows it gets wrong
+  there are the halo rows' outputs, which are dropped; the stem kernel takes
+  the window's first global row and the global height (its row window mode);
+- the depthwise and chain backward kernels take `window_rows`' window of a
+  stride-1 3x3 conv (fill 0 past the global border) and the rank's own rows
+  of dy, padded by a zero row at each end; the chain's BatchNorm gradient
+  is confined to the own rows (its kernel's valid-row range);
+- the int8 1x1 needs no halo and runs on a shard's rows as they are.
+A map level that stays whole runs every kernel whole on every rank.
 
 Usage:
     mesh = spatial.make_hybrid_mesh(n_data=2, n_spatial=2, device=...)
@@ -64,7 +76,7 @@ Usage:
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,8 +90,6 @@ from ssdseglib_torch.parallel.mesh import BATCH_AXIS
 # the mesh axis that splits the rows (named in parallel/mesh.py, which checks
 # meshes)
 SPATIAL_AXIS = mesh_lib.SPATIAL_AXIS
-# what a route that cannot run on split rows names when it refuses
-ROADMAP_ITEM = "ROADMAP.md, Queue 1: kernels on a spatial mesh"
 
 
 def make_hybrid_mesh(n_data: int, n_spatial: int, group: Optional[dist.ProcessGroup] = None,
@@ -161,17 +171,6 @@ def shard_images(mesh: DeviceMesh, images, batch_is_local: bool = False):
     if not batch_is_local:
         images = mesh_lib.shard_batch(mesh, images)
     return shard_rows(mesh, images)
-
-
-def refuse(what: str) -> None:
-    """NotImplementedError naming ``what`` inside a scope whose rows are
-    split: a route that pads inside a kernel cannot run on a shard."""
-    groups = mesh_lib.active_groups()
-    if groups is not None and groups.spatial is not None:
-        raise NotImplementedError(
-            f"{what} is not available on a spatial mesh: its SAME padding is taken inside "
-            f"the kernel, which is wrong at a shard's inner edge ({ROADMAP_ITEM})"
-        )
 
 
 def same_pad(size: int, kernel: int, stride: int, dilation: int) -> Tuple[int, int]:
@@ -408,6 +407,72 @@ def window_rows(x: torch.Tensor, kernel: int, stride: int, dilation: int,
         return (r * h_out * stride - pad, ((r + 1) * h_out - 1) * stride - pad + effective)
 
     return _fetch_rows(x, partition, groups.spatial, need, fill), (0, 0)
+
+
+class Window(NamedTuple):
+    """A split map's window of rows (`edge_window`): ``rows`` (B, C, top +
+    h + bottom, W) holds global rows [first, first + top + h + bottom), of
+    which [own_first, own_first + h) are this rank's; ``height`` is the
+    map's global rows."""
+
+    rows: torch.Tensor
+    top: int
+    bottom: int
+    first: int
+    own_first: int
+    height: int
+
+
+def edge_window(x: torch.Tensor, before: int, after: int) -> Optional[Window]:
+    """The window of a kernel that pads SAME itself: for a split NCHW map
+    ``x`` (this rank's shard), global rows [start - before, stop + after)
+    clipped to the map -- real rows at inner edges, none past the global
+    border -- fetched from the neighbours (`_Halo`, whose backward returns
+    the halo rows' gradients to their owners).  None when ``x`` is whole or
+    outside a row partition."""
+    partition, groups = _partition()
+    rows = None if partition is None else partition.rows_of(x)
+    if rows is None:
+        return None
+    h = x.shape[2]
+
+    def need(r):
+        return max(r * h - before, 0), min((r + 1) * h + after, rows)
+
+    start, stop = need(partition.rank)
+    own = partition.rank * h
+    return Window(_fetch_rows(x, partition, groups.spatial, need, 0.0), own - start,
+                  stop - own - h, start, own, rows)
+
+
+def split_at(rows: int, cols: int) -> bool:
+    """Whether a map of ``rows`` x ``cols`` global rows and columns is split
+    under the active row partition (False outside one)."""
+    partition, _ = _partition()
+    return partition is not None and partition.is_split(rows, cols)
+
+
+def split_group(x: torch.Tensor):
+    """The group whose ranks hold ``x``'s samples and rows together, as a
+    batch statistic of ``x`` reduces: every rank of the mesh for a split map,
+    the data group for a whole one (its spatial copies are no samples); None
+    outside a `parallel.mesh.data_parallel` scope."""
+    groups = mesh_lib.active_groups()
+    if groups is None:
+        return None
+    split = groups.partition is not None and groups.partition.rows_of(x) is not None
+    return groups.whole if split else groups.data
+
+
+def own_rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of the GLOBAL NCHW map ``t`` when its level is split
+    (a constant of the global map, such as a bias map, met by split
+    compute), ``t`` itself otherwise."""
+    partition, _ = _partition()
+    if partition is None or not partition.is_split(t.shape[2], t.shape[3]):
+        return t
+    h = t.shape[2] // partition.n
+    return t[:, :, partition.rank * h:(partition.rank + 1) * h]
 
 
 def whole(x: torch.Tensor) -> torch.Tensor:

@@ -29,21 +29,46 @@ Gates:
   order, tests/test_torch_train.py, so the f32 gradients are held to that);
   the replicas' parameters bitwise equal; the running statistics within 1e-5
   of each tensor's largest magnitude (tests/test_torch_parallel.py).
-- must-miss: the serving case with the halo rows left at zero, and the step
-  with the mask losses' spatial sums skipped, miss those gates.
+- the hand-written kernels on row windows (their plain versions on the
+  CPU): fused serving (1x4 b1; 2x2 b4 with int8 pointwise convs; 1x4 with
+  ``s2d_stem='cuda'``) against one process's fused serving at the serving
+  gates above; the fused forward on 1x4 against the JAX package's
+  make_fused_forward (Pallas in interpret mode) on one device at
+  tests/test_torch_fused_inference.py's 2e-3; one f32 step on 2x2 with the
+  depthwise and with the chain backward gate 'cuda' (envelopes read at the
+  flagship's size) against one process with the same gate and against the
+  mesh's ATen route, at the step gates above; each windowed plain version
+  alone (no ranks) on a top, an inner and a bottom window against the same
+  plain version on the whole map's rows in f32: exact for the MBConv and
+  the stem (each output reads the same values in the same order), 2e-6 of
+  the largest magnitude for the depthwise and chain backward (dx at a
+  window's edge and dk sum the windows' parts in another order).
+- must-miss: the serving case with the halo rows left at zero, the fused
+  serving with the MBConv padding SAME at an inner edge or padding x where
+  the expanded tensor should be padded, the step with the mask losses'
+  spatial sums skipped, and the chain step with its statistics and sums
+  over the data group alone, miss those gates.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from ssdseglib_tpu.config import ModelConfig as JaxModelConfig
 from ssdseglib_tpu.models import MobileNetV2SsdSegBuilder as JaxBuilder
+from ssdseglib_tpu.models import fused_inference as jax_fused
 from ssdseglib_tpu.parallel import spatial as jax_spatial
 
 from ssdseglib_torch import parallel
 from ssdseglib_torch.config import ModelConfig
 from ssdseglib_torch.models.builder import SsdSegModel
+from ssdseglib_torch.ops import depthwise_backward as dwb
+from ssdseglib_torch.ops import fused_chain_backward as fcb
+from ssdseglib_torch.ops import fused_mbconv as fm
+from ssdseglib_torch.ops import s2d_stem
 from ssdseglib_torch.parallel import spatial
 from ssdseglib_torch.weights import to_flax_variables
 from tests import torch_dp_workers as W
@@ -62,6 +87,8 @@ MASK_GATE = dict(rtol=1e-4, atol=1e-5)
 DETECTION_GATE = dict(rtol=1e-3, atol=1e-4)
 F64_GATE = 1e-4
 F32_GRADIENT_GATE = 5e-2
+JAX_FUSED_GATE = 2e-3  # tests/test_torch_fused_inference.py's, the JAX package's own bound
+WINDOW_SUM_GATE = 2e-6  # of the largest magnitude: the windows' parts summed in another order
 
 
 def _jax_builder():
@@ -101,6 +128,17 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
+def jax_fused_outputs(inputs):
+    """The JAX package's fused forward (Pallas in interpret mode) of the same
+    weights on one device, f32, b1: run once for the file."""
+    cfg = JaxModelConfig(**W.MODEL)
+    forward = jax_fused.make_fused_forward(cfg, to_flax_variables(inputs["variables"]),
+                                           compute_dtype=jnp.float32, interpret=True)
+    out = forward(jnp.asarray(inputs["serve_images"][:1]))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
 def ranks(inputs, tmp_path_factory):
     directory = tmp_path_factory.mktemp("spatial_parallel")
     torch.save(inputs, directory / "inputs.pt")
@@ -111,9 +149,10 @@ def ranks(inputs, tmp_path_factory):
         started.stop()
 
 
-def test_serving_matches_the_jax_hybrid_mesh(inputs, ranks):
-    """Runs first, so that the JAX compile overlaps the ranks' work: the
-    port's 1x4 b1 serving on four ranks against the JAX package's own
+def test_serving_matches_the_jax_hybrid_mesh(inputs, ranks, jax_fused_outputs):
+    """Runs first, so that the JAX compiles (this test's and the fused
+    forward's, `jax_fused_outputs`) overlap the ranks' work: the port's 1x4
+    b1 serving on four ranks against the JAX package's own
     make_hybrid_mesh(1, 4) serving of the same weights."""
     mesh = jax_spatial.make_hybrid_mesh(1, 4, jax.devices()[:4])
     builder = _jax_builder()
@@ -273,9 +312,12 @@ def test_weight_gradient_route_runs_on_the_shards(ranks, single_step):
         assert worst[0] < F32_GRADIENT_GATE, worst
 
 
-def test_must_miss_variants_fail_the_gates(inputs, ranks, single_step):
-    """The serving case with the halo rows left at zero, and the step with
-    the mask losses' spatial sums skipped: both miss the parity gates."""
+def test_must_miss_variants_fail_the_gates(inputs, ranks, single_step, gated_steps):
+    """The serving case with the halo rows left at zero, the step with the
+    mask losses' spatial sums skipped, the fused serving with the MBConv
+    padding SAME at an inner edge or padding x where the expanded tensor
+    should be padded, and the chain step with its statistics and sums over
+    the data group alone: each misses the parity gates."""
     (_, single, images_), = [c for c in S.serving_cases(
         inputs["variables"], inputs["shufflenet"], inputs["serve_images"], lambda m: None)
         if c[0] == "2x2_b4_suppression"]
@@ -288,6 +330,16 @@ def test_must_miss_variants_fail_the_gates(inputs, ranks, single_step):
         assert not np.allclose(metrics["loss/mask"], want["metrics"]["loss/mask"],
                                **METRIC_GATE)
         assert _worst_relative_norm_error(grads, exact)[0] > 100 * F64_GATE
+    (_, fused, images_), = [c for c in S.fused_cases(
+        inputs["variables"], inputs["serve_images"], lambda m: None) if c[0] == "fused_1x4_b1"]
+    fused_mask, _ = fused.predict(images_)
+    chain_want = gated_steps["chain"]
+    for result in ranks.results():
+        for variant in ("mbconv_same_at_inner_edges", "mbconv_pad_x"):
+            got_mask, _ = result["fused"][variant]
+            assert not np.allclose(got_mask, fused_mask, **MASK_GATE), variant
+        with pytest.raises(AssertionError):
+            _assert_step_close(result["kernel_step"]["chain_data_group"], chain_want)
 
 
 def test_fit_routes_images_through_shard_images(inputs, ranks):
@@ -307,13 +359,204 @@ def test_fit_routes_images_through_shard_images(inputs, ranks):
             np.testing.assert_allclose(got["history"][k][0], v[0], err_msg=k, **METRIC_GATE)
 
 
-@pytest.mark.parametrize("route", ["fused_backbone", "s2d_stem", "depthwise_bwd", "chain_bwd"])
-def test_kernel_routes_refuse_a_spatial_mesh(ranks, route):
-    """The routes whose kernels pad SAME inside the kernel raise
-    NotImplementedError naming the ROADMAP item; none falls back."""
+def _rows_of_ranks(results, key, n=4):
+    """The ranks' row blocks of a raw forward's mask, in row order (1x4)."""
+    return np.concatenate([r["fused"][key]["output-mask"].numpy() for r in results[:n]], axis=1)
+
+
+@pytest.mark.parametrize("case", ["fused_1x4_b1", "fused_int8_2x2_b4", "s2d_stem_1x4_b1"])
+def test_kernels_on_windows_serve_as_one_process(inputs, ranks, case):
+    """The fused serving path on split rows, the kernels' plain versions on
+    the CPU: `predict` (and this rank's block from `__call__`) of the fused
+    model on 1x4 and of the int8 one on 2x2, and the raw outputs of
+    ``make_fused_forward(s2d_stem='cuda')`` on 1x4, against one process."""
+    results = ranks.results()
+    if case == "s2d_stem_1x4_b1":
+        want = S.raw_forward(inputs["variables"], None, inputs["serve_images"][:1], "cuda")
+        np.testing.assert_allclose(_rows_of_ranks(results, "raw_s2d"),
+                                   want["output-mask"].numpy(), **MASK_GATE)
+        for result in results:
+            for key in ("output-labels", "output-boxes"):
+                np.testing.assert_allclose(result["fused"]["raw_s2d"][key].numpy(),
+                                           want[key].numpy(), err_msg=key, **MASK_GATE)
+        return
+    (_, single, images_), = [c for c in S.fused_cases(
+        inputs["variables"], inputs["serve_images"], lambda m: None) if c[0] == case]
+    mask, det = single.predict(images_)
+    assert (det[..., 1] > 0).sum() >= 3
+    n_data, n_spatial = (2, 2) if "2x2" in case else (1, 4)
+    b = images_.shape[0] // n_data
+    for result in results:
+        got_mask, got_det = result["fused"][case]
+        np.testing.assert_allclose(got_mask, mask, **MASK_GATE)
+        np.testing.assert_allclose(got_det, det, **DETECTION_GATE)
+        assert result["fused"][case, "call"] == ((b, 96 // n_spatial, 128, 4), (b, 10, 6))
+
+
+def test_fused_forward_on_1x4_matches_the_jax_fused_forward(ranks, jax_fused_outputs):
+    """The slice against the JAX package: the port's fused forward on the 1x4
+    mesh (its kernels' plain versions on row windows) against the JAX
+    package's make_fused_forward on one device (Pallas in interpret mode)."""
+    results = ranks.results()
+    np.testing.assert_allclose(_rows_of_ranks(results, "raw"), jax_fused_outputs["output-mask"],
+                               rtol=JAX_FUSED_GATE, atol=JAX_FUSED_GATE)
+    for result in results:
+        for key in ("output-labels", "output-boxes"):
+            np.testing.assert_allclose(result["fused"]["raw"][key].numpy(),
+                                       jax_fused_outputs[key], rtol=JAX_FUSED_GATE,
+                                       atol=JAX_FUSED_GATE, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def gated_steps(inputs):
+    """One process's f32 step at b8 under each backward gate."""
+    images, targets = inputs["batch"]
+    out = {}
+    for route in ("depthwise", "chain"):
+        with S.backward_gate(route):
+            out[route] = W.one_step(None, inputs["variables"], images, targets,
+                                    batch_size=S.STEP_BATCH)
+    return out
+
+
+def _assert_step_close(got, want):
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(got["metrics"][k], v, err_msg=k, **METRIC_GATE)
+    worst = _worst_relative_norm_error(got["grads"], want["grads"])
+    assert worst[0] < F32_GRADIENT_GATE, worst
+    for k, v in want["batch_stats"].items():
+        scale = float(v.abs().max())
+        np.testing.assert_allclose(got["batch_stats"][k].numpy(), v.numpy(), rtol=0,
+                                   atol=1e-5 * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("route", ["depthwise", "chain"])
+def test_backward_kernels_on_windows_step_as_one_process(ranks, gated_steps, route):
+    """One f32 step on 2x2 with the route's gate 'cuda' (its kernel's plain
+    version on each rank's window of block0-depthwise): against one process
+    with the same gate and against the mesh's ATen route, at the step gates;
+    the replicas equal; the unit ran on windows (two halo rows)."""
+    results = ranks.results()
+    for result in results:
+        got = result["kernel_step"][route]
+        _assert_step_close(got, gated_steps[route])
+        _assert_step_close(got, result["step"]["f32"])
+        windows = result["kernel_step"][route, "windows"]
+        assert windows == [(S.STEP_BATCH // 2, 32, 48 // 2 + 2, 64)], windows
+    for result in results[1:]:
+        _assert_replicas_equal(results[0]["kernel_step"][route]["params"],
+                               result["kernel_step"][route]["params"])
+        _assert_replicas_equal(results[0]["kernel_step"][route]["batch_stats"],
+                               result["kernel_step"][route]["batch_stats"])
+
+
+def test_backward_envelopes_read_the_global_rows(ranks):
+    """On 1x4 at block0-depthwise's flagship map (32 channels at 240x320,
+    2.46 M values; a shard's 60 rows hold 614 k, under the envelopes' 1 M)
+    each backward route takes its unit on every rank: the envelope read the
+    global rows, as one process would."""
+    assert dwb.pallas_bwd_applicable(240, 320, 32, (3, 3), (1, 1), (1, 1))
+    assert not dwb.pallas_bwd_applicable(60, 320, 32, (3, 3), (1, 1), (1, 1))
+    assert not fcb.chain_applicable(60, 320, 32, (3, 3), (1, 1), (1, 1), 6.0)
     for result in ranks.results():
-        message = result["gates"][route]
-        assert message is not None and spatial.ROADMAP_ITEM in message, message
+        got = result["envelopes"]
+        assert got["depthwise"]["grad_fn"] == "_DepthwiseConv3x3FusedBwdBackward", got
+        assert got["chain"]["grad_fn"] == "_DwBnRelu6ChainBackward", got
+        for route in ("depthwise", "chain"):
+            assert got[route]["dx"] == got[route]["y"] == (1, 32, 60, 320), got
+
+
+def _windows(rows: int, n: int = 4):
+    """(rank, first, stop) of the top, an inner and the bottom shard of
+    ``rows`` split ``n`` ways."""
+    h = rows // n
+    return [(r, r * h, (r + 1) * h) for r in (0, 1, n - 1)]
+
+
+def _mbconv_windows(gen):
+    x = torch.randn(2, 24, 16, 8, generator=gen)
+    args = (torch.randn(8, 32, generator=gen) / 3, torch.randn(32, generator=gen) * 0.1,
+            torch.randn(9, 32, generator=gen) / 3, torch.randn(32, generator=gen) * 0.1,
+            torch.randn(32, 8, generator=gen) / 6, torch.randn(8, generator=gen) * 0.1)
+    whole = fm.fused_mbconv(x, *args)
+    for _, first, stop in _windows(24):
+        a, b = max(first - 1, 0), min(stop + 1, 24)
+        got = fm.fused_mbconv(x[:, a:b].contiguous(), *args)[:, first - a:first - a + stop - first]
+        yield got, whole[:, first:stop], 0.0
+
+
+def _stem_windows(gen):
+    folded = []
+    for w_shape, b_shape in s2d_stem._SHAPES:
+        folded += [torch.randn(*w_shape, generator=gen) * w_shape[0] ** -0.5,
+                   torch.randn(*b_shape, generator=gen) * 0.1]
+    images = torch.rand(2, 96, 32, 3, generator=gen) * 2.0 - 1.0
+    whole = s2d_stem.fused_stem_block1(images, folded)
+    for _, first, stop in _windows(96):
+        a, b = s2d_stem.window_rows_needed(96, first // 4, (stop - first) // 4)
+        b = min(b + 1, 96)  # the serving path's even window
+        got = s2d_stem.fused_stem_block1(images[:, a:b].contiguous(), folded,
+                                         window=(a, 96, first // 4, (stop - first) // 4))
+        yield got, whole[:, first // 4:stop // 4], 0.0
+
+
+def _backward_windows(gen, chain: bool):
+    """The depthwise (or chain) backward on each window of a 4-way split:
+    one fill row each side, dy padded by a zero row at each end (the chain:
+    u over the window, pass 1's sums summed over the windows as the mesh
+    sums them, du confined to the own rows).  The windows' dx added into the
+    map's rows (a halo row's share goes to its owner) against the map's dx
+    on the top, an inner and the bottom shard; their dk summed against the
+    map's."""
+    b, h, w, c = 2, 24, 16, 8
+    x = torch.randn(b, h, w, c, generator=gen)
+    dy = torch.randn(b, h, w, c, generator=gen)
+    k = torch.randn(3, 3, 1, c, generator=gen)
+    xp = F.pad(x, (0, 0, 0, 0, 1, 1))
+    rows = h // 4
+    windows = [(xp[:, r * rows:(r + 1) * rows + 2].contiguous(),
+                F.pad(dy[:, r * rows:(r + 1) * rows], (0, 0, 0, 0, 1, 1))) for r in range(4)]
+    if not chain:
+        want_dx, want_dk = dwb.depthwise3x3_backward(x, dy, k)
+        parts = [dwb.depthwise3x3_backward(xw, dyw, k) for xw, dyw in windows]
+    else:
+        gamma = torch.rand(c, generator=gen) + 0.5
+        beta = torch.rand(c, generator=gen)
+        weight = k.permute(3, 2, 0, 1)
+        _, u, mean, var, coef = fcb._forward_math(x.permute(0, 3, 1, 2), weight, gamma, beta)
+        want_dx, want_dk, _, _ = fcb.dw_bn_relu6_backward_reference(
+            x, u.permute(0, 2, 3, 1).contiguous(), dy, k, gamma, beta, mean, var, coef)
+        us = [F.conv2d(xw.permute(0, 3, 1, 2), weight, None, 1, 1, 1, c)
+              .permute(0, 2, 3, 1).contiguous() for xw, _ in windows]
+        totals = sum(fcb.chain_sums_reference(uw, dyw, coef)
+                     for uw, (_, dyw) in zip(us, windows))
+        parts = [fcb.chain_apply_reference(xw, uw, dyw, k, coef, totals, float(b * h * w),
+                                           rows=(1, rows + 1))
+                 for uw, (xw, dyw) in zip(us, windows)]
+    dx = torch.zeros(b, h + 2, w, c)
+    for r, (part, _) in enumerate(parts):
+        dx[:, r * rows:(r + 1) * rows + 2] += part
+    for _, first, stop in _windows(h):
+        yield dx[:, first + 1:stop + 1], want_dx[:, first:stop], WINDOW_SUM_GATE
+    yield sum(dk for _, dk in parts), want_dk, WINDOW_SUM_GATE
+
+
+@pytest.mark.parametrize("kernel", ["mbconv", "stem", "depthwise_backward", "chain_backward"])
+def test_windowed_plain_versions_match_the_whole_map(kernel):
+    """Each kernel's plain version in its row window mode, without ranks, on
+    the top, an inner and the bottom window of a 4-way split, against the
+    same plain version on the whole map's rows, f32."""
+    gen = torch.Generator().manual_seed(7)
+    cases = {"mbconv": _mbconv_windows, "stem": _stem_windows,
+             "depthwise_backward": lambda g: _backward_windows(g, chain=False),
+             "chain_backward": lambda g: _backward_windows(g, chain=True)}[kernel](gen)
+    for got, want, gate in cases:
+        assert got.shape == want.shape
+        if gate == 0.0:
+            assert torch.equal(got, want), float((got - want).abs().max())
+        else:
+            err = float((got - want).abs().max())
+            assert err <= gate * float(want.abs().max()), err
 
 
 def test_parallel_surface_is_the_jax_package_s():

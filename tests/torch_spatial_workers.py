@@ -12,6 +12,7 @@ meshes, runs every case of `CASES` and writes its results to
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 
@@ -27,6 +28,8 @@ from ssdseglib_torch.data.synthetic import generate_dataset
 from ssdseglib_torch.models import blocks
 from ssdseglib_torch.models.builder import ShuffleNetV2SsdSegBuilder, SsdSegModel
 from ssdseglib_torch.models.fused_inference import make_fused_forward
+from ssdseglib_torch.ops import depthwise_backward as dwb
+from ssdseglib_torch.ops import fused_chain_backward as fcb
 from ssdseglib_torch.parallel import mesh as mesh_lib
 from ssdseglib_torch.parallel import spatial
 from tests import torch_dp_workers as W
@@ -281,40 +284,170 @@ def case_fit(meshes, inputs, directory):
     return {"history": history, "seen": seen, "step": state.step}
 
 
-def case_gates(meshes, inputs, directory):
-    """Each kernel route that pads inside its kernel, on the 2x2 mesh: the
-    exception's type and message (None: it ran)."""
+def fused_cases(variables, images, mesh_of):
+    """(name, model, images) of the fused serving cases (the kernels' plain
+    versions on the CPU): 1x4 at b1 without the suppression, and 2x2 at b4
+    with it and int8 pointwise convs calibrated on the batch; ``mesh_of``
+    as in `serving_cases`."""
+    return (("fused_1x4_b1", _serve(variables, mesh_of("1x4"), fused_backbone=True,
+                                    **SERVE_NO_SUPPRESSION), images[:1]),
+            ("fused_int8_2x2_b4", _serve(variables, mesh_of("2x2"), fused_backbone=True,
+                                         quantize_pointwise=True, calibration_images=images),
+             images))
+
+
+def raw_forward(variables, mesh, images, s2d_stem=False) -> dict:
+    """`make_fused_forward`'s f32 outputs on ``images`` (the global batch):
+    inside the mesh's scope on this rank's block of them, the mask's rows
+    this rank's and the heads' outputs whole."""
+    forward = make_fused_forward(ModelConfig(**W.MODEL), variables, torch.float32,
+                                 device="cpu", s2d_stem=s2d_stem)
+    if mesh is None:
+        return forward(torch.as_tensor(images))
+    with mesh_lib.data_parallel(mesh):
+        return forward(spatial.shard_images(mesh, images))
+
+
+def _mbconv_windows(variant):
+    """`spatial.edge_window` with the MBConv's window (one row each side)
+    replaced by a must-miss variant: 'same_at_inner_edges', the rank's own
+    rows alone, so that the kernel pads SAME at an inner edge; 'pad_x', a
+    zero row of x past the global border, so that the zero padding falls on
+    x where the expanded tensor should be padded."""
+    real = spatial.edge_window
+
+    def window(x, before, after):
+        got = real(x, before, after)
+        if got is None or (before, after) != (1, 1):
+            return got
+        if variant == "same_at_inner_edges":
+            return spatial.Window(x, 0, 0, got.own_first, got.own_first, got.height)
+        rows, _ = spatial.window_rows(x, 3, 1, 1)
+        return spatial.Window(rows, 1, 1, got.own_first - 1, got.own_first, got.height)
+
+    return window
+
+
+def case_fused(meshes, inputs, directory):
+    """The fused serving cases' `predict` and `__call__` shapes, the raw
+    outputs of the fused forward on 1x4 (default and ``s2d_stem='cuda'``),
+    and the first case under the MBConv window's must-miss variants."""
+    variables, images = inputs["variables"], inputs["serve_images"]
+    out = {}
+    for name, infer, batch in fused_cases(variables, images, meshes.get):
+        out[name] = infer.predict(batch)
+        out[name, "call"] = tuple(tuple(t.shape) for t in infer(batch))
+    for name, s2d in (("raw", False), ("raw_s2d", "cuda")):
+        out[name] = raw_forward(variables, meshes["1x4"], images[:1], s2d)
+    real = spatial.edge_window
+    for variant in ("same_at_inner_edges", "pad_x"):
+        spatial.edge_window = _mbconv_windows(variant)
+        try:
+            _, infer, batch = fused_cases(variables, images, meshes.get)[0]
+            out["mbconv_" + variant] = infer.predict(batch)
+        finally:
+            spatial.edge_window = real
+    return out
+
+
+@contextlib.contextmanager
+def flagship_envelopes():
+    """The depthwise and chain backward routes' envelopes read at the
+    flagship's size: the reduced model's 96x128 input is 480x640 over 5 each
+    way, so its maps are held to the envelope at 5x their rows and
+    columns (block0-depthwise: 32 channels at 48x64 -> 240x320)."""
+    dw, chain = dwb.pallas_bwd_applicable, fcb.chain_applicable
+    dwb.pallas_bwd_applicable = lambda h, w, *rest: dw(5 * h, 5 * w, *rest)
+    fcb.chain_applicable = lambda h, w, *rest: chain(5 * h, 5 * w, *rest)
+    try:
+        yield
+    finally:
+        dwb.pallas_bwd_applicable, fcb.chain_applicable = dw, chain
+
+
+@contextlib.contextmanager
+def backward_gate(route: str):
+    """``set_depthwise_bwd_impl('cuda')`` or ``set_chain_bwd_impl('cuda')``
+    (``route``: 'depthwise' or 'chain') under `flagship_envelopes`.  With
+    both gates on, the chain takes the one layer inside both envelopes
+    (block0-depthwise), so each gate is stepped alone."""
+    gate = {"depthwise": blocks.set_depthwise_bwd_impl,
+            "chain": blocks.set_chain_bwd_impl}[route]
+    with flagship_envelopes():
+        gate("cuda")
+        try:
+            yield
+        finally:
+            gate("aten")
+
+
+def case_kernel_step(meshes, inputs, directory):
+    """One f32 step on 2x2 with each backward kernel's gate (the kernels'
+    plain versions), the windows each unit ran on, and the must-miss variant
+    of the chain: its statistics and sums over the data group alone."""
     mesh = meshes["2x2"]
     images, targets = inputs["batch"]
-    variables = inputs["variables"]
-
-    def fused_serving():
-        _serve(variables, mesh, fused_backbone=True)
-
-    def s2d_stem():
-        forward = make_fused_forward(ModelConfig(**W.MODEL), variables, torch.float32,
-                                     device="cpu", s2d_stem="cuda")
-        with mesh_lib.data_parallel(mesh):
-            forward(spatial.shard_images(mesh, images[:2]))
-
-    def backward_gate(gate):
-        def step():
-            gate("cuda")
-            try:
-                W.one_step(mesh, variables, images, targets, batch_size=STEP_BATCH)
-            finally:
-                gate("aten")
-        return step
-
     out = {}
-    for name, call in (("fused_backbone", fused_serving), ("s2d_stem", s2d_stem),
-                       ("depthwise_bwd", backward_gate(blocks.set_depthwise_bwd_impl)),
-                       ("chain_bwd", backward_gate(blocks.set_chain_bwd_impl))):
+    for route, unit in (("depthwise", dwb._DepthwiseConv3x3FusedBwd),
+                        ("chain", fcb._DwBnRelu6Chain)):
+        shapes, real = [], unit.apply
+
+        def spy(*args, real=real, shapes=shapes):
+            shapes.append(tuple(args[0].shape))
+            return real(*args)
+
+        unit.apply = spy
         try:
-            call()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
+            with backward_gate(route):
+                out[route] = W.one_step(mesh, inputs["variables"], images, targets,
+                                        batch_size=STEP_BATCH)
+        finally:
+            unit.apply = real
+        out[route, "windows"] = shapes
+    real_group = fcb.split_group
+    fcb.split_group = lambda x: mesh_lib.active_groups().data
+    try:
+        with backward_gate("chain"):
+            out["chain_data_group"] = W.one_step(mesh, inputs["variables"], images, targets,
+                                                 batch_size=STEP_BATCH)
+    finally:
+        fcb.split_group = real_group
+    return out
+
+
+# (f): block0-depthwise's map at 480x640 (32 channels at 240x320, 2.46 M
+# values) on the 1x4 mesh: a shard holds 60 rows, 614 k values, under the
+# envelope's 1 M
+ENVELOPE_MAP = (1, 32, 240, 320)
+
+
+def case_envelopes(meshes, inputs, directory):
+    """Each backward route's unit on a shard of ENVELOPE_MAP under the real
+    envelope, on 1x4: the grad_fn of its output (the unit's, when the
+    envelope read the global rows) and the input gradient's shape."""
+    mesh = meshes["1x4"]
+    rank = dist.get_rank(mesh.get_group(mesh_lib.SPATIAL_AXIS))
+    b, c, h, w = ENVELOPE_MAP
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(b, c, h // 4, w))
+                         ).float().contiguous(memory_format=torch.channels_last)
+    torch.manual_seed(0)
+    layers = {"depthwise": blocks.SameConv2d(c, c, 3, groups=c),
+              "chain": blocks.DepthwiseConvBN(c, relu_max=6.0).train()}
+    out = {}
+    partition = spatial.RowPartition(h, w, 4, rank)
+    for route, layer in layers.items():
+        gate = {"depthwise": blocks.set_depthwise_bwd_impl,
+                "chain": blocks.set_chain_bwd_impl}[route]
+        gate("cuda")
+        try:
+            with mesh_lib.data_parallel(mesh), mesh_lib.partitioned(partition):
+                xr = x.clone().requires_grad_()
+                y = (blocks.depthwise_conv(layer, xr) if route == "depthwise" else layer(xr))
+                (dx,) = torch.autograd.grad(y.sum(), xr)
+        finally:
+            gate("aten")
+        out[route] = {"grad_fn": type(y.grad_fn).__name__, "dx": tuple(dx.shape),
+                      "y": tuple(y.shape)}
     return out
 
 
@@ -324,7 +457,9 @@ CASES = {
     "serving": case_serving,
     "step": case_step,
     "fit": case_fit,
-    "gates": case_gates,
+    "fused": case_fused,
+    "kernel_step": case_kernel_step,
+    "envelopes": case_envelopes,
 }
 
 
