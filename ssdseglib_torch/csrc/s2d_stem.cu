@@ -71,19 +71,8 @@
 // (163 KB), 384 threads, one output channel a thread per stage, the products
 // as scalar FMAs.
 //
-// Row window mode (a mesh that splits the image rows over its ranks): the
-// kernel computes output rows [o0, o0 + ho) of an image of H global rows
-// from x holding only global rows [row0, row0 + hm) of it.  Every "outside
-// the image" test above is taken against the GLOBAL height, so the SAME
-// padding of the image and of e, p and e2 falls at the global border only;
-// x is read at row gy - row0.  The window must hold every image row in
-// [0, H) that the output rows read, [4 o0 - 2, 4 (o0 + ho) + 5): a row
-// outside it reads as 0, which only output rows outside [o0, o0 + ho) can
-// see, and those are not written.  The whole image is row0 = 0, hm = H,
-// o0 = 0, ho = H / 4.
-//
-// Layout: x (B, hm, W, 3) and out (B, ho, W/4, 24) NHWC contiguous, H and W
-// multiples of 4 (in bf16, hm * W * 3 a multiple of 8); w1 (27, 32) with rows ordered (dy, dx, cin); wd1 (9, 32) and
+// Layout: x (B, H, W, 3) and out (B, H/4, W/4, 24) NHWC contiguous, H and W
+// multiples of 4; w1 (27, 32) with rows ordered (dy, dx, cin); wd1 (9, 32) and
 // wd2 (9, 96) taps row-major; wp1 (32, 16), w2 (16, 96), wp2 (96, 24); biases
 // (C,); all in the I/O dtype (float32 or bfloat16), 16-byte aligned in bf16.
 
@@ -206,28 +195,27 @@ stem_block1_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* _
                    const T* __restrict__ w2, const T* __restrict__ b2,
                    const T* __restrict__ wd2, const T* __restrict__ bd2,
                    const T* __restrict__ wp2, const T* __restrict__ bp2, T* __restrict__ out,
-                   int H, int W, int row0, int hm, int o0, int ho) {
+                   int H, int W) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* bx = reinterpret_cast<T*>(smem);  // image, then d, then e2
   T* by = bx + kBufX;                  // e, then p, then d2
 
   const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
   const int tiles_w = (W4 + kTW - 1) / kTW;
-  const int oy0 = o0 + (blockIdx.x / tiles_w) * kTO, ox0 = (blockIdx.x % tiles_w) * kTW;
+  const int oy0 = (blockIdx.x / tiles_w) * kTO, ox0 = (blockIdx.x % tiles_w) * kTW;
   const int r0 = 2 * oy0, c0 = 2 * ox0;  // origin of the d / p / e2 tile at H/2 x W/2
   const size_t image = blockIdx.y;
   const int tid = threadIdx.x;
 
   // 0. the image on the tile + halo, origin (2 r0 - 2, 2 c0 - 2), zero outside.
   {
-    const T* src = x + image * hm * W * kC0;
+    const T* src = x + image * H * W * kC0;
     for (int i = tid; i < kIH * kIW * kC0; i += kThreads) {
       const int pix = i / kC0, ch = i - pix * kC0;
       const int ly = pix / kIW, lx = pix - ly * kIW;
-      const int gy = 2 * r0 - 2 + ly, gx = 2 * c0 - 2 + lx, my = gy - row0;
+      const int gy = 2 * r0 - 2 + ly, gx = 2 * c0 - 2 + lx;
       T v = from_f<T>(0.0f);
-      if (gy >= 0 && gy < H && my >= 0 && my < hm && gx >= 0 && gx < W)
-        v = src[(size_t(my) * W + gx) * kC0 + ch];
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = src[(size_t(gy) * W + gx) * kC0 + ch];
       bx[i] = v;
     }
   }
@@ -304,31 +292,30 @@ stem_block1_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* _
       }
     }
     const float b = to_f<T>(bp2[o]);
-    T* dst = out + image * ho * W4 * kC4;
+    T* dst = out + image * H4 * W4 * kC4;
     const int oy = oy0 + pos0 / kTW;
 #pragma unroll
     for (int j = 0; j < kPix; ++j) {
       const int ox = ox0 + pos0 % kTW + j;
-      if (oy < o0 + ho && oy < H4 && ox < W4)
-        dst[(size_t(oy - o0) * W4 + ox) * kC4 + o] = from_f<T>(acc[j] + b);
+      if (oy < H4 && ox < W4) dst[(size_t(oy) * W4 + ox) * kC4 + o] = from_f<T>(acc[j] + b);
     }
   }
 }
 
 
-cudaError_t launch_f32(const void* const* p, void* out, int B, int H, int W, int row0, int hm,
-                       int o0, int ho, cudaStream_t stream) {
+cudaError_t launch_f32(const void* const* p, void* out, int B, int H, int W,
+                       cudaStream_t stream) {
   const size_t smem = size_t(kBufX + kBufY) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       stem_block1_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   if (B > 65535) return cudaErrorInvalidValue;  // gridDim.y limit
-  const int W4 = W / 4;
-  const dim3 grid(((ho + kTO - 1) / kTO) * ((W4 + kTW - 1) / kTW), B);
+  const int H4 = H / 4, W4 = W / 4;
+  const dim3 grid(((H4 + kTO - 1) / kTO) * ((W4 + kTW - 1) / kTW), B);
   auto a = [&](int i) { return static_cast<const float*>(p[i]); };
   stem_block1_kernel<float><<<grid, kThreads, smem, stream>>>(
       a(0), a(1), a(2), a(3), a(4), a(5), a(6), a(7), a(8), a(9), a(10), a(11), a(12),
-      static_cast<float*>(out), H, W, row0, hm, o0, ho);
+      static_cast<float*>(out), H, W);
   return cudaGetLastError();
 }
 
@@ -374,8 +361,7 @@ constexpr StemConfig kStemConfig = {15, 16, 48, 16};
 
 // Everything the bf16 kernel derives from (shape, config).  Built on the host.
 struct StemGeo {
-  int H, W, H2, W2, H4, W4;  // of the global image
-  int row0, hm, o0, ho;      // the row window (the whole image: 0, H, 0, H4)
+  int H, W, H2, W2, H4, W4;
   int to, tw, ec, chunks, warps;
   int tiles_w, tiles_h;
   int ih, iw, is;  // image tile rows, columns (pixels) and row stride (elements)
@@ -391,7 +377,6 @@ bool make_stem_geo(int H, int W, StemConfig c, int smem_max, StemGeo* g) {
       (c.warps != 4 && c.warps != 8 && c.warps != 16))
     return false;
   g->H = H, g->W = W, g->H2 = H / 2, g->W2 = W / 2, g->H4 = H / 4, g->W4 = W / 4;
-  g->row0 = 0, g->hm = H, g->o0 = 0, g->ho = g->H4;
   g->to = c.to, g->tw = c.tw, g->ec = c.ec, g->chunks = kC3 / c.ec;
   g->warps = c.warps;
   g->tiles_w = (g->W4 + c.tw - 1) / c.tw;
@@ -480,8 +465,7 @@ stem_block1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const unsigned short* im16 = reinterpret_cast<const unsigned short*>(img);
   const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.0f, 0.0f);
 
-  const int oy0 = g.o0 + (blockIdx.x / g.tiles_w) * g.to;
-  const int ox0 = (blockIdx.x % g.tiles_w) * g.tw;
+  const int oy0 = (blockIdx.x / g.tiles_w) * g.to, ox0 = (blockIdx.x % g.tiles_w) * g.tw;
   const int r0 = 2 * oy0, c0 = 2 * ox0;  // origin of the d / p / e2 tile at H/2 x W/2
   const size_t image = blockIdx.y;
 
@@ -500,21 +484,19 @@ stem_block1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   stage_matrix(ws + kOffB2, kC3, b2, 1, kC3);
   stage_matrix(ws + kOffBd2, kC3, bd2, 1, kC3);
   stage_matrix(ws + kOffBp2, kC4, bp2, 1, kC4);
-  // x holds global rows [row0, row0 + hm): row gy at my = gy - row0
   const int gy0 = 4 * oy0 - 2, gx0 = 4 * ox0 - 2;
-  const long long plane = (long long)g.hm * g.W * kC0;
+  const long long plane = (long long)g.H * g.W * kC0;
   const bf16* src = x + image * plane;
   const int w3 = (g.W * kC0) & 7;  // 0 or 4: how the shift moves from row to row
-  const int s0 = int(((long long)(gy0 - g.row0) * g.W + gx0) * kC0 & 7);
+  const int s0 = int(((long long)gy0 * g.W + gx0) * kC0 & 7);
   {
     const int vpr = g.is / 8;
     for (int v = tid; v < g.ih * vpr; v += nthreads) {
       const int l = v / vpr, j = v - l * vpr;
-      const int gy = gy0 + l, my = gy - g.row0;
-      const long long e0 = ((long long)my * g.W + gx0) * kC0;
+      const int gy = gy0 + l;
+      const long long e0 = ((long long)gy * g.W + gx0) * kC0;
       const long long a = e0 - (e0 & 7) + 8 * j;
-      const bool inside =
-          gy >= 0 && gy < g.H && my >= 0 && my < g.hm && a >= 0 && a + 8 <= plane;
+      const bool inside = gy >= 0 && gy < g.H && a >= 0 && a + 8 <= plane;
       cp_async16(img + l * g.is + 8 * j, inside ? src + a : src, inside);
     }
   }
@@ -833,12 +815,12 @@ stem_block1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   }
   __syncthreads();
   // ... then 16-byte stores
-  bf16* dst = out + image * g.ho * g.W4 * kC4;
+  bf16* dst = out + image * g.H4 * g.W4 * kC4;
   for (int v = tid; v < g.nt * (kC4 / 8); v += nthreads) {
     const int p = v / (kC4 / 8), cv = v - p * (kC4 / 8);
     const int oy = oy0 + p / g.tw, ox = ox0 + p % g.tw;
-    if (oy < g.o0 + g.ho && oy < g.H4 && ox < g.W4)
-      *reinterpret_cast<uint4*>(dst + (size_t(oy - g.o0) * g.W4 + ox) * kC4 + cv * 8) =
+    if (oy < g.H4 && ox < g.W4)
+      *reinterpret_cast<uint4*>(dst + (size_t(oy) * g.W4 + ox) * kC4 + cv * 8) =
           *reinterpret_cast<const uint4*>(os + p * kC4 + cv * 8);
   }
 }
@@ -877,14 +859,11 @@ cudaError_t launch_bf16_mtw(const void* const* p, void* out, int B, const StemGe
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16(const void* const* p, void* out, int B, int H, int W, int row0, int hm,
-                        int o0, int ho, int to, int tw, int ec, int warps,
-                        cudaStream_t stream) {
+cudaError_t launch_bf16(const void* const* p, void* out, int B, int H, int W, int to, int tw,
+                        int ec, int warps, cudaStream_t stream) {
   StemGeo g;
   cudaError_t err = stem_geo(H, W, to, tw, ec, warps, &g);
   if (err != cudaSuccess) return err;
-  g.row0 = row0, g.hm = hm, g.o0 = o0, g.ho = ho;
-  g.tiles_h = (ho + g.to - 1) / g.to;
   if (B > 65535) return cudaErrorInvalidValue;  // gridDim.y limit
   switch ((g.mt + g.warps - 1) / g.warps) {  // the output tile's m-tiles a warp owns
     case 1: return launch_bf16_mtw<1>(p, out, B, g, stream);
@@ -897,32 +876,21 @@ cudaError_t launch_bf16(const void* const* p, void* out, int B, int H, int W, in
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  H, W: the global image; row0, hm: the
-// global rows x holds; o0, ho: the output rows at H/4 to compute (the row
-// window mode above).  to, tw, ec, warps: the bf16 kernel's output tile,
-// chunk of block 1's channels and warps, 0 for the built-in choice (ignored
-// in f32).  Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  to, tw, ec, warps: the bf16 kernel's
+// output tile, chunk of block 1's channels and warps, 0 for the built-in
+// choice (ignored in f32).  Returns a cudaError_t (0 on success).
 extern "C" int stem_block1_launch(int dtype, const void* x, const void* w1, const void* b1,
                                   const void* wd1, const void* bd1, const void* wp1,
                                   const void* bp1, const void* w2, const void* b2,
                                   const void* wd2, const void* bd2, const void* wp2,
-                                  const void* bp2, void* out, int B, int H, int W, int row0,
-                                  int hm, int o0, int ho, int to, int tw, int ec, int warps,
-                                  void* stream) {
+                                  const void* bp2, void* out, int B, int H, int W, int to,
+                                  int tw, int ec, int warps, void* stream) {
   if (B < 1 || H < 4 || W < 4 || H % 4 != 0 || W % 4 != 0)
     return cudaErrorInvalidValue;  // the stride-2 padding rule
-  // the window lies in the image and holds every row the output rows read
-  const int need0 = 4 * o0 - 2 > 0 ? 4 * o0 - 2 : 0;
-  const int need1 = 4 * (o0 + ho) + 5 < H ? 4 * (o0 + ho) + 5 : H;
-  if (row0 < 0 || hm < 1 || row0 + hm > H || o0 < 0 || ho < 1 || o0 + ho > H / 4 ||
-      need0 < row0 || need1 > row0 + hm)
-    return cudaErrorInvalidValue;
-  if (dtype == 1 && (long long)hm * W * kC0 % 8 != 0)
-    return cudaErrorInvalidValue;  // 16-byte image planes
   const void* p[13] = {x, w1, b1, wd1, bd1, wp1, bp1, w2, b2, wd2, bd2, wp2, bp2};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(p, out, B, H, W, row0, hm, o0, ho, s);
-  if (dtype == 1) return launch_bf16(p, out, B, H, W, row0, hm, o0, ho, to, tw, ec, warps, s);
+  if (dtype == 0) return launch_f32(p, out, B, H, W, s);
+  if (dtype == 1) return launch_bf16(p, out, B, H, W, to, tw, ec, warps, s);
   return cudaErrorInvalidValue;
 }
 

@@ -274,29 +274,31 @@ def _s2d_stem_applicable(x: torch.Tensor) -> bool:
     return rows % 4 == 0 and cols % 4 == 0
 
 
-# image rows above and below a shard's own that the stem + block 1 kernel
-# reads: block 1's output row r reads the stem's rows 2r - 1 .. 2r + 3, which
-# read image rows 4r - 2 .. 4r + 8; one more below keeps the window's rows
-# even (its 16-byte rows in bf16)
-STEM_HALO = (2, 6)
+# image rows above and below a shard's own that its window holds for the
+# stem + block 1 kernel: block 1's output row r reads the stem's rows
+# 2r - 1 .. 2r + 3, which read image rows 4r - 2 .. 4r + 8.  The kernel pads
+# the window's edges itself, so the output rows next to an inner edge are
+# wrong and dropped: STEM_HALO[i] / 4 of them, which leaves every own row
+# reading real rows only.  Multiples of 4 keep the window's rows a multiple
+# of 4, as the kernel's two stride-2 convs need.
+STEM_HALO = (4, 8)
 
 
 def _stem_block1(x: torch.Tensor, args) -> torch.Tensor:
     """Stem + block 1 on the NCHW channels-last image ``x``: the kernel on
     the NHWC view (a copy that view needs is counted on
-    ``mobilenetv2_features_fused.copies``), on split rows on this rank's
-    window of image rows (`STEM_HALO`; the kernel's row window mode), the
-    whole image on every rank where block 1's output level is whole."""
+    ``mobilenetv2_features_fused.copies``); on split rows on this rank's
+    window of image rows (`STEM_HALO`), the window's halo outputs dropped;
+    the whole image on every rank where block 1's output level is whole."""
     rows, cols = spatial.global_size(x)
     if not spatial.split_at(-(-rows // 4), -(-cols // 4)):
         x = spatial.whole(x)
     window = spatial.edge_window(x, *STEM_HALO)
     if window is not None:
-        images = window.rows.permute(0, 2, 3, 1).contiguous()
-        y = fused_stem_block1(images, args, window=(window.first, window.height,
-                                                    window.own_first // 4,
-                                                    x.shape[2] // 4))
-        return y.permute(0, 3, 1, 2)
+        launched = fused_stem_block1.launches
+        y = fused_stem_block1(window.rows.permute(0, 2, 3, 1).contiguous(), args)
+        fused_stem_block1.window_launches += fused_stem_block1.launches - launched
+        return y[:, window.top // 4:y.shape[1] - window.bottom // 4].permute(0, 3, 1, 2)
     nhwc = x.permute(0, 2, 3, 1)
     if not nhwc.is_contiguous():
         mobilenetv2_features_fused.copies += 1

@@ -175,10 +175,10 @@ def load_library() -> ctypes.CDLL:
     # (iou, valid, threshold, keep, rows, K, max_keep, stream)
     lib.nms_scan_launch.argtypes = [ptr] * 4 + [ctypes.c_int] * 3 + [ptr]
     lib.nms_scan_launch.restype = ctypes.c_int
-    # (dtype, images, six (weight, bias) pairs, out, B, H, W, row0, hm, o0, ho,
-    #  to, tw, ec, warps, stream)
+    # (dtype, images, six (weight, bias) pairs, out, B, H, W, to, tw, ec, warps,
+    #  stream)
     lib.stem_block1_launch.argtypes = (
-        [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 11 + [ptr]
+        [ctypes.c_int] + [ptr] * 14 + [ctypes.c_int] * 7 + [ptr]
     )
     lib.stem_block1_launch.restype = ctypes.c_int
     # (H, W, *to, *tw, *ec, *warps, *smem)

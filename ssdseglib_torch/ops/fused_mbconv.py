@@ -28,7 +28,8 @@ the global border; at an inner edge it gets only the halo row's own output
 wrong, and that row is dropped.  So the kernel runs unchanged, at one row of
 extra work an inner edge, and x is never padded where the expanded tensor
 must be (a zero row of x expands to relu6(b_expand), not to 0).
-``fused_mbconv.window_launches`` counts the launches on windows.
+``fused_mbconv.window_launches`` counts those kernel launches (of
+``fused_mbconv.launches``) that ran on windows.
 """
 
 from __future__ import annotations
@@ -140,9 +141,9 @@ def fused_mbconv_rows(x: torch.Tensor, *args, residual: bool = True) -> torch.Te
     if window is None:
         return fused_mbconv(x.permute(0, 2, 3, 1).contiguous(), *args,
                             residual=residual).permute(0, 3, 1, 2)
+    launched = fused_mbconv.launches
     y = fused_mbconv(window.rows.permute(0, 2, 3, 1).contiguous(), *args, residual=residual)
-    if y.is_cuda:
-        fused_mbconv.window_launches += 1
+    fused_mbconv.window_launches += fused_mbconv.launches - launched
     return y[:, window.top:y.shape[1] - window.bottom].permute(0, 3, 1, 2)
 
 

@@ -23,20 +23,14 @@ the kernel and whose CPU implementation is the plain version
 ``fused_stem_block1_reference``; a CUDA call the kernel cannot take raises.
 ``fused_stem_block1.launches`` counts kernel launches, live or from inside
 an exported program.  `kernel_config` reports the bf16 kernel's tile and chunk.
-
-Row window mode (a mesh that splits the rows, `parallel/spatial.py`): given
-``window = (row0, height, out_row0, out_rows)`` the images hold global rows
-[row0, row0 + H) of an image of ``height`` rows, and the call returns block
-1's output rows [out_row0, out_row0 + out_rows).  The stem's and block 1's
-SAME padding -- of the image, and of the stem's output, which block 1's
-depthwise pads with zeros -- falls at the global border only; the window
-must hold every image row the output rows read (`window_rows_needed`).
-``fused_stem_block1.window_launches`` counts the launches in this mode.
+On a mesh that splits the rows the serving path runs the kernel unchanged on
+this rank's window of image rows (`models/fused_inference._stem_block1`) and
+counts those of its launches on ``fused_stem_block1.window_launches``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Mapping, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,40 +65,13 @@ def stem_block1_args(
     return tuple(args)
 
 
-def window_rows_needed(height: int, out_row0: int, out_rows: int) -> Tuple[int, int]:
-    """The global image rows [first, stop) that block 1's output rows
-    [out_row0, out_row0 + out_rows) read through the stem and block 1 (its
-    row r reads image rows 4r - 2 .. 4r + 4), within an image of ``height``
-    rows."""
-    return max(4 * out_row0 - 2, 0), min(4 * (out_row0 + out_rows) + 5, height)
-
-
-def _whole(images: torch.Tensor, window: Sequence[int]) -> Tuple[int, int, int, int]:
-    """(row0, height, out_row0, out_rows) of a call: ``window`` itself, or the
-    whole image when it is empty."""
-    if len(window) == 0:
-        return 0, images.shape[1], 0, images.shape[1] // 4
-    if len(window) != 4:
-        raise ValueError(f"window is (row0, height, out_row0, out_rows), got {tuple(window)}")
-    return tuple(int(v) for v in window)
-
-
-def _check(images: torch.Tensor, folded: Sequence[torch.Tensor],
-           window: Sequence[int] = ()) -> None:
+def _check(images: torch.Tensor, folded: Sequence[torch.Tensor]) -> None:
     if images.dim() != 4 or images.shape[-1] != 3:
         raise ValueError(f"images must be (B, H, W, 3), got shape {tuple(images.shape)}")
-    row0, height, out_row0, out_rows = _whole(images, window)
-    if height % 4 != 0 or images.shape[2] % 4 != 0 or height < 4 or images.shape[2] < 4:
+    if images.shape[1] % 4 != 0 or images.shape[2] % 4 != 0 or images.shape[1] < 4 \
+            or images.shape[2] < 4:
         raise ValueError(
-            f"H and W must be positive multiples of 4, got {(height, images.shape[2])}"
-        )
-    first, stop = window_rows_needed(height, out_row0, out_rows)
-    if (row0 < 0 or row0 + images.shape[1] > height or out_row0 < 0 or out_rows < 1
-            or out_row0 + out_rows > height // 4 or first < row0
-            or stop > row0 + images.shape[1]):
-        raise ValueError(
-            f"window {tuple(window)} of images with {images.shape[1]} rows does not hold "
-            f"the image rows [{first}, {stop}) that its output rows read"
+            f"H and W must be positive multiples of 4, got {tuple(images.shape[1:3])}"
         )
     if images.dtype not in _DTYPE_CODES:
         raise ValueError(f"dtype {images.dtype} is not supported (float32, bfloat16)")
@@ -126,8 +93,7 @@ def _check(images: torch.Tensor, folded: Sequence[torch.Tensor],
             raise ValueError(f"{name} must be contiguous")
 
 
-def fused_stem_block1(images: torch.Tensor, folded: Sequence[torch.Tensor],
-                      window: Sequence[int] = ()) -> torch.Tensor:
+def fused_stem_block1(images: torch.Tensor, folded: Sequence[torch.Tensor]) -> torch.Tensor:
     """Stem + block 1 of MobileNetV2, BN folded.
 
     Args:
@@ -135,47 +101,38 @@ def fused_stem_block1(images: torch.Tensor, folded: Sequence[torch.Tensor],
             float32 or bfloat16; H and W multiples of 4
         folded: the twelve tensors of `stem_block1_args`, in the images'
             dtype and on their device (16-byte aligned on the card)
-        window: () for the whole image, or (row0, height, out_row0,
-            out_rows): the images are global rows [row0, row0 + H) of an
-            image of ``height`` rows (a multiple of 4; in bf16 H * W a
-            multiple of 8 on the card), and the call computes block 1's
-            output rows [out_row0, out_row0 + out_rows) (module docstring)
     Returns:
-        the block-1 output (B, H/4, W/4, 24), or (B, out_rows, W/4, 24), in
-        the images' dtype.
+        the block-1 output (B, H/4, W/4, 24) in the images' dtype.
     """
     if images.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_stem_block1 runs on cuda or cpu, not {images.device}")
-    return torch.ops.ssdseglib.fused_stem_block1(images, list(folded), list(window))
+    return torch.ops.ssdseglib.fused_stem_block1(images, list(folded))
 
 
 fused_stem_block1.launches = 0
 fused_stem_block1.window_launches = 0
 
 
-def _cuda_op(images, folded, window=()):
-    _check(images, folded, window)
-    out = _launch(images, folded, window=_whole(images, window))
+def _cuda_op(images, folded):
+    _check(images, folded)
+    out = _launch(images, folded)
     fused_stem_block1.launches += 1
-    if len(window):
-        fused_stem_block1.window_launches += 1
     return out
 
 
-def _cpu_op(images, folded, window=()):
-    _check(images, folded, window)
-    return fused_stem_block1_reference(images, folded, window=window)
+def _cpu_op(images, folded):
+    _check(images, folded)
+    return fused_stem_block1_reference(images, folded)
 
 
-def _fake_op(images, folded, window=()):
-    _check(images, folded, window)
-    batch, _, w, _ = images.shape
-    return images.new_empty((batch, _whole(images, window)[3], w // 4, 24))
+def _fake_op(images, folded):
+    _check(images, folded)
+    batch, h, w, _ = images.shape
+    return images.new_empty((batch, h // 4, w // 4, 24))
 
 
 _LIBRARY = torch.library.Library("ssdseglib", "FRAGMENT")
-_LIBRARY.define(
-    "fused_stem_block1(Tensor images, Tensor[] folded, int[] window=[]) -> Tensor")
+_LIBRARY.define("fused_stem_block1(Tensor images, Tensor[] folded) -> Tensor")
 _LIBRARY.impl("fused_stem_block1", _cuda_op, "CUDA")
 _LIBRARY.impl("fused_stem_block1", _cpu_op, "CPU")
 torch.library.register_fake("ssdseglib::fused_stem_block1", _fake_op, lib=_LIBRARY)
@@ -186,12 +143,9 @@ BUILT_IN = (0, 0, 0, 0)
 
 
 def _launch(images: torch.Tensor, folded: Sequence[torch.Tensor],
-            config: Tuple[int, int, int, int] = BUILT_IN,
-            window: Optional[Tuple[int, int, int, int]] = None) -> torch.Tensor:
+            config: Tuple[int, int, int, int] = BUILT_IN) -> torch.Tensor:
     """One launch of the kernel on CUDA tensors that passed `_check`, with
-    the bf16 kernel's ``config`` (ignored in f32) and the row ``window``
-    (row0, height, out_row0, out_rows) (None: the whole image); counts
-    nothing."""
+    the bf16 kernel's ``config`` (ignored in f32); counts nothing."""
     if images.device.type != "cuda":
         raise ValueError(f"fused_stem_block1 runs on cuda or cpu, not {images.device}")
     if images.dtype == torch.bfloat16 and any(
@@ -203,21 +157,19 @@ def _launch(images: torch.Tensor, folded: Sequence[torch.Tensor],
 
     lib = load_library()
     batch, h, w, _ = images.shape
-    row0, height, out_row0, out_rows = window or (0, h, 0, h // 4)
-    out = torch.empty((batch, out_rows, w // 4, 24), dtype=images.dtype,
-                      device=images.device)
+    out = torch.empty((batch, h // 4, w // 4, 24), dtype=images.dtype, device=images.device)
     if batch == 0:
         return out
     with torch.cuda.device(images.device):
         err = lib.stem_block1_launch(
             _DTYPE_CODES[images.dtype], images.data_ptr(),
-            *(t.data_ptr() for t in folded), out.data_ptr(), batch, height, w, row0, h,
-            out_row0, out_rows, *config, torch.cuda.current_stream(images.device).cuda_stream,
+            *(t.data_ptr() for t in folded), out.data_ptr(), batch, h, w, *config,
+            torch.cuda.current_stream(images.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
             f"stem + block 1 kernel launch failed with cudaError {err} "
-            f"(B={batch}, H={h}, W={w}, window {window}, {images.dtype}, config {config})"
+            f"(B={batch}, H={h}, W={w}, {images.dtype}, config {config})"
         )
     return out
 
@@ -249,18 +201,10 @@ def _depthwise3x3(x: torch.Tensor, taps: torch.Tensor, stride: int) -> torch.Ten
     1, 0 before and 1 after at stride 2."""
     _, h, w, _ = x.shape
     before = 1 if stride == 1 else 0
-    return _taps(F.pad(x, (0, 0, before, 1, before, 1)), taps, stride, h // stride, w // stride)
-
-
-def _taps(padded: torch.Tensor, taps: torch.Tensor, stride: int, ho: int,
-          wo: int) -> torch.Tensor:
-    """f32 sum of the nine taps of a 3x3 depthwise conv over the NHWC
-    ``padded`` (padding included): ``ho`` x ``wo`` outputs, output (r, c)
-    reading rows stride * r .. stride * r + 2."""
-    padded = padded.float()
+    padded = F.pad(x, (0, 0, before, 1, before, 1)).float()
+    ho, wo = h // stride, w // stride
     taps = taps.float()
-    acc = torch.zeros((padded.shape[0], ho, wo, padded.shape[3]), dtype=torch.float32,
-                      device=padded.device)
+    acc = torch.zeros((x.shape[0], ho, wo, x.shape[3]), dtype=torch.float32, device=x.device)
     for dy in range(3):
         for dx in range(3):
             window = padded[:, dy:dy + stride * ho:stride, dx:dx + stride * wo:stride]
@@ -280,14 +224,11 @@ def tensor_core_step(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def fused_stem_block1_reference(
-    images: torch.Tensor, folded: Sequence[torch.Tensor], k_groups: bool = False,
-    window: Sequence[int] = (),
+    images: torch.Tensor, folded: Sequence[torch.Tensor], k_groups: bool = False
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with the same six rounding
     points: f32 accumulation, rounding to the images' dtype after each conv
-    + bias (before its ReLU6).  Same arguments as `fused_stem_block1`, its
-    row window mode included (an image row outside the window reads as 0,
-    as in the kernel; only rows no output row reads can be such).
+    + bias (before its ReLU6).  Same arguments as `fused_stem_block1`.
 
     With ``k_groups`` the four matrix products sum in the bf16 kernel's
     order: each 16-deep group of the K axis as one partial
@@ -295,11 +236,6 @@ def fused_stem_block1_reference(
     starts at 0, then the bias."""
     w1, b1, wd1, bd1, wp1, bp1, w2, b2, wd2, bd2, wp2, bp2 = folded
     dt = images.dtype
-    row0, _, out_row0, out_rows = _whole(images, window)
-    if row0 % 2:  # start the window on an even row: the stem's stride
-        images, row0 = F.pad(images, (0, 0, 0, 0, 1, 0)), row0 - 1
-    if images.shape[1] % 2:
-        images = F.pad(images, (0, 0, 0, 0, 0, 1))
     batch, h, w, _ = images.shape
     h2, w2dim = h // 2, w // 2
 
@@ -317,8 +253,6 @@ def fused_stem_block1_reference(
 
     # stem conv: SAME at stride 2 pads 0 before and 1 after; output (r, c)
     # reads rows 2r .. 2r+2.  Patches ordered (dy, dx, cin), like w1's rows.
-    # The window's e, d, p and e2 are global rows [row0 / 2, row0 / 2 + h2):
-    # wrong only next to an inner edge of the window, where no output reads.
     padded = F.pad(images, (0, 0, 0, 1, 0, 1))
     patches = torch.cat(
         [padded[:, dy:dy + 2 * h2:2, dx:dx + 2 * w2dim:2]
@@ -329,9 +263,5 @@ def fused_stem_block1_reference(
     d = _round_relu6(_depthwise3x3(e, wd1, 1) + bd1.float(), dt)
     p = pointwise(d, wp1, bp1).to(dt)
     e2 = _round_relu6(pointwise(p, w2, b2), dt)
-    # block 1's stride-2 depthwise, SAME (0 before, 1 after) of the global
-    # map: output row r reads e2 rows 2r .. 2r + 2, local 2r - row0 / 2
-    start = 2 * out_row0 - row0 // 2
-    padded = F.pad(e2, (0, 0, 0, 1, 0, 1))[:, start:start + 2 * out_rows + 1]
-    d2 = _round_relu6(_taps(padded, wd2, 2, out_rows, w // 4) + bd2.float(), dt)
+    d2 = _round_relu6(_depthwise3x3(e2, wd2, 2) + bd2.float(), dt)
     return pointwise(d2, wp2, bp2).to(dt)

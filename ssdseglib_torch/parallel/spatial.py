@@ -55,10 +55,9 @@ global border and wrong at a shard's inner edge, so each runs on this rank's
 WINDOW of rows -- its own rows plus the halo rows its output reads, fetched
 from the neighbours -- and pads only at the global border:
 - the fused MBConv and the stem + block 1 kernels take `edge_window`'s
-  window, real rows at inner edges and none past the global border; the
-  MBConv kernel pads the window's edges itself and the rows it gets wrong
-  there are the halo rows' outputs, which are dropped; the stem kernel takes
-  the window's first global row and the global height (its row window mode);
+  window, real rows at inner edges and none past the global border, and run
+  unchanged: each pads the window's edges itself, and the output rows it
+  gets wrong there are the halo rows' outputs, which are dropped;
 - the depthwise and chain backward kernels take `window_rows`' window of a
   stride-1 3x3 conv (fill 0 past the global border) and the rank's own rows
   of dy, padded by a zero row at each end; the chain's BatchNorm gradient

@@ -46,8 +46,11 @@ Gates:
 - must-miss: the serving case with the halo rows left at zero, the fused
   serving with the MBConv padding SAME at an inner edge or padding x where
   the expanded tensor should be padded, the step with the mask losses'
-  spatial sums skipped, and the chain step with its statistics and sums
-  over the data group alone, miss those gates.
+  spatial sums skipped, the chain step with its statistics and sums over
+  the data group alone, and each backward gate's step with its backward
+  alone broken (the depthwise dx's halo rows dropped; the chain's du over
+  the whole window), miss those gates; the last two pass the metric gate
+  and fail the f32 gradient gate.
 """
 
 import jax
@@ -65,6 +68,7 @@ from ssdseglib_tpu.parallel import spatial as jax_spatial
 from ssdseglib_torch import parallel
 from ssdseglib_torch.config import ModelConfig
 from ssdseglib_torch.models.builder import SsdSegModel
+from ssdseglib_torch.models.fused_inference import STEM_HALO
 from ssdseglib_torch.ops import depthwise_backward as dwb
 from ssdseglib_torch.ops import fused_chain_backward as fcb
 from ssdseglib_torch.ops import fused_mbconv as fm
@@ -316,8 +320,11 @@ def test_must_miss_variants_fail_the_gates(inputs, ranks, single_step, gated_ste
     """The serving case with the halo rows left at zero, the step with the
     mask losses' spatial sums skipped, the fused serving with the MBConv
     padding SAME at an inner edge or padding x where the expanded tensor
-    should be padded, and the chain step with its statistics and sums over
-    the data group alone: each misses the parity gates."""
+    should be padded, the chain step with its statistics and sums over the
+    data group alone, and each backward gate's step with its backward alone
+    broken (`torch_spatial_workers.backward_fault`: the depthwise dx's halo
+    rows dropped, the chain's du over the whole window): each misses the
+    parity gates."""
     (_, single, images_), = [c for c in S.serving_cases(
         inputs["variables"], inputs["shufflenet"], inputs["serve_images"], lambda m: None)
         if c[0] == "2x2_b4_suppression"]
@@ -340,6 +347,15 @@ def test_must_miss_variants_fail_the_gates(inputs, ranks, single_step, gated_ste
             assert not np.allclose(got_mask, fused_mask, **MASK_GATE), variant
         with pytest.raises(AssertionError):
             _assert_step_close(result["kernel_step"]["chain_data_group"], chain_want)
+        for route in ("depthwise", "chain"):
+            # the route's backward broken alone: the forward's metrics and
+            # statistics pass, the gradient gate fails
+            fault = result["kernel_step"][route, "fault"]
+            for want in (result["step"]["f32"], gated_steps[route]):
+                for k, v in want["metrics"].items():
+                    np.testing.assert_allclose(fault["metrics"][k], v, err_msg=k, **METRIC_GATE)
+                worst = _worst_relative_norm_error(fault["grads"], want["grads"])
+                assert worst[0] > F32_GRADIENT_GATE, (route, worst)
 
 
 def test_fit_routes_images_through_shard_images(inputs, ranks):
@@ -492,12 +508,11 @@ def _stem_windows(gen):
                    torch.randn(*b_shape, generator=gen) * 0.1]
     images = torch.rand(2, 96, 32, 3, generator=gen) * 2.0 - 1.0
     whole = s2d_stem.fused_stem_block1(images, folded)
+    before, after = STEM_HALO
     for _, first, stop in _windows(96):
-        a, b = s2d_stem.window_rows_needed(96, first // 4, (stop - first) // 4)
-        b = min(b + 1, 96)  # the serving path's even window
-        got = s2d_stem.fused_stem_block1(images[:, a:b].contiguous(), folded,
-                                         window=(a, 96, first // 4, (stop - first) // 4))
-        yield got, whole[:, first // 4:stop // 4], 0.0
+        a, b = max(first - before, 0), min(stop + after, 96)
+        got = s2d_stem.fused_stem_block1(images[:, a:b].contiguous(), folded)
+        yield got[:, (first - a) // 4:(stop - a) // 4], whole[:, first // 4:stop // 4], 0.0
 
 
 def _backward_windows(gen, chain: bool):
@@ -543,7 +558,7 @@ def _backward_windows(gen, chain: bool):
 
 @pytest.mark.parametrize("kernel", ["mbconv", "stem", "depthwise_backward", "chain_backward"])
 def test_windowed_plain_versions_match_the_whole_map(kernel):
-    """Each kernel's plain version in its row window mode, without ranks, on
+    """Each kernel's plain version on row windows, without ranks, on
     the top, an inner and the bottom window of a 4-way split, against the
     same plain version on the whole map's rows, f32."""
     gen = torch.Generator().manual_seed(7)

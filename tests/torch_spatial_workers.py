@@ -381,10 +381,38 @@ def backward_gate(route: str):
             gate("aten")
 
 
+@contextlib.contextmanager
+def backward_fault(route: str):
+    """A must-miss variant of the route's backward alone, its forward
+    untouched: 'depthwise', the window's first and last rows of dx dropped,
+    so that the halo rows' gradients never reach their owners; 'chain', du
+    over every row of the window (``rows`` None), so that the halo rows
+    carry -Bc - D xhat and the pixel count is the window's."""
+    module, name = {"depthwise": (dwb, "depthwise3x3_backward"),
+                    "chain": (fcb, "dw_bn_relu6_backward")}[route]
+    real = getattr(module, name)
+
+    def fault(*args):
+        if route == "chain":
+            return real(*args[:-1], None)
+        dx, dk = real(*args)
+        dx = dx.clone()
+        dx[:, 0] = dx[:, -1] = 0
+        return dx, dk
+
+    fault.launches = fault.split_launches = 0
+    setattr(module, name, fault)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
 def case_kernel_step(meshes, inputs, directory):
     """One f32 step on 2x2 with each backward kernel's gate (the kernels'
-    plain versions), the windows each unit ran on, and the must-miss variant
-    of the chain: its statistics and sums over the data group alone."""
+    plain versions), the windows each unit ran on, and the must-miss
+    variants: each route's backward broken alone (`backward_fault`), and the
+    chain's statistics and sums over the data group alone."""
     mesh = meshes["2x2"]
     images, targets = inputs["batch"]
     out = {}
@@ -404,6 +432,9 @@ def case_kernel_step(meshes, inputs, directory):
         finally:
             unit.apply = real
         out[route, "windows"] = shapes
+        with backward_fault(route), backward_gate(route):
+            out[route, "fault"] = W.one_step(mesh, inputs["variables"], images, targets,
+                                             batch_size=STEP_BATCH)
     real_group = fcb.split_group
     fcb.split_group = lambda x: mesh_lib.active_groups().data
     try:
