@@ -9,12 +9,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: the kernel library from ``ssdseglib_torch/csrc`` with nvcc, one
    compiler per source, started together;
 3. fused MBConv kernel vs plain twin at the five MBConv widths of the 480x640
-   serving path, batch 16, in bf16 (2 ulps; the E-chunked tensor-core
-   kernel) and f32 (1e-5, TF32 off; the CUDA-core kernel), with each width's
-   tile, chunk of E, threads and shared memory, the median of 20 CUDA-event
-   timings of each and, as information, of the same block run as the
-   unfused default sequence (three cuDNN convs with their bias and ReLU6
-   passes, and the residual add);
+   serving path, batch 16, in bf16 (the E-chunked tensor-core kernel, held at
+   1.6e-2 of 1 + |twin| to the twin that sums in the kernel's tensor-core
+   order, ``k_groups=True``: 16-deep mma steps into the running f32
+   accumulator, each the H100's step, ``ops/s2d_stem.tensor_core_step``; its
+   ulp histogram and the plain twin's printed) and f32 (1e-5, TF32 off; the
+   CUDA-core kernel), with each width's tile, chunk of E, threads and
+   shared memory, the median of 20 CUDA-event timings of each and, as
+   information, of the same block run as the unfused default sequence
+   (three cuDNN convs with their bias and ReLU6 passes, and the residual
+   add);
    3b. the NMS scan kernel vs its plain version: (16, 4, 256) candidates
    from the decoded boxes of the flagship model, plus synthetic (2, 2, 100),
    (1, 1, 1) and (3, 4, 1024); Python-float and 0-d-tensor thresholds; the
@@ -24,9 +28,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (16, 480, 640, 3) and the ragged (3, 36, 52, 3), in bf16 and f32 (1e-5,
    TF32 off).  bf16 is held at 1.6e-2 of 1 + |twin| (2 ulps at 1) to the
    plain version that sums in the kernel's tensor-core order
-   (``k_groups=True``: 16-deep steps, each step's exact sum rounded toward
-   zero), and its ulp histograms against that twin and the JAX-order one
-   are printed.  Timings at (16, 480, 640, 3) in bf16 of the wrapper, the
+   (``k_groups=True``: 16-deep steps into a zero accumulator, each the
+   H100's step, ``tensor_core_step``), and its ulp histograms against that
+   twin and the JAX-order one are printed.  Timings at (16, 480, 640, 3) in bf16 of the wrapper, the
    kernel alone (20 launches between two CUDA events), the plain version
    and, as information, the six cuDNN convs (with their bias and clamp
    passes) that the default path runs for the same function;
@@ -276,6 +280,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    unquantized model (default, int8, int8, default).  One
    ``{"int8_serving": ...}`` JSON line.
 
+16. the last modules (``--examples`` alone, EXAMPLES_BUDGET_S): (a) the
+   flagship served in bf16 at b16 with ``get_model_for_inference(...,
+   s2d_stem="xla")`` (the JAX package's packed conv reformulation of stem +
+   block 1): its raw outputs within SERVE_PLAIN_TOLERANCE of the default
+   path's, its detections printed beside the default's, one call launching
+   the MBConv kernel 10 times and no stem kernel; b16 images/s of the
+   default, ``"cuda"`` and ``"xla"`` paths in turns (STEM_TURNS, phase 6's
+   protocol); the stem + block 1 alone at (16, 480, 640, 3) bf16 (20 calls
+   between CUDA events): the packed convs, the six plain convs and the stem
+   kernel; the packed convs held to the stem's plain version in f32
+   (TOLERANCE, TF32 off), their bf16 ulps printed beside the six plain
+   convs'.  (b) ``set_depthwise_impl("shift")`` against ``"conv"``:
+   one f32 b2 step's loss (1e-5) and gradients (GRADIENT_TOLERANCE, phase
+   7a's metric), then bf16 b16 steps in turns (SHIFT_TURNS): losses finite
+   and falling, step ms, peak memory and the ATen operations one step
+   dispatches to the card (views left out; `_card_ops`).  (c)
+   `examples/ssd_framework.run` on the card (9600 anchors, the CPU run's
+   positives, the decode round trip within 1e-3 px) and
+   `examples/check_dataset_class_imbalance.run` over IMBALANCE_SAMPLES
+   synthetic scenes.  (d) `examples/detection_learning.run` at b16 for
+   LEARNING_SMOKE's 60 steps with one evaluation and the NMS grid search:
+   losses finite, 30 grid points, its ``{"detection_learning": ...}`` JSON
+   line.  Then one ``{"examples": ...}`` JSON line and the phase's seconds.
+
 ``python3 chip_smoke.py --profile-train [aten|chain|depthwise|wgrad-dot|wgrad-cuda ...]`` instead
 builds the library and prints where the time of a bf16 b16 train step goes
 (torch.profiler, kernel time by name) under the named routes, and
@@ -303,8 +331,11 @@ parent; one process each), and ``python3 chip_smoke.py --deployment`` runs
 phase 11 alone, ``python3 chip_smoke.py --data-parallel`` phase 12,
 ``python3 chip_smoke.py --spatial`` phase 13, ``python3 chip_smoke.py
 --compat`` phase 14, ``python3 chip_smoke.py --int8`` phase 15 and
-``python3 chip_smoke.py --int8-kernel`` phase 3d and ``python3
-chip_smoke.py --windows`` phase 4a; none of these prints result lines.
+``python3 chip_smoke.py --int8-kernel`` phase 3d, ``python3
+chip_smoke.py --windows`` phase 4a and ``python3 chip_smoke.py --examples``
+phase 16, and ``python3 chip_smoke.py --step-models`` holds the bf16 MBConv
+kernel against its k-group twin under each model of the tensor cores' step
+(`_step_models`); none of these prints result lines.
 
 Weights are random, drawn from a torch.Generator seeded 0 (serving: with
 random BatchNorm statistics so the folding is exercised).  The last two
@@ -495,7 +526,10 @@ def phase_kernel_vs_twin():
             x, args = _mbconv_operands(gen, dtype, cin, h, w, e)
             got = fused_mbconv(x, *args)
             torch.cuda.synchronize()
-            want = fused_mbconv_reference(x, *args)
+            plain = fused_mbconv_reference(x, *args)
+            # bf16: held to the twin that sums in the kernel's tensor-core order
+            bf16 = dtype == torch.bfloat16
+            want = fused_mbconv_reference(x, *args, k_groups=True) if bf16 else plain
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs()
             tol = TOLERANCE[dtype]
@@ -507,6 +541,11 @@ def phase_kernel_vs_twin():
             line = (f"[kernel] {str(dtype)[6:]:8s} Cin={cin:3d} {h}x{w} E={e:3d} "
                     f"tile={th}x{tw} EC={ec} threads={threads} smem={smem} B "
                     f"max_abs_err={max_err:.3g} kernel {ms:.4f} ms | twin {plain_ms:.4f} ms")
+            if bf16:
+                line += (f" | from the k-group twin: max |diff| {max_err:.3g}, ulps "
+                         f"{_ulp_histogram(got, want)} | from the plain twin (information): "
+                         f"max |diff| {float((got.float() - plain.float()).abs().max()):.3g}, "
+                         f"ulps {_ulp_histogram(got, plain)}")
             if dtype == torch.bfloat16:
                 seq_ms = cuda_median_ms(lambda: _mbconv_sequence(x, *args))
                 sequence_ms += repeats * seq_ms
@@ -519,7 +558,7 @@ def phase_kernel_vs_twin():
                     f"{dtype}: {bad} elements beyond rtol=atol={tol}"
                 )
             report["max_abs_err"] = max(report["max_abs_err"], max_err)
-            if dtype == torch.bfloat16:  # the serving dtype: one forward's worth
+            if bf16:  # the serving dtype: one forward's worth
                 report["ms"] += repeats * ms
                 report["plain_ms"] += repeats * plain_ms
                 pixels = BATCH * h * w
@@ -527,7 +566,7 @@ def phase_kernel_vs_twin():
                 report["bytes"] += repeats * 2 * (pixels * 2 * cin + weights)
                 report["products"] += repeats * 2 * pixels * e * 2 * cin
                 report["taps"] += repeats * 2 * 9 * pixels * e
-            del x, args, got, want
+            del x, args, got, want, plain
         torch.cuda.empty_cache()
     # the 1x1s are matrix products at the tensor cores' bf16 rate; the
     # depthwise taps run on the CUDA cores in f32
@@ -644,6 +683,19 @@ def _stem_weights(gen, dtype):
     return folded, stem_block1_args(folded)
 
 
+def _six_convs(folded, x):
+    """Stem and block 1 as the default path runs them: six cuDNN convs with
+    their bias and clamp passes, on a channels-last NCHW view of NHWC ``x``."""
+    from ssdseglib_torch.models.fused_inference import _block_convs, _conv
+
+    (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 0)
+    x = _conv(x.permute(0, 3, 1, 2), we, be, stride=2, relu6=True)
+    x = _conv(_conv(x, wd, bd, depthwise=True, relu6=True), wp, bp)
+    (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 1)
+    d = _conv(_conv(x, we, be, relu6=True), wd, bd, stride=2, depthwise=True, relu6=True)
+    return _conv(d, wp, bp).permute(0, 2, 3, 1)
+
+
 def _ulp_histogram(got, want) -> str:
     """How many bf16 ulps apart got and want are, element by element: counts
     at 0, 1, 2, 3, 4 and more."""
@@ -676,18 +728,7 @@ def phase_stem_kernel_vs_plain():
     order (``k_groups=True``; its largest difference is the reported error)
     and compared with the JAX-order plain version for information; f32 (the
     CUDA-core kernel) to the plain version."""
-    from ssdseglib_torch.models.fused_inference import _block_convs, _conv
     from ssdseglib_torch.ops import s2d_stem
-
-    def six_convs(folded, x):
-        """Stem and block 1 as the default path runs them: six cuDNN convs
-        with their bias and clamp passes, on a channels-last NCHW view."""
-        (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 0)
-        x = _conv(x.permute(0, 3, 1, 2), we, be, stride=2, relu6=True)
-        x = _conv(_conv(x, wd, bd, depthwise=True, relu6=True), wp, bp)
-        (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 1)
-        d = _conv(_conv(x, we, be, relu6=True), wd, bd, stride=2, depthwise=True, relu6=True)
-        return _conv(d, wp, bp).permute(0, 2, 3, 1)
 
     gen = torch.Generator().manual_seed(3)
     report = {"max_abs_err": 0.0}
@@ -712,7 +753,7 @@ def phase_stem_kernel_vs_plain():
             else:
                 err = _check_close(f"stem + block 1 {tag}", got, plain, TOLERANCE[dtype])
             report["max_abs_err"] = max(report["max_abs_err"], err)
-            convs = six_convs(folded, x)
+            convs = _six_convs(folded, x)
             log(f"[stem] {tag} -> {tuple(got.shape)} max_abs_err {err:.3g} (max |output| "
                 f"{float(plain.float().abs().max()):.3g}, limit {TOLERANCE[dtype]} of 1 + |twin|); "
                 f"six-conv route differs by at most "
@@ -724,7 +765,7 @@ def phase_stem_kernel_vs_plain():
             ms = cuda_median_ms(lambda: s2d_stem.fused_stem_block1(x, args))
             alone_ms = _events_ms(lambda: s2d_stem._launch(x, args))
             plain_ms = cuda_median_ms(lambda: s2d_stem.fused_stem_block1_reference(x, args))
-            convs_ms = cuda_median_ms(lambda: six_convs(folded, x))
+            convs_ms = cuda_median_ms(lambda: _six_convs(folded, x))
             b, h, w, _ = shape
             half, quarter = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
             products = 2 * (half * (27 * 32 + 32 * 16 + 16 * 96) + quarter * 96 * 24)
@@ -1764,14 +1805,14 @@ def _set_route(name: str) -> None:
     blocks.set_wgrad_impl(wgrad_gate)
 
 
-def _routes_agree_f32(tag: str, trainer, batch, routes) -> None:
+def _routes_agree_f32(tag: str, trainer, batch, routes, set_route=_set_route) -> None:
     """The loss (1e-5) and every gradient of one f32 step under ``routes``
-    against the first of them: per tensor, the norm of the difference over
-    the tensor's norm (floored at 1e-4 of the largest) within
-    GRADIENT_TOLERANCE."""
+    (each set by ``set_route``) against the first of them: per tensor, the
+    norm of the difference over the tensor's norm (floored at 1e-4 of the
+    largest) within GRADIENT_TOLERANCE."""
     results = {}
     for route in routes:
-        _set_route(route)
+        set_route(route)
         state = trainer.init_state(torch.Generator().manual_seed(0))
         metrics, grads, _ = trainer.loss_and_grads(state, *batch)
         results[route] = float(metrics["loss"]), grads
@@ -4512,6 +4553,296 @@ def dw_variants(card: str, rounds: int = 2) -> None:
                 f"chunk) ms: {' | '.join(cells)} | {card}")
 
 
+# Phase 16: the last modules of the port, the JAX package's two XLA-level
+# studies and its example drivers, at full width.
+EXAMPLES_BUDGET_S = 60
+STEM_ARMS = {"default": False, "cuda": "cuda", "xla": "xla"}  # (a): s2d_stem of each arm
+STEM_TURNS = ("default", "cuda", "xla", "xla", "cuda", "default")
+SHIFT_TURNS = ("conv", "shift", "shift", "conv")  # (b)
+IMBALANCE_SAMPLES = 16  # (c)
+# (d): the learning driver at b16: steps, warmup steps, training and
+# evaluation scenes
+LEARNING_SMOKE = dict(steps=60, warmup_steps=10, eval_every=60, log_every=20,
+                      train_scenes=32, eval_scenes=16)
+
+
+def _card_ops():
+    """A dispatch mode whose ``count`` is the ATen operations, views left
+    out, that return a tensor on the card while it is active, the backward's
+    included: the operations a step dispatches to the card, a proxy for its
+    kernel launches (the process's one profiler session is phase 4b's)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class CardOps(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and any(isinstance(t, torch.Tensor) and t.is_cuda
+                                        for t in tree_leaves(out)):
+                self.count += 1
+            return out
+
+    return CardOps()
+
+
+def _examples_stem_xla(card: str) -> dict:
+    """Phase 16 (a): ``s2d_stem="xla"`` in bf16 b16 fused serving."""
+    from ssdseglib_torch.ops import s2d_stem
+    from ssdseglib_torch.ops.fused_mbconv import fused_mbconv
+
+    builder, model, nms = _builder()
+    kwargs = dict(model_trained=model, compute_dtype="bfloat16", fused_backbone=True,
+                  mask_output="bfloat16", device="cuda", **nms)
+    arms = {name: builder.get_model_for_inference(s2d_stem=s2d, **kwargs)
+            for name, s2d in STEM_ARMS.items()}
+    images = _uint8_images(3, BATCH)
+    s2d_stem.fused_stem_block1.launches = fused_mbconv.launches = 0
+    got = [t.float() for t in arms["xla"].raw_outputs(images)]
+    launches = {"stem": s2d_stem.fused_stem_block1.launches, "mbconv": fused_mbconv.launches}
+    assert launches == {"stem": 0, "mbconv": 10}, launches
+    want = [t.float() for t in arms["default"].raw_outputs(images)]
+    for name, a, b in zip(("mask", "labels", "boxes"), got, want):
+        scale = 1.0 + (b.abs().max() if name == "boxes" else b.abs())
+        err = float(((a - b).abs() / scale).max())
+        log(f"[examples] (a) bf16 b16 {name} {tuple(a.shape)}: s2d_stem='xla' vs default, "
+            f"max |diff| / (1 + |default|{' max' if name == 'boxes' else ''}) = {err:.3g} "
+            f"(limit {SERVE_PLAIN_TOLERANCE})")
+        assert bool(torch.isfinite(a).all()) and err <= SERVE_PLAIN_TOLERANCE, (name, err)
+    (_, det_x), (_, det_d) = arms["xla"].predict(images), arms["default"].predict(images)
+    log(f"[examples] (a) detections {det_x.shape}: {int((det_x[..., 1] > 0).sum())} valid rows "
+        f"(default {int((det_d[..., 1] > 0).sum())}), labels equal in "
+        f"{int((det_x[..., 0] == det_d[..., 0]).sum())} of {det_x[..., 0].size} rows, "
+        f"largest |score diff| {float(np.abs(det_x[..., 1] - det_d[..., 1]).max()):.3g}, "
+        f"launches of one call {launches} (the stem kernel none)")
+
+    inputs, _ = _serving_inputs()
+    for arm in arms.values():
+        arm(inputs[0])[1].cpu()  # warm-up
+    rates = {name: [] for name in arms}
+    for name in STEM_TURNS:
+        rates[name] += _images_per_second(arms[name], inputs)
+    medians = {name: statistics.median(r) for name, r in rates.items()}
+    log(f"[examples] (a) b16 images/s in turns {'/'.join(STEM_TURNS)}, median of "
+        f"{2 * SERVE_ROUNDS} rounds: " + " | ".join(
+            f"s2d_stem={STEM_ARMS[n]!r} {m:.2f}" for n, m in medians.items()) + f" | {card}")
+
+    # the stem + block 1 alone: the packed convs, the six plain convs, the kernel;
+    # f32 held to the plain version, bf16 (six roundings, each ulp carried
+    # through the later convs) printed beside the six plain convs' difference
+    gen = torch.Generator().manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        folded, args = _stem_weights(gen, dtype)
+        packed = tuple(torch.from_numpy(a).to("cuda", dtype) for a in s2d_stem.pack_stem_block1(
+            {k: (w.float().cpu().numpy(), b.float().cpu().numpy())
+             for k, (w, b) in folded.items()}))
+        x = (torch.rand(BATCH, 480, 640, 3, generator=gen) * 2.0 - 1.0).to("cuda", dtype)
+        out = s2d_stem.s2d_stem_block1_xla(x, packed)
+        twin = s2d_stem.fused_stem_block1_reference(x, args)
+        convs = _six_convs(folded, x)
+        if dtype == torch.float32:
+            err = _check_close("packed convs vs the stem's plain version, f32", out, twin,
+                               TOLERANCE[dtype])
+            log(f"[examples] (a) stem + block 1 at (16, 480, 640, 3) f32: packed convs vs "
+                f"plain version max |diff| {err:.3g} (limit {TOLERANCE[dtype]} of 1 + |plain|), "
+                f"six plain convs {float((convs - twin).abs().max()):.3g}")
+            continue
+        ms = {"packed convs": _events_ms(lambda: s2d_stem.s2d_stem_block1_xla(x, packed)),
+              "six plain convs": _events_ms(lambda: _six_convs(folded, x)),
+              "stem kernel": _events_ms(lambda: s2d_stem._launch(x, args))}
+        log(f"[examples] (a) stem + block 1 alone at (16, 480, 640, 3) bf16, 20 calls "
+            f"between CUDA events: " + " | ".join(f"{n} {v:.4f} ms" for n, v in ms.items())
+            + f" | {card}")
+        log(f"[examples] (a) bf16 against the plain version (information): packed convs max "
+            f"|diff| {float((out.float() - twin.float()).abs().max()):.3g}, ulps "
+            f"{_ulp_histogram(out, twin)} | six plain convs max |diff| "
+            f"{float((convs.float() - twin.float()).abs().max()):.3g}, ulps "
+            f"{_ulp_histogram(convs, twin)}")
+    return {"images_per_s": medians, "stem_ms": ms}
+
+
+def _examples_shift(card: str) -> dict:
+    """Phase 16 (b): the bf16 b16 train step under ``set_depthwise_impl(
+    "shift")`` against ``"conv"``."""
+    from ssdseglib_torch.config import TrainConfig
+    from ssdseglib_torch.models import blocks
+    from ssdseglib_torch.models.builder import SsdSegModel
+    from ssdseglib_torch.train import Trainer
+
+    anchors, model_cfg, images, targets, _ = _train_batch(BATCH)
+    model = SsdSegModel(model_cfg, torch.Generator().manual_seed(0))
+    try:
+        trainer = Trainer(model=model, anchors=anchors,
+                          config=TrainConfig(batch_size=2, compute_dtype="float32"))
+        small = images[:2], {k: v[:2] for k, v in targets.items()}
+        _routes_agree_f32("examples", trainer, small, ("conv", "shift"),
+                          set_route=blocks.set_depthwise_impl)
+        del trainer
+        trainer = Trainer(model=model, anchors=anchors,
+                          config=TrainConfig(batch_size=BATCH, compute_dtype="bfloat16"))
+        times, ops = {name: [] for name in SHIFT_TURNS}, {}
+        for impl in SHIFT_TURNS:
+            blocks.set_depthwise_impl(impl)
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+            trainer.train_step(state, images, targets)[1]["loss"].item()  # warm-up
+            state = trainer.init_state(torch.Generator().manual_seed(0))
+            torch.cuda.reset_peak_memory_stats()
+            losses = []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                losses.append(trainer.train_step(state, images, targets)[1]["loss"].item())
+                times[impl].append((time.perf_counter() - t0) * 1e3)
+            assert all(np.isfinite(losses)) and losses[-1] < losses[0], (impl, losses)
+            with _card_ops() as counter:
+                trainer.train_step(state, images, targets)[1]["loss"].item()
+            ops[impl] = counter.count
+            log(f"[examples] (b) bf16 b16 depthwise impl {impl}: loss {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f} over {TRAIN_STEPS} steps, step "
+                f"{statistics.median(times[impl][-TRAIN_STEPS:]):.3f} ms (median, "
+                f"fetch-fenced), {ops[impl]} card operations a step, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+        step_ms = {impl: statistics.median(t) for impl, t in times.items()}
+        log(f"[examples] (b) step ms in turns {'/'.join(SHIFT_TURNS)}: conv "
+            f"{step_ms['conv']:.3f} | shift {step_ms['shift']:.3f} | card operations a step "
+            f"conv {ops['conv']} | shift {ops['shift']} | {card}")
+        return {"step_ms": step_ms, "card_operations": ops}
+    finally:
+        blocks.set_depthwise_impl("conv")
+
+
+def _examples_drivers(card: str) -> dict:
+    """Phase 16 (c) and (d): the three example drivers on the card."""
+    from ssdseglib_torch.examples import check_dataset_class_imbalance, detection_learning
+    from ssdseglib_torch.examples import ssd_framework
+
+    quiet = lambda line: None  # noqa: E731
+    walk = ssd_framework.run(device="cuda", log_fn=quiet)
+    on_cpu = ssd_framework.run(device="cpu", log_fn=quiet)
+    assert walk["anchors"] == 9600 and walk["positives"] > 0, walk
+    assert walk["positives"] == on_cpu["positives"], (walk, on_cpu)
+    assert walk["decode_worst_corner_error_px"] < 1e-3, walk
+    log(f"[examples] (c) ssd_framework on the card: {json.dumps(walk)}")
+    imbalance = check_dataset_class_imbalance.run(samples=IMBALANCE_SAMPLES, log_fn=quiet)
+    assert sum(imbalance["box_counts"].values()) > 0, imbalance
+    log(f"[examples] (c) check_dataset_class_imbalance: {json.dumps(imbalance)}")
+    def step_lines(line: str) -> None:  # the grid's points are in the JSON line
+        if line.strip() and not line.lstrip().startswith("iou "):
+            log(f"[learning] {line.strip()}")
+
+    result = detection_learning.run(**LEARNING_SMOKE, log_fn=step_lines)
+    assert result["steps_run"] == LEARNING_SMOKE["steps"] and len(result["evals"]) == 1, result
+    assert len(result["grid"]) == 30 and all(
+        np.isfinite(p["mAP@0.5"]) and p["mAP@0.5"] >= 0.0 for p in result["grid"]), result["grid"]
+    assert all(np.isfinite([v["loss"] for v in result["logged"]])), result["logged"]
+    result["card"] = card
+    print(json.dumps({"detection_learning": result}), flush=True)
+    return {"walkthrough": walk, "learning_best": result["best"],
+            "learning_final": {k: v for k, v in result["final"].items()
+                               if not k.startswith("ap@")}}
+
+
+def phase_examples(card: str) -> None:
+    """Phase 16 (``--examples``)."""
+    t0 = time.perf_counter()
+    report = {"stem_xla": _examples_stem_xla(card), "shift": _examples_shift(card),
+              **_examples_drivers(card)}
+    seconds = time.perf_counter() - t0
+    report.update(seconds=seconds, card=card)
+    print(json.dumps({"examples": report}), flush=True)
+    log(f"[examples] phase 16: {seconds:.1f} s (budget {EXAMPLES_BUDGET_S} s)")
+
+
+def _cut_step(x, w, acc, bits: int):
+    """A model of one mma step: the terms (the k exact products and the
+    accumulator) cut toward zero ``bits`` bits below the leading bit of the
+    largest of them, summed exactly, rounded toward zero."""
+    out = []
+    for r0 in range(0, x.shape[0], 8192):
+        terms = torch.cat([x[r0:r0 + 8192].double()[:, :, None] * w.double()[None],
+                           acc[r0:r0 + 8192].double()[:, None]], dim=1)
+        exponent = torch.frexp(terms.abs().amax(dim=1, keepdim=True)).exponent
+        quantum = torch.ldexp(torch.ones_like(terms[:, :1]), exponent - bits)
+        exact = (torch.trunc(terms / quantum) * quantum).sum(dim=1)
+        rounded = exact.float()
+        out.append(torch.where(rounded.double().abs() > exact.abs(),
+                               torch.nextafter(rounded, torch.zeros_like(rounded)), rounded))
+    return torch.cat(out)
+
+
+# Models of one bf16 mma.sync step for `--step-models`, each a function
+# (x, w, acc) -> f32 like `tensor_core_step`: "field N bits" is
+# tensor_core_step with ``bits=N`` (26 is the port's), "cut N bits" `_cut_step`
+def _step_models():
+    import functools
+
+    from ssdseglib_torch.ops.s2d_stem import tensor_core_step
+
+    def exact(x, w, acc):  # the exact sum with the accumulator, toward zero
+        return _cut_step(x, w, acc, bits=60)
+
+    def nearest(x, w, acc):  # the exact sum rounded to nearest
+        return (acc.double() + x.double() @ w.double()).float()
+
+    def zero_accumulator(x, w, acc):  # a step into 0, then an f32 add
+        return acc + tensor_core_step(x, w)
+
+    def eight_deep(x, w, acc):  # two 8-deep steps (one where k <= 8)
+        acc = tensor_core_step(x[:, :8], w[:8], acc)
+        return tensor_core_step(x[:, 8:], w[8:], acc) if x.shape[1] > 8 else acc
+
+    models = {f"field {bits} bits": functools.partial(tensor_core_step, bits=bits)
+              for bits in (25, 26, 27)}
+    models.update({f"cut {bits} bits": functools.partial(_cut_step, bits=bits)
+                   for bits in (24, 25, 26, 27)})
+    models.update({"exact sum toward zero": exact, "exact sum to nearest": nearest,
+                   "zero accumulator + f32 add": zero_accumulator,
+                   "field 26 bits, 8-deep steps": eight_deep})
+    return models
+
+
+def step_models(card: str) -> None:
+    """``python3 chip_smoke.py --step-models``: the bf16 MBConv kernel on
+    phase 3's operands (five widths) and the bf16 stem + block 1 kernel on
+    phase 3c's (16, 480, 640, 3) against their k-group twins under each
+    model of the tensor cores' step (`_step_models`, swapped in for
+    `s2d_stem.tensor_core_step`): the ulp histogram of each and how many
+    outputs lie beyond TOLERANCE[bf16] of 1 + |twin|."""
+    from ssdseglib_torch.ops import s2d_stem
+    from ssdseglib_torch.ops.fused_mbconv import fused_mbconv, fused_mbconv_reference
+
+    real = s2d_stem.tensor_core_step
+    tol = TOLERANCE[torch.bfloat16]
+
+    def sweep(tag, got, twin):
+        for name, model in _step_models().items():
+            # the twins look the step up in s2d_stem at each call
+            s2d_stem.tensor_core_step = lambda x_, w_, acc=None, m=model: m(
+                x_, w_, torch.zeros((x_.shape[0], w_.shape[1]), device=x_.device)
+                if acc is None else acc)
+            try:
+                want = twin()
+            finally:
+                s2d_stem.tensor_core_step = real
+            err = (got.float() - want.float()).abs()
+            log(f"[step-model] {tag} {name:27s} max |diff| {float(err.max()):.3g}, "
+                f"{int((err > tol + tol * want.float().abs()).sum())} beyond the gate, ulps "
+                f"{_ulp_histogram(got, want)} | {card}")
+
+    gen = torch.Generator().manual_seed(0)  # phase 3's operands, bf16 first
+    for cin, h, w, e, _ in MBCONV_SHAPES:
+        x, args = _mbconv_operands(gen, torch.bfloat16, cin, h, w, e)
+        sweep(f"MBConv Cin={cin:3d} E={e:3d}", fused_mbconv(x, *args),
+              lambda: fused_mbconv_reference(x, *args, k_groups=True))
+        del x, args
+        torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(3)  # phase 3c's operands, bf16 first
+    _, args = _stem_weights(gen, torch.bfloat16)
+    x = (torch.rand(BATCH, 480, 640, 3, generator=gen) * 2.0 - 1.0).to("cuda", torch.bfloat16)
+    sweep("stem (16, 480, 640, 3)", s2d_stem.fused_stem_block1(x, args),
+          lambda: s2d_stem.fused_stem_block1_reference(x, args, k_groups=True))
+
+
 def ab_arm(card: str) -> None:
     """``python3 chip_smoke.py --ab-arm ROOT``: one arm of `--ab`, on the
     ``ssdseglib_torch`` package under ROOT: at the serving and training
@@ -4856,6 +5187,12 @@ def main() -> None:
     if "--windows" in sys.argv:
         phase_windowed_kernels(card)
         return
+    if "--examples" in sys.argv:
+        phase_examples(card)
+        return
+    if "--step-models" in sys.argv:
+        step_models(card)
+        return
     if "--profile-train" in sys.argv:
         routes = [a for a in sys.argv[1:] if a in ROUTES] or list(ROUTES)
         for route in routes:
@@ -4883,6 +5220,7 @@ def main() -> None:
     phase_spatial(card)
     phase_compat(card)
     int8["launches"] = phase_int8_serving(card)
+    phase_examples(card)
     wgrad["wgrad_mma"]["launches"] = fit_launches["wgrad_mma"]
     wgrad["wgrad_fma"]["launches"] = fit_launches["wgrad_fma"]
     described = {

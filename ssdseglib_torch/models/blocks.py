@@ -23,7 +23,8 @@ coordinates).  Three module-level gates, named as in the JAX package, choose
 a backward route: of the depthwise layers inside the envelope
 (`set_depthwise_bwd_impl`, `set_chain_bwd_impl`; on split rows their kernels
 run on this rank's window of rows, and the envelope reads the global map)
-and of the weight gradient of the dense convs (`set_wgrad_impl`).
+and of the weight gradient of the dense convs (`set_wgrad_impl`); a fourth,
+`set_depthwise_impl`, the depthwise convs' formulation.
 """
 
 from __future__ import annotations
@@ -41,6 +42,23 @@ from ssdseglib_torch.parallel.spatial import same_pad  # noqa: F401  (this modul
 BN_EPSILON = 1e-3
 # torch's momentum weighs the new batch statistic: 1 - Flax's 0.99
 BN_MOMENTUM = 0.01
+
+
+# Depthwise convolution's formulation: 'conv' = the library's grouped conv;
+# 'shift' = K*K shifted multiply-adds with autograd through them
+# (ops/depthwise.py), the JAX package's study, which lost on the TPU and which
+# chip_smoke.py phase 16 (b) times on the card.  'shift' takes precedence
+# over DEPTHWISE_BWD_IMPL, as in the JAX package; the chain gate, read first
+# in DepthwiseConvBN, over both.  Parameter names and shapes do not depend on
+# it.  Read at every forward.
+DEPTHWISE_IMPL = "conv"
+
+
+def set_depthwise_impl(impl: str) -> None:
+    global DEPTHWISE_IMPL
+    if impl not in ("conv", "shift"):
+        raise ValueError(f"depthwise impl must be 'conv' or 'shift', got {impl!r}")
+    DEPTHWISE_IMPL = impl
 
 
 # Depthwise BACKWARD route (the forward is the library's conv either way):
@@ -222,8 +240,17 @@ def batchnorm(channels: int) -> FlaxBatchNorm2d:
 
 
 def depthwise_conv(conv: "SameConv2d", x: torch.Tensor) -> torch.Tensor:
-    """A depthwise `SameConv2d` applied through the selected backward route
-    (DEPTHWISE_BWD_IMPL)."""
+    """A depthwise `SameConv2d` applied through the selected formulation
+    (DEPTHWISE_IMPL) and backward route (DEPTHWISE_BWD_IMPL).  The shift
+    formulation pads as `conv2d_same` does: on split rows it takes the same
+    window of rows (`parallel.spatial.window_rows`)."""
+    if DEPTHWISE_IMPL == "shift":
+        from ssdseglib_torch.ops.depthwise import depthwise_conv_shift
+
+        (kh, kw), (sh, sw), (dh, dw) = conv.kernel_size, conv.stride, conv.dilation
+        x, rows = spatial.window_rows(x, kh, sh, dh)
+        cols = same_pad(x.shape[3], kw, sw, dw)
+        return depthwise_conv_shift(x, conv.weight, conv.stride, conv.dilation, (rows, cols))
     if DEPTHWISE_BWD_IMPL == "cuda":
         from ssdseglib_torch.ops.depthwise_backward import (
             depthwise_conv3x3_fused_bwd,

@@ -216,6 +216,7 @@ class InferenceModel:
         input_layout_batch: int = 16,
         quantize_pointwise: bool = False,
         calibration_images=None,
+        s2d_stem=False,
     ) -> None:
         """compute_dtype: 'bfloat16' is the serving fast path (weights and
         convs in bf16); decode, gating and NMS always run in f32.
@@ -241,6 +242,11 @@ class InferenceModel:
         weights, outside any row partition, so every rank holds one
         process's tables.
 
+        s2d_stem: the stem + block 1 route of the fused forward, False,
+        ``"cuda"`` (the fused kernel) or ``"xla"`` (the packed conv
+        reformulation) (`fused_inference.make_fused_forward`); requires
+        ``fused_backbone``.
+
         input_layout / input_layout_batch: the JAX package's 'auto' compiles
         a program with XLA-chosen input layouts for one batch size.  The
         port's stem already reads the uint8 NHWC input in place as a
@@ -253,6 +259,8 @@ class InferenceModel:
                 "quantize_pointwise requires fused_backbone=True (the int8 "
                 "pointwise convs live in the folded-heads serving path)"
             )
+        if s2d_stem and not fused_backbone:
+            raise ValueError("s2d_stem requires fused_backbone=True")
         if input_layout not in ("default", "auto"):
             raise ValueError(
                 f"input_layout must be 'default' or 'auto', got {input_layout!r}"
@@ -299,6 +307,7 @@ class InferenceModel:
             state_dict = mesh_lib.replicate(mesh, state_dict)
         if fused_backbone:
             from ssdseglib_torch.models.fused_inference import (
+                _check_s2d_stem,
                 fused_forward,
                 fused_operands,
             )
@@ -308,12 +317,14 @@ class InferenceModel:
             cfg = module.cfg
             self._net = None
             # fold BN from the f32 weights, then cast to the compute dtype
+            _check_s2d_stem(s2d_stem)
             weights = fused_operands(cfg, state_dict, self._dtype, self.device,
+                                     s2d_stem=s2d_stem,
                                      quantize_pointwise=quantize_pointwise,
                                      calibration_images=calibration_images)
 
             def network(weights, images):
-                return fused_forward(cfg, weights, images)
+                return fused_forward(cfg, weights, images, s2d_stem)
         else:
             net = copy.deepcopy(module)
             if mesh is not None:
@@ -543,6 +554,7 @@ class _BuilderBase:
         input_layout_batch: int = 16,
         quantize_pointwise: bool = False,
         calibration_images=None,
+        s2d_stem=False,
     ) -> InferenceModel:
         """Args:
             model_trained: the trained `SsdSegModel`, or its state_dict.
@@ -562,6 +574,9 @@ class _BuilderBase:
                 two pointwise convs of `fused_inference.QUANT_TARGETS`;
                 requires fused_backbone and a representative calibration
                 batch in [0, 255].
+            s2d_stem: the fused forward's stem + block 1 route, False,
+                ``"cuda"`` or ``"xla"``; requires fused_backbone
+                (`InferenceModel`).
         """
         if isinstance(model_trained, SsdSegModel):
             module = model_trained
@@ -593,6 +608,7 @@ class _BuilderBase:
             input_layout_batch=input_layout_batch,
             quantize_pointwise=quantize_pointwise,
             calibration_images=calibration_images,
+            s2d_stem=s2d_stem,
         )
 
 

@@ -12,6 +12,14 @@ Options of `make_fused_forward`, all off the default path:
 - ``s2d_stem="cuda"``: stem + block 1 as one fused Hopper kernel
   (`ops/s2d_stem.py`) for inputs whose height and width are multiples of
   4; the input rescale is then a pass of its own.
+- ``s2d_stem="xla"``: stem + block 1 as the JAX package's conv
+  reformulation (`ops/s2d_stem.s2d_stem_block1_xla`: space-to-depth, four
+  images' channels packed side by side, library convs on the packed
+  widths), for batches of a multiple of 4 whose height and width are
+  multiples of 4, the weights packed once when the forward is built; the
+  input rescale is a pass of its own.  The function is the kernel's, so on
+  split rows it runs on the same window.  A batch or shape the gate refuses
+  takes the plain stem, as in the JAX package.
 - ``fused_heads=False``: the heads of `SsdSegModel` (unfolded, eval mode)
   under the folded backbone.
 - ``fold_input_rescale=False``: the standalone rescale at every shape.
@@ -19,9 +27,6 @@ Options of `make_fused_forward`, all off the default path:
   `QUANT_TARGETS` pointwise convs, per-output-channel weight scales and
   per-tensor activation scales calibrated on ``calibration_images``; each
   runs as one int8 tensor-core kernel (`ops/int8_pointwise.py`).
-Not ported: ``s2d_stem="xla"``, the conv reformulation of the stem study,
-which lost on the TPU (ROADMAP.md Queue 1 #5).
-
 `fused_operands` gives every tensor the forward reads and `fused_forward`
 is the forward as a function of them, which ``torch.export`` captures with
 the tensors as inputs (``export.py``); `make_fused_forward` binds the two.
@@ -50,7 +55,13 @@ from ssdseglib_torch.models.blocks import bilinear_resize, conv2d_same
 from ssdseglib_torch.models.mobilenetv2 import _SEQUENCES
 from ssdseglib_torch.ops.fused_mbconv import fold_conv_bn, fused_mbconv_rows
 from ssdseglib_torch.ops.int8_pointwise import int8_pointwise
-from ssdseglib_torch.ops.s2d_stem import fused_stem_block1, stem_block1_args
+from ssdseglib_torch.ops.s2d_stem import (
+    PACK,
+    fused_stem_block1,
+    pack_stem_block1,
+    s2d_stem_block1_xla,
+    stem_block1_args,
+)
 from ssdseglib_torch.parallel import spatial
 
 EXTRA_BLOCKS = ("backbone-block17", "backbone-block18")
@@ -255,23 +266,24 @@ def _mbconv_args(folded, block: int):
     )
 
 
+# the key of each s2d_stem route's operands among `fused_operands`
+STEM_OPERANDS = {"cuda": "backbone-stem-block1-args", "xla": "backbone-stem-block1-packed"}
+
+
 def _check_s2d_stem(s2d_stem) -> None:
-    if s2d_stem == "xla":
-        raise NotImplementedError(
-            "s2d_stem='xla' (the conv reformulation of the stem study) is not "
-            "ported: ROADMAP.md Queue 1 #5"
-        )
-    if s2d_stem not in (False, "cuda"):
+    if s2d_stem is not False and s2d_stem not in STEM_OPERANDS:
         # reject typos like 'cuba' / True instead of running another variant
-        raise ValueError(f"s2d_stem must be False or 'cuda'; got {s2d_stem!r}")
+        raise ValueError(f"s2d_stem must be False, 'cuda' or 'xla'; got {s2d_stem!r}")
 
 
-def _s2d_stem_applicable(x: torch.Tensor) -> bool:
-    """Shape gate of the fused stem + block 1 kernel on an NCHW input, read
-    on the global image (a shard's rows are the mesh's, not the image's):
-    the two stride-2 convs pad 0 before and 1 after only on even sizes."""
+def _s2d_stem_applicable(x: torch.Tensor, s2d_stem="cuda") -> bool:
+    """Shape gate of the stem + block 1 route on an NCHW input, the image's
+    size read on the global image (a shard's rows are the mesh's, not the
+    image's): the two stride-2 convs pad 0 before and 1 after only on even
+    sizes; ``"xla"`` packs PACK images of this rank's batch together."""
     rows, cols = spatial.global_size(x)
-    return rows % 4 == 0 and cols % 4 == 0
+    shape_ok = rows % 4 == 0 and cols % 4 == 0
+    return shape_ok and (s2d_stem != "xla" or x.shape[0] % PACK == 0)
 
 
 # image rows above and below a shard's own that its window holds for the
@@ -284,26 +296,29 @@ def _s2d_stem_applicable(x: torch.Tensor) -> bool:
 STEM_HALO = (4, 8)
 
 
-def _stem_block1(x: torch.Tensor, args) -> torch.Tensor:
-    """Stem + block 1 on the NCHW channels-last image ``x``: the kernel on
-    the NHWC view (a copy that view needs is counted on
+def _stem_block1(x: torch.Tensor, folded, s2d_stem="cuda") -> torch.Tensor:
+    """Stem + block 1 on the NCHW channels-last image ``x`` through the
+    ``s2d_stem`` route, the kernel (``"cuda"``) or the packed convs
+    (``"xla"``), on the NHWC view (a copy that view needs is counted on
     ``mobilenetv2_features_fused.copies``); on split rows on this rank's
     window of image rows (`STEM_HALO`), the window's halo outputs dropped;
     the whole image on every rank where block 1's output level is whole."""
+    route = fused_stem_block1 if s2d_stem == "cuda" else s2d_stem_block1_xla
+    args = folded[STEM_OPERANDS[s2d_stem]]
     rows, cols = spatial.global_size(x)
     if not spatial.split_at(-(-rows // 4), -(-cols // 4)):
         x = spatial.whole(x)
     window = spatial.edge_window(x, *STEM_HALO)
     if window is not None:
         launched = fused_stem_block1.launches
-        y = fused_stem_block1(window.rows.permute(0, 2, 3, 1).contiguous(), args)
+        y = route(window.rows.permute(0, 2, 3, 1).contiguous(), args)
         fused_stem_block1.window_launches += fused_stem_block1.launches - launched
         return y[:, window.top // 4:y.shape[1] - window.bottom // 4].permute(0, 3, 1, 2)
     nhwc = x.permute(0, 2, 3, 1)
     if not nhwc.is_contiguous():
         mobilenetv2_features_fused.copies += 1
         nhwc = nhwc.contiguous()
-    return fused_stem_block1(nhwc, args).permute(0, 3, 1, 2)
+    return route(nhwc, args).permute(0, 3, 1, 2)
 
 
 def mobilenetv2_features_fused(folded, x: torch.Tensor, s2d_stem=False):
@@ -314,15 +329,17 @@ def mobilenetv2_features_fused(folded, x: torch.Tensor, s2d_stem=False):
     arguments of each stride-1 residual repeat.
 
     s2d_stem: ``"cuda"`` runs stem + block 1 as one fused kernel
-    (`ops/s2d_stem.py`, arguments under ``backbone-stem-block1-args``) when
-    the input shape allows it (`_stem_block1`).  Default off.  Each stride-1
+    (`ops/s2d_stem.py`, arguments under ``backbone-stem-block1-args``),
+    ``"xla"`` as the packed conv reformulation (under
+    ``backbone-stem-block1-packed``), when the input allows it
+    (`_s2d_stem_applicable`, `_stem_block1`).  Default off.  Each stride-1
     residual repeat runs the MBConv kernel (`ops/fused_mbconv.
     fused_mbconv_rows`: on split rows, on this rank's window)."""
     _check_s2d_stem(s2d_stem)
-    use_s2d = bool(s2d_stem) and _s2d_stem_applicable(x)
+    use_s2d = bool(s2d_stem) and _s2d_stem_applicable(x, s2d_stem)
     if use_s2d:
         # a channels-last view, as the convs below take it
-        x = _stem_block1(x, folded["backbone-stem-block1-args"])
+        x = _stem_block1(x, folded, s2d_stem)
     else:
         (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 0)
         x = _conv(x, we, be, stride=2, relu6=True)
@@ -474,8 +491,9 @@ def fused_operands(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
     """Every tensor `fused_forward` reads, keyed by conv: the BN-folded
     backbone convs (OIHW kernel, bias), the stem with the input rescale
     folded in (under ``fold_input_rescale``, not under ``s2d_stem``), the
-    kernels' arguments of each stride-1 residual repeat and of the stem +
-    block 1 (under ``s2d_stem``), with ``heads`` the folded head convs, and
+    kernels' arguments of each stride-1 residual repeat, the operands of the
+    ``s2d_stem`` route (`STEM_OPERANDS`; ``"xla"``'s packed on the host from
+    the f32 folds), with ``heads`` the folded head convs, and
     with ``quantize_pointwise`` the int8 tables of each QUANT_TARGETS conv
     (`int8_tables`, keyed ``target + INT8_SUFFIX``), calibrated on
     ``calibration_images`` by `calibrate_pointwise_scales`'s pass.  Folding
@@ -497,8 +515,11 @@ def fused_operands(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
                                        cfg.input_image_shape[:2])},
             compute_dtype, device,
         )["stem"]
-    if s2d_stem:
-        operands["backbone-stem-block1-args"] = stem_block1_args(operands)
+    if s2d_stem == "cuda":
+        operands[STEM_OPERANDS["cuda"]] = stem_block1_args(operands)
+    elif s2d_stem == "xla":
+        operands[STEM_OPERANDS["xla"]] = _to_device(
+            {"packed": pack_stem_block1(folded_f32)}, compute_dtype, device)["packed"]
     block = 0
     for _, _, n_repeat, _ in _SEQUENCES:
         for n in range(n_repeat):
@@ -585,10 +606,11 @@ def make_fused_forward(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat1
     takes the standalone rescale (the border bias map is shape-specific).
     Off under ``s2d_stem``, whose kernel takes the rescaled image.
 
-    s2d_stem: ``"cuda"`` runs stem + block 1 as one fused kernel (see
-    `mobilenetv2_features_fused`).  fused_heads: run the task heads through
-    the BN-folded, concat-free `heads_forward_folded`; ``False`` runs the
-    heads of `SsdSegModel` as they are.  Folding runs in f32; the weights
+    s2d_stem: ``"cuda"`` runs stem + block 1 as one fused kernel, ``"xla"``
+    as the packed conv reformulation (see `mobilenetv2_features_fused`).
+    fused_heads: run the task heads through the BN-folded, concat-free
+    `heads_forward_folded`; ``False`` runs the heads of `SsdSegModel` as
+    they are.  Folding runs in f32; the weights
     are then cast to ``compute_dtype``.
 
     quantize_pointwise: run the QUANT_TARGETS pointwise convs in int8

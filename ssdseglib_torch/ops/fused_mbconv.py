@@ -224,17 +224,35 @@ def kernel_tile(dtype: torch.dtype, cin: int, expanded: int, cout: int):
 
 def fused_mbconv_reference(
     x, w_expand, b_expand, w_depthwise, b_depthwise, w_project, b_project,
-    residual: bool = True,
+    residual: bool = True, k_groups: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel, with the same rounding points:
     f32 accumulation, rounding to x's dtype after expand + bias, after
     depthwise + bias and after project + bias, then the residual added in
-    x's dtype.  Same arguments as `fused_mbconv`."""
+    x's dtype.  Same arguments as `fused_mbconv`.
+
+    With ``k_groups`` the two 1x1 products sum in the bf16 kernel's order
+    (csrc/fused_mbconv.cu): the K axis in 16-deep steps taken in k order,
+    each one mma.sync step into the running f32 accumulator
+    (`s2d_stem.tensor_core_step` with ``acc``, the H100's step), from 0 --
+    the project's steps run on across the chunks of E -- and the bias added
+    to the finished sum, as the kernel's expand and its epilogue add it."""
     w1, wd, w3 = _as_kernel_args(x, w_expand, w_depthwise, w_project)
     dt, f32 = x.dtype, torch.float32
     batch, h, w, cin = x.shape
     e = w1.shape[1]
-    expanded = (x.reshape(-1, cin).to(f32) @ w1.to(f32) + b_expand.to(f32))
+
+    def product(a, weight):
+        if not k_groups:
+            return a.to(f32) @ weight.to(f32)
+        from ssdseglib_torch.ops.s2d_stem import tensor_core_step
+
+        acc = torch.zeros((a.shape[0], weight.shape[1]), dtype=f32, device=a.device)
+        for k0 in range(0, a.shape[1], 16):
+            acc = tensor_core_step(a[:, k0:k0 + 16], weight[k0:k0 + 16], acc)
+        return acc
+
+    expanded = product(x.reshape(-1, cin), w1) + b_expand.to(f32)
     expanded = expanded.to(dt).clamp(0.0, 6.0).reshape(batch, h, w, e)
     padded = F.pad(expanded, (0, 0, 1, 1, 1, 1))  # zero halo of the expanded tensor
     taps = wd.to(f32)
@@ -243,6 +261,6 @@ def fused_mbconv_reference(
         for dx in range(3):
             d = d + padded[:, dy:dy + h, dx:dx + w, :].to(f32) * taps[dy * 3 + dx]
     d = (d + b_depthwise.to(f32)).to(dt).clamp(0.0, 6.0)
-    out = (d.reshape(-1, e).to(f32) @ w3.to(f32) + b_project.to(f32)).to(dt)
+    out = (product(d.reshape(-1, e), w3) + b_project.to(f32)).to(dt)
     out = out.reshape(batch, h, w, -1)
     return out + x if residual else out

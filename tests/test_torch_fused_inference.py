@@ -230,6 +230,14 @@ def test_make_fused_forward_rejects_unknown_s2d_stem(setup, bad):
 
 
 def test_make_fused_forward_names_the_queue_of_the_xla_variant(setup):
-    _, _, state, _ = setup
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        port_fused.make_fused_forward(PORT_CFG, state, device="cpu", s2d_stem="xla")
+    """``s2d_stem="xla"`` (the packed conv reformulation, ported) against
+    the default path at b4, f32, within the file's bound; a batch of 3
+    takes the plain stem and gives the default path's outputs."""
+    _, _, state, forward = setup
+    xla = port_fused.make_fused_forward(PORT_CFG, state, torch.float32, device="cpu",
+                                        s2d_stem="xla")
+    x = torch.from_numpy(images(7, (4, 96, 128, 3)))
+    got, want = xla(x), forward(x)
+    _compare({k: v.numpy() for k, v in want.items()}, got, 2e-3)
+    got, want = xla(x[:3]), forward(x[:3])
+    _compare({k: v.numpy() for k, v in want.items()}, got, 1e-5)

@@ -8,7 +8,8 @@ walked in chunks of EC channels, the project summed over the chunks, ragged
 edge tiles -- is emulated here in plain PyTorch (`_emulate_decomposition`)
 and held against the twin and the Pallas kernel, in f32 at 1e-5, at the
 (th, tw, EC) the source picks for each width and at shapes whose halo
-crosses every image border."""
+crosses every image border.  The twin that sums in the kernel's
+tensor-core order (``k_groups=True``) is held against the plain twin."""
 
 import os
 import re
@@ -218,3 +219,20 @@ def test_kernel_decomposition_in_bf16_within_two_ulps_of_twin(cin, e, tile):
     twin = fused_mbconv_reference(xt, w1, b1, wd, b2, w3, b3, True)
     np.testing.assert_allclose(got.float().numpy(), twin.float().numpy(), rtol=1.6e-2,
                                atol=1.6e-2)
+
+
+@pytest.mark.parametrize("cin,e", [(24, 144), (64, 384)])
+def test_k_group_twin_within_two_ulps_of_the_plain_twin(cin, e):
+    """The twin in the bf16 kernel's tensor-core order (16-deep mma steps
+    into the running accumulator) against the plain twin: within the
+    kernel's bf16 tolerance (2 ulps of the value), and in f32 within 1e-5;
+    the order changes roundings, not the function."""
+    x, weights = _block(cin * 5 + e, cin, e, cin, 9, 13)
+    for dtype, tol in ((torch.bfloat16, 1.6e-2), (torch.float32, 1e-5)):
+        xt = torch.from_numpy(x).to(dtype)
+        wt = [torch.from_numpy(a).to(dtype) for a in weights]
+        got = fused_mbconv_reference(xt, *wt, residual=True, k_groups=True)
+        want = fused_mbconv_reference(xt, *wt, residual=True)
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=tol,
+                                   atol=tol)

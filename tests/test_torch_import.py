@@ -40,6 +40,7 @@ SLICE_MODULES = (
     "ssdseglib_torch.ops.nms_scan",
     "ssdseglib_torch.ops.int8_pointwise",
     "ssdseglib_torch.ops.s2d_stem",
+    "ssdseglib_torch.ops.depthwise",
     "ssdseglib_torch.utils.serving",
     "ssdseglib_torch.ops.pointwise_wgrad",
     "ssdseglib_torch.ops.conv_backward",
@@ -55,6 +56,9 @@ SLICE_MODULES = (
     "ssdseglib_torch.models.shufflenetv2",
     "ssdseglib_torch.examples",
     "ssdseglib_torch.examples.train_multitask",
+    "ssdseglib_torch.examples.ssd_framework",
+    "ssdseglib_torch.examples.check_dataset_class_imbalance",
+    "ssdseglib_torch.examples.detection_learning",
     "ssdseglib_torch.export",
     "ssdseglib_torch.keras_import",
     "ssdseglib_torch.data.native_loader",

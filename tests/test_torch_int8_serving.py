@@ -427,7 +427,8 @@ def test_every_jax_keyword_of_get_model_for_inference_is_the_port_s():
     theirs = keywords(tpu_builder._BuilderBase.get_model_for_inference)
     ours = keywords(port_builder._BuilderBase.get_model_for_inference)
     assert theirs - ours == set()
-    assert ours - theirs == {"device"}
+    # the port's additions: the device, and make_fused_forward's stem route
+    assert ours - theirs == {"device", "s2d_stem"}
 
 
 def test_builder_refuses_quantization_without_the_fused_backbone(served):

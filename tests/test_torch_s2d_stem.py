@@ -7,7 +7,12 @@ The bf16 kernel's decomposition -- output tiles with their halos, block 1's
 edge tiles -- is emulated here in plain PyTorch (`_emulate_decomposition`)
 at the tile and chunk the source picks, and held against the plain version
 and the Pallas kernel; so is the plain version that sums in the kernel's
-tensor-core order (``k_groups=True``)."""
+tensor-core order (``k_groups=True``).
+
+The JAX package's second study, the packed conv reformulation
+(``s2d_stem="xla"``): the weight packers bit for bit, `s2d_stem_block1_xla`
+against the JAX function, and the backbone through it against the JAX
+package's."""
 
 import os
 import re
@@ -18,11 +23,19 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from ssdseglib_tpu.models import fused_inference as tpu_fused
 from ssdseglib_tpu.models.fused_inference import _conv
+from ssdseglib_tpu.ops import s2d_stem as tpu_s2d
 from ssdseglib_tpu.ops.s2d_stem import fused_s2d_stem_block1
 from ssdseglib_torch.models import fused_inference as port_fused
 from ssdseglib_torch.ops import s2d_stem
-from tests.torch_parity import make_stem_folded, port_folded, two_torch_threads  # noqa: F401
+from tests.torch_parity import (  # noqa: F401
+    bf16_ulps,
+    make_stem_folded,
+    port_folded,
+    port_model_and_jax_variables,
+    two_torch_threads,
+)
 
 F32_TOL = 2e-5  # the JAX package's own bound between its kernel and its convs
 BF16_ULPS = 2 * 2.0 ** -8  # two bf16 ulps, relative
@@ -148,18 +161,24 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
         s2d_stem.fused_stem_block1(ok, args[:-1] + (torch.zeros(25),))
 
 
-def test_s2d_stem_value_validation():
-    """Typos fail loudly, the unported conv reformulation says where it is
-    queued, and a shape the gate refuses takes the plain stem."""
+def test_s2d_stem_value_validation(backbone):
+    """Typos fail loudly, the conv reformulation gives the kernel route's
+    plain version's taps, and a shape the gate refuses takes the plain
+    stem: for "xla" a batch that is not a multiple of PACK as well."""
     x = torch.zeros(1, 3, 8, 8)
     for bad in ("palas", "pallas", True):
         with pytest.raises(ValueError, match="s2d_stem"):
             port_fused.mobilenetv2_features_fused({}, x, s2d_stem=bad)
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        port_fused.mobilenetv2_features_fused({}, x, s2d_stem="xla")
+    operands, _, images = backbone
+    xla = port_fused.mobilenetv2_features_fused(operands, images, s2d_stem="xla")
+    cuda = port_fused.mobilenetv2_features_fused(operands, images, s2d_stem="cuda")
+    for got, want in zip(xla, cuda):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
     assert port_fused._s2d_stem_applicable(torch.zeros(3, 3, 36, 52))
     assert not port_fused._s2d_stem_applicable(torch.zeros(4, 3, 482, 640))
     assert not port_fused._s2d_stem_applicable(torch.zeros(4, 3, 480, 642))
+    assert port_fused._s2d_stem_applicable(torch.zeros(4, 3, 36, 52), "xla")
+    assert not port_fused._s2d_stem_applicable(torch.zeros(3, 3, 36, 52), "xla")
 
 
 def _source_config():
@@ -322,3 +341,110 @@ def test_tensor_core_step_rounds_the_exact_sum_toward_zero():
     assert step.dtype == torch.float32
     assert step[:, 0].tolist() == [1.0, -1.0]
     assert (x.double() @ w.double()).float()[0, 0].item() == 1.0 + 2.0 ** -23
+
+
+# --- the packed conv reformulation (s2d_stem="xla") --------------------------
+
+@pytest.fixture(scope="module")
+def backbone():
+    """The port's folded f32 operands of a random SMALL_CFG model with
+    ``s2d_stem="xla"`` and ``"cuda"`` (both routes' operands), the JAX
+    package's fold of the same weights, and 4 rescaled 48x64 images as a
+    channels-last NCHW tensor."""
+    model, variables = port_model_and_jax_variables()
+    state = model.state_dict()
+    operands = port_fused.fused_operands(model.cfg, state,
+                                         torch.float32, "cpu", s2d_stem="xla", heads=False)
+    operands[port_fused.STEM_OPERANDS["cuda"]] = s2d_stem.stem_block1_args(operands)
+    x = np.random.default_rng(8).uniform(-1, 1, (4, 48, 64, 3)).astype(np.float32)
+    images = torch.from_numpy(x).permute(0, 3, 1, 2)
+    return operands, tpu_fused.fold_mobilenetv2(variables), images
+
+
+@pytest.mark.parametrize("packer", ["pack_stem_expand", "pack_depthwise", "pack_pointwise"])
+def test_packers_equal_the_jax_packers(packer):
+    folded = make_stem_folded(np.random.default_rng(12))
+    name = {"pack_stem_expand": "backbone-block0-expand",
+            "pack_depthwise": "backbone-block1-depthwise",
+            "pack_pointwise": "backbone-block1-expand"}[packer]
+    got = getattr(s2d_stem, packer)(*folded[name])
+    want = getattr(tpu_s2d, packer)(*folded[name])
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert s2d_stem.PACK == tpu_s2d.PACK
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_s2d_stem_block1_xla_matches_jax(dtype):
+    """The packed convs against the JAX function on the same folded convs:
+    f32 within 1e-5 (and of the port's plain stem), bf16 within two bf16
+    ulps.  The ulps are counted, not taken relative to |value|: the two
+    sum each conv in another order, so an intermediate may round to its
+    other neighbour, which the later convs carry."""
+    rng = np.random.default_rng(13)
+    folded = make_stem_folded(rng)
+    x = rng.uniform(-1, 1, (8, 32, 48, 3)).astype(np.float32)
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    packed = [torch.from_numpy(a).to(tdt) for a in s2d_stem.pack_stem_block1(
+        {k: (w.numpy(), b.numpy()) for k, (w, b) in port_folded(folded).items()})]
+    got = s2d_stem.s2d_stem_block1_xla(torch.from_numpy(x).to(tdt), packed)
+    want = np.asarray(tpu_s2d.s2d_stem_block1_xla(jnp.asarray(x, jdt), folded), np.float32)
+    assert got.dtype == tdt and tuple(got.shape) == (8, 8, 12, 24)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        plain = _port(folded, x)
+        np.testing.assert_allclose(got.numpy(), plain, rtol=1e-5, atol=1e-5)
+        return
+    ulps = bf16_ulps(got, torch.from_numpy(want).bfloat16())
+    assert int(ulps.max()) <= 2 and float((ulps > 0).float().mean()) < 1e-2
+
+
+def test_backbone_through_the_packed_convs_matches_jax(backbone):
+    """`mobilenetv2_features_fused(s2d_stem="xla")` against the JAX
+    package's at b4 (its MBConv Pallas kernel in interpret mode), f32: the
+    three head taps."""
+    operands, jax_folded, images = backbone
+    got = port_fused.mobilenetv2_features_fused(operands, images, s2d_stem="xla")
+    want = tpu_fused.mobilenetv2_features_fused(
+        jax_folded, jnp.asarray(images.permute(0, 2, 3, 1).numpy()), interpret=True,
+        s2d_stem="xla")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_a_batch_of_three_takes_the_plain_stem(backbone, monkeypatch):
+    operands, _, images = backbone
+
+    def refuse(*args):
+        raise AssertionError("the packed convs were called")
+
+    monkeypatch.setattr(port_fused, "s2d_stem_block1_xla", refuse)
+    got = port_fused.mobilenetv2_features_fused(operands, images[:3], s2d_stem="xla")
+    want = port_fused.mobilenetv2_features_fused(operands, images[:3])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(AssertionError, match="packed convs"):
+        port_fused.mobilenetv2_features_fused(operands, images, s2d_stem="xla")
+
+
+def test_tensor_core_step_cuts_terms_at_the_largest_exponent():
+    """The H100's step aligns the terms to the largest exponent and cuts
+    them 25 bits below its unit bit before the sum: -2^-27 next to 1 is cut
+    to 0 and the step gives 1, where the exact sum 1 - 2^-27 rounded toward
+    zero gives 1 - 2^-24; a term on the grid (-2^-25) is kept.  A product's
+    exponent is the sum of its factors': 1.5 * 1.5 = 2.25 counts as 2^0,
+    so -2^-25 beside it is kept too (2.25 - 2^-25 rounds toward zero to
+    2.25 - 2^-22).  The accumulator is one of the terms."""
+    w = torch.ones(2, 1).bfloat16()
+    x = torch.tensor([[1.0, -2.0 ** -27], [1.0, -2.0 ** -25]]).bfloat16()
+    step = s2d_stem.tensor_core_step(x, w)
+    assert step[:, 0].tolist() == [1.0, 1.0 - 2.0 ** -24]
+    acc = torch.tensor([[-2.0 ** -27], [0.0]])
+    got = s2d_stem.tensor_core_step(x[:, :1], w[:1], acc)
+    assert got[:, 0].tolist() == [1.0, 1.0]
+    wide = s2d_stem.tensor_core_step(torch.tensor([[1.5, -2.0 ** -25]]).bfloat16(),
+                                     torch.tensor([[1.5], [1.0]]).bfloat16())
+    assert wide[0, 0].item() == 2.25 - 2.0 ** -22

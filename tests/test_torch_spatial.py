@@ -32,7 +32,9 @@ Gates:
 - the hand-written kernels on row windows (their plain versions on the
   CPU): fused serving (1x4 b1; 2x2 b4 with int8 pointwise convs; 1x4 with
   ``s2d_stem='cuda'``) against one process's fused serving at the serving
-  gates above; the fused forward on 1x4 against the JAX package's
+  gates above; f32 serving on 2x2 at b2 under ``set_depthwise_impl("shift")``
+  against one process under "shift" at the serving gates; the fused
+  forward on 1x4 against the JAX package's
   make_fused_forward (Pallas in interpret mode) on one device at
   tests/test_torch_fused_inference.py's 2e-3; one f32 step on 2x2 with the
   depthwise and with the chain backward gate 'cuda' (envelopes read at the
@@ -40,7 +42,9 @@ Gates:
   mesh's ATen route, at the step gates above; each windowed plain version
   alone (no ranks) on a top, an inner and a bottom window against the same
   plain version on the whole map's rows in f32: exact for the MBConv and
-  the stem (each output reads the same values in the same order), 2e-6 of
+  the stem, and for the stem's packed conv reformulation (``s2d_stem="xla"``)
+  on the same windows (each output reads the same values in the same
+  order), 2e-6 of
   the largest magnitude for the depthwise and chain backward (dx at a
   window's edge and dk sum the windows' parts in another order).
 - must-miss: the serving case with the halo rows left at zero, the fused
@@ -52,6 +56,8 @@ Gates:
   the whole window), miss those gates; the last two pass the metric gate
   and fail the f32 gradient gate.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -67,6 +73,7 @@ from ssdseglib_tpu.parallel import spatial as jax_spatial
 
 from ssdseglib_torch import parallel
 from ssdseglib_torch.config import ModelConfig
+from ssdseglib_torch.models import blocks
 from ssdseglib_torch.models.builder import SsdSegModel
 from ssdseglib_torch.models.fused_inference import STEM_HALO
 from ssdseglib_torch.ops import depthwise_backward as dwb
@@ -93,6 +100,9 @@ F64_GATE = 1e-4
 F32_GRADIENT_GATE = 5e-2
 JAX_FUSED_GATE = 2e-3  # tests/test_torch_fused_inference.py's, the JAX package's own bound
 WINDOW_SUM_GATE = 2e-6  # of the largest magnitude: the windows' parts summed in another order
+# OIHW shapes of the six folded convs of the stem and block 1
+STEM_OIHW = ((32, 3, 3, 3), (32, 1, 3, 3), (16, 32, 1, 1), (96, 16, 1, 1), (96, 1, 3, 3),
+             (24, 96, 1, 1))
 
 
 def _jax_builder():
@@ -466,6 +476,22 @@ def test_backward_kernels_on_windows_step_as_one_process(ranks, gated_steps, rou
                                result["kernel_step"][route]["batch_stats"])
 
 
+def test_shift_depthwise_serves_as_one_process(inputs, ranks):
+    """f32 `predict` at b2 on 2x2 (each data group's image split in two
+    rows, 1x2) under ``set_depthwise_impl("shift")``: the shifted taps on
+    `window_rows`' windows against one process under "shift"."""
+    blocks.set_depthwise_impl("shift")
+    try:
+        mask, det = S._serve(inputs["variables"], None, **S.SERVE_NO_SUPPRESSION).predict(
+            inputs["serve_images"][:2])
+    finally:
+        blocks.set_depthwise_impl("conv")
+    for result in ranks.results():
+        got_mask, got_det = result["shift"]["predict"]
+        np.testing.assert_allclose(got_mask, mask, **MASK_GATE)
+        np.testing.assert_allclose(got_det, det, **DETECTION_GATE)
+
+
 def test_backward_envelopes_read_the_global_rows(ranks):
     """On 1x4 at block0-depthwise's flagship map (32 channels at 240x320,
     2.46 M values; a shard's 60 rows hold 614 k, under the envelopes' 1 M)
@@ -515,6 +541,22 @@ def _stem_windows(gen):
         yield got[:, (first - a) // 4:(stop - a) // 4], whole[:, first // 4:stop // 4], 0.0
 
 
+def _stem_xla_windows(gen):
+    """The packed conv reformulation (``s2d_stem="xla"``) on the stem
+    kernel's windows (`STEM_HALO`): the same function, so the same rows."""
+    folded = {name: ((torch.randn(*shape, generator=gen) * math.prod(shape[1:]) ** -0.5).numpy(),
+                     (torch.randn(shape[0], generator=gen) * 0.1).numpy())
+              for name, shape in zip(s2d_stem._NAMES, STEM_OIHW)}
+    packed = [torch.from_numpy(a) for a in s2d_stem.pack_stem_block1(folded)]
+    images = torch.rand(4, 96, 32, 3, generator=gen) * 2.0 - 1.0
+    whole = s2d_stem.s2d_stem_block1_xla(images, packed)
+    before, after = STEM_HALO
+    for _, first, stop in _windows(96):
+        a, b = max(first - before, 0), min(stop + after, 96)
+        got = s2d_stem.s2d_stem_block1_xla(images[:, a:b].contiguous(), packed)
+        yield got[:, (first - a) // 4:(stop - a) // 4], whole[:, first // 4:stop // 4], 0.0
+
+
 def _backward_windows(gen, chain: bool):
     """The depthwise (or chain) backward on each window of a 4-way split:
     one fill row each side, dy padded by a zero row at each end (the chain:
@@ -556,13 +598,15 @@ def _backward_windows(gen, chain: bool):
     yield sum(dk for _, dk in parts), want_dk, WINDOW_SUM_GATE
 
 
-@pytest.mark.parametrize("kernel", ["mbconv", "stem", "depthwise_backward", "chain_backward"])
+@pytest.mark.parametrize("kernel", ["mbconv", "stem", "stem_xla", "depthwise_backward",
+                                    "chain_backward"])
 def test_windowed_plain_versions_match_the_whole_map(kernel):
     """Each kernel's plain version on row windows, without ranks, on
     the top, an inner and the bottom window of a 4-way split, against the
-    same plain version on the whole map's rows, f32."""
+    same plain version on the whole map's rows, f32; and the stem's packed
+    conv reformulation, which takes the stem kernel's windows."""
     gen = torch.Generator().manual_seed(7)
-    cases = {"mbconv": _mbconv_windows, "stem": _stem_windows,
+    cases = {"mbconv": _mbconv_windows, "stem": _stem_windows, "stem_xla": _stem_xla_windows,
              "depthwise_backward": lambda g: _backward_windows(g, chain=False),
              "chain_backward": lambda g: _backward_windows(g, chain=True)}[kernel](gen)
     for got, want, gate in cases:

@@ -39,20 +39,9 @@ def test_package_surface_is_the_jax_package_s_less_the_named_missing():
 # What a module of the JAX package defines and the port leaves out on purpose,
 # by module path: each name (a whole module: "*") with the reason.
 LEFT_OUT = {
-    "ops/depthwise.py": {"*": "the shifted-tap depthwise study, a TPU layout choice that "
-                              "lost there (ROADMAP.md Queue 1 #5)"},
-    "models/blocks.py": {
-        "set_depthwise_impl": "the gate of ops/depthwise.py (ROADMAP.md Queue 1 #5)",
-        "DEPTHWISE_IMPL": "the gate of ops/depthwise.py (ROADMAP.md Queue 1 #5)"},
     "ops/nms_pallas.py": {"*": "ported as ops/nms_scan.py (its CUDA scan kernel)"},
     "ops/s2d_stem.py": {
-        "PACK": "the Pallas kernel's lane packing (4 images a 128-lane group)",
-        "pack_stem_expand": "packs weights for the Pallas kernel's lane layout",
-        "pack_depthwise": "packs weights for the Pallas kernel's lane layout",
-        "pack_pointwise": "packs weights for the Pallas kernel's lane layout",
-        "fused_s2d_stem_block1": "the Pallas kernel's wrapper; the port's is fused_stem_block1",
-        "s2d_stem_block1_xla": "the conv reformulation study that lost on the TPU "
-                               "(ROADMAP.md Queue 1 #5)"},
+        "fused_s2d_stem_block1": "the Pallas kernel's wrapper; the port's is fused_stem_block1"},
     "ops/fused_mbconv.py": {
         "fold_block": "folds one block of a Flax tree; the port folds its state_dict in "
                       "models/fused_inference.fold_mobilenetv2"},

@@ -105,6 +105,37 @@ def port_model(cfg: ModelConfig, variables):
     return model
 
 
+def port_model_and_jax_variables(cfg: ModelConfig = SMALL_CFG, seed: int = 0):
+    """The port's eval-mode SsdSegModel, weights drawn from a torch.Generator
+    seeded ``seed`` and BatchNorm statistics and biases from uniform(0.5,
+    1.5) as `randomize_batchnorm` draws them, and the same weights as the JAX
+    package's variables (`weights.to_flax_variables`): the pair of
+    `jax_model_and_variables` and `port_model` without the JAX init's
+    compile."""
+    from ssdseglib_torch.config import ModelConfig as PortModelConfig
+    from ssdseglib_torch.models.builder import SsdSegModel
+    from ssdseglib_torch.weights import to_flax_variables
+
+    generator = torch.Generator().manual_seed(seed)
+    model = SsdSegModel(PortModelConfig(**vars(cfg)), generator)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                for t in (m.running_mean, m.running_var, m.bias):
+                    t.copy_(torch.rand(t.shape, generator=generator) + 0.5)
+    return model.eval(), to_flax_variables(model.state_dict())
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """How many bf16 values lie between ``got`` and ``want`` (bf16 tensors),
+    element by element: their distance in bf16 ulps."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7fff), bits)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
 def images(seed: int, shape, dtype=np.float32):
     rng = np.random.default_rng(seed)
     if dtype == np.uint8:

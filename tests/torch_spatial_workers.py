@@ -197,6 +197,17 @@ def case_serving(meshes, inputs, directory):
     return out
 
 
+def case_shift(meshes, inputs, directory):
+    """f32 `predict` at b2 on 2x2 (one image a data group, its rows split
+    in two) under ``set_depthwise_impl("shift")``."""
+    blocks.set_depthwise_impl("shift")
+    try:
+        infer = _serve(inputs["variables"], meshes["2x2"], **SERVE_NO_SUPPRESSION)
+        return {"predict": infer.predict(inputs["serve_images"][:2])}
+    finally:
+        blocks.set_depthwise_impl("conv")
+
+
 def grads64(mesh, variables, images, targets):
     """The f64 gradient of one train-mode step's objective and its loss
     metrics, through the trainer's own pieces: the rows taken
@@ -486,6 +497,7 @@ CASES = {
     "mesh": case_mesh,
     "ops": case_ops,
     "serving": case_serving,
+    "shift": case_shift,
     "step": case_step,
     "fit": case_fit,
     "fused": case_fused,
