@@ -1,0 +1,11 @@
+"""Forward convolution operations per image (`work.flops`) times the
+untraced window's images/s, over the bf16 dense peak (`work.peaks`), %."""
+
+from benchmark.work import peaks
+
+
+def read(records):
+    rate = records.get("untraced_images_per_s")
+    if not rate:
+        return None
+    return 100.0 * records["work"]["forward_flops_per_image"] * rate / peaks.BF16_DENSE_FLOPS

@@ -1,0 +1,8 @@
+"""Device operations (kernels, copies, sets) per training step in the
+traced window."""
+
+
+def read(records):
+    if not records["units"]:
+        return None
+    return len(records["timeline"].device_ops) / records["units"]
