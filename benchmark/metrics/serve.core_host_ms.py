@@ -1,0 +1,10 @@
+"""Host time of the program's ``serve.core`` span (the forward, the
+segmentation gating and the decode, dispatched), mean over the traced
+window's calls, ms."""
+
+from benchmark.harness import program_spans
+
+
+def read(records):
+    placed = program_spans.placed(records)
+    return None if placed is None else placed.mean_ms("serve.core")

@@ -1,0 +1,9 @@
+"""Host time of the program's ``serve.stage`` span (`stage_input`: pinning
+and the non-blocking upload), mean over the traced window's calls, ms."""
+
+from benchmark.harness import program_spans
+
+
+def read(records):
+    placed = program_spans.placed(records)
+    return None if placed is None else placed.mean_ms("serve.stage")

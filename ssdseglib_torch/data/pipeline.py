@@ -25,6 +25,7 @@ together see what one process sees.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import queue
@@ -48,6 +49,7 @@ from ssdseglib_torch.datacoder import (
 )
 from ssdseglib_torch.parallel import mesh as mesh_lib
 from ssdseglib_torch.utils import sample_cache as _sample_cache
+from ssdseglib_torch.utils.profiling import span
 
 PathTriple = Tuple[str, str, str]  # (image.png, mask.png, labels_boxes.csv)
 Sample = Union[PathTriple, SyntheticSample]
@@ -108,6 +110,12 @@ class HostBatcher:
     ``batch_size``, only the contiguous slice ``index`` of ``count`` equal
     slices is decoded and yielded (a batch that does not divide raises
     ValueError, as `parallel.shard_batch` does).
+
+    While a profiler records, the producer thread's assembly of each batch
+    is the span ``loader.batch`` and each wait of the consumer on the queue
+    ``loader.wait``, whose value is the batches queued when the wait began;
+    both are indexed by the batch's place in the epoch
+    (`utils.profiling.span`).
     """
 
     def __init__(
@@ -276,10 +284,11 @@ class HostBatcher:
                             np.stack([v[k] for v in vals]) for k in range(5)
                         )
 
-                    for idx in batches:
+                    for i, idx in enumerate(batches):
                         if stop.is_set():
                             return
-                        batch = cached_batch(idx)
+                        with span("loader.batch", i):
+                            batch = cached_batch(idx)
                         if not put(batch):
                             return
                 put(None)
@@ -289,8 +298,9 @@ class HostBatcher:
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         try:
-            while True:
-                item = q.get()
+            for i in itertools.count():
+                with span("loader.wait", i, q.qsize()):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, _ProducerError):

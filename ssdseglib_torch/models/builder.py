@@ -43,6 +43,7 @@ from ssdseglib_torch.models.shufflenetv2 import STAGE_CHANNELS, ShuffleNetV2Back
 from ssdseglib_torch.ops.encoding import decode_predictions_to_corners_yx
 from ssdseglib_torch.parallel import mesh as mesh_lib
 from ssdseglib_torch.parallel import spatial
+from ssdseglib_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -340,6 +341,7 @@ class InferenceModel:
                 return torch.func.functional_call(self._net, weights, (x,))
         self._network = network
         self._operands = {"network": weights, "anchors_centroids": anchors}
+        self._calls = 0
 
     def serving_core(self, operands, images: torch.Tensor):
         """Forward + decode + gating: (mask, gated labels, boxes_yx)."""
@@ -356,17 +358,23 @@ class InferenceModel:
         )
         return mask, labels, boxes_yx
 
-    def serving_program(self, operands, images: torch.Tensor,
-                        iou_threshold: torch.Tensor, score_threshold: torch.Tensor):
-        """(formatted mask, detections) of one batch: what `__call__` runs,
-        as a function of its arguments (the tensors of `bundle_operands` or
-        this model's own, uint8 NHWC images, 0-d f32 thresholds)."""
-        mask, labels, boxes_yx = self.serving_core(operands, images)
+    def _serving_nms(self, mask, labels, boxes_yx, iou_threshold: torch.Tensor,
+                     score_threshold: torch.Tensor):
+        """NMS and the mask's output format: (formatted mask, detections)
+        from `serving_core`'s outputs."""
         detections = self._nms(
             boxes_yx, labels, iou_threshold=iou_threshold,
             score_threshold=score_threshold,
         )
         return _format_mask(mask, self._mask_output), detections
+
+    def serving_program(self, operands, images: torch.Tensor,
+                        iou_threshold: torch.Tensor, score_threshold: torch.Tensor):
+        """(formatted mask, detections) of one batch: what `__call__` runs,
+        as a function of its arguments (the tensors of `bundle_operands` or
+        this model's own, uint8 NHWC images, 0-d f32 thresholds)."""
+        return self._serving_nms(*self.serving_core(operands, images), iou_threshold,
+                                 score_threshold)
 
     def bundle_operands(self):
         """Every tensor `serving_program` reads besides the images and
@@ -383,10 +391,14 @@ class InferenceModel:
             return self.serving_core(self._operands, images)
 
     @torch.inference_mode()
-    def _forward(self, images: torch.Tensor):
+    def _forward(self, images: torch.Tensor, call: int):
+        """`serving_program` on this model's operands, its two steps in the
+        spans ``serve.core`` and ``serve.nms`` of call number ``call``."""
         with mesh_lib.data_parallel(self.mesh):
-            return self.serving_program(self._operands, images, self._iou_threshold,
-                                        self._score_threshold)
+            with span("serve.core", call):
+                core = self.serving_core(self._operands, images)
+            with span("serve.nms", call):
+                return self._serving_nms(*core, self._iou_threshold, self._score_threshold)
 
     def update_variables(self, state_dict) -> None:
         """Swap in new weights (a `SsdSegModel` state_dict, any float dtype)
@@ -433,8 +445,16 @@ class InferenceModel:
         return mask.float(), labels, boxes_yx
 
     def __call__(self, images):
-        """(formatted mask, detections) as device tensors, not waited for."""
-        return self._forward(self.prepare_input(images))
+        """(formatted mask, detections) as device tensors, not waited for.
+        While a profiler records, the call is the span ``serve.request``,
+        indexed by the model's call number, over ``serve.stage`` (the
+        upload), ``serve.core`` and ``serve.nms`` (`utils.profiling.span`)."""
+        call = self._calls
+        self._calls += 1
+        with span("serve.request", call):
+            with span("serve.stage", call):
+                staged = self.prepare_input(images)
+            return self._forward(staged, call)
 
     def export_serving_bundle(self, path: str, *, batch) -> None:
         """Write this model's serving program, one per batch size in

@@ -61,6 +61,7 @@ from ssdseglib_torch.models.blocks import BN_MOMENTUM
 from ssdseglib_torch.models.builder import SsdSegModel
 from ssdseglib_torch.parallel import mesh as mesh_lib
 from ssdseglib_torch.parallel import spatial
+from ssdseglib_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam defaults
@@ -591,23 +592,30 @@ class Trainer:
         """``fused(state, generator, *raw_batch) -> metrics``."""
         return self._fused_step_fn("eval", transform, self.eval_step)
 
-    def _staged(self, raw_iter, chunk_size: int = 8):
+    def _staged(self, raw_iter, chunk_size: int = 8, first_step: int = 0):
         """Chunked host -> device staging for fused steps: ``chunk_size`` raw
         host batches are buffered, then uploaded together (pinned staging,
         non-blocking copies) and their steps dispatched back to back.  The
         copies are queued on the current stream, behind the steps of the
         chunk before: the stream's order is the fence on the last metric
         that the JAX package has to ask for, and the host waits for
-        nothing."""
+        nothing.  Each chunk's upload is the span ``train.stage``, indexed
+        by the step of its first batch (``first_step`` for the first)."""
         from ssdseglib_torch.data.pipeline import upload_batch
 
-        buf = []
+        def upload(buf, step):
+            with span("train.stage", step):
+                return [(rng, upload_batch(b, self.device)) for rng, b in buf]
+
+        buf, step = [], first_step
         for item in raw_iter:
             buf.append(item)
             if len(buf) >= chunk_size:
-                yield from [(rng, upload_batch(b, self.device)) for rng, b in buf]
+                yield from upload(buf, step)
+                step += len(buf)
                 buf = []
-        yield from [(rng, upload_batch(b, self.device)) for rng, b in buf]
+        if buf:
+            yield from upload(buf, step)
 
     # -- loop -------------------------------------------------------------
     def fit(
@@ -639,6 +647,10 @@ class Trainer:
         takes the rows), a loader must have been built with the same mesh,
         and the history holds the global batch's metrics.  Anything that is
         no DeviceMesh raises TypeError.
+
+        While a profiler records, each epoch is the span ``train.epoch``,
+        each step ``train.step`` (``train.eval_step`` in validation) and each
+        chunk's upload ``train.stage`` (`utils.profiling.span`).
         """
         if mesh is not None:
             mesh_lib.check_mesh(mesh)
@@ -652,9 +664,10 @@ class Trainer:
         if mesh is not None and (restored or state.mesh is not mesh):
             state = self._replicate_state(state, mesh)
 
-        def _epoch(data, step: Callable, fused_step_fn: Callable) -> Callable:
+        def _epoch(data, step: Callable, fused_step_fn: Callable, name: str) -> Callable:
             """A generator function over what ``step`` returns for each batch
-            of one epoch of ``data``."""
+            of one epoch of ``data``, each step the span ``name`` indexed by
+            the global step."""
             if hasattr(data, "iter_raw") and hasattr(data, "transform"):
                 if getattr(data, "mesh", None) is not mesh:
                     raise ValueError(
@@ -665,14 +678,18 @@ class Trainer:
                 fused = fused_step_fn(data.transform)
 
                 def run():
-                    for rng, batch in self._staged(data.iter_raw()):
-                        yield fused(state, rng, *batch)
+                    for rng, batch in self._staged(data.iter_raw(), first_step=state.step):
+                        with span(name, state.step):
+                            out = fused(state, rng, *batch)
+                        yield out
             else:
                 def run():
                     for images, targets in (data() if callable(data) else data):
-                        if mesh is not None:
-                            images, targets = mesh_lib.shard_batch(mesh, (images, targets))
-                        yield step(state, images, targets)
+                        with span(name, state.step):
+                            if mesh is not None:
+                                images, targets = mesh_lib.shard_batch(mesh, (images, targets))
+                            out = step(state, images, targets)
+                        yield out
             return run
 
         def _run(metrics_of_steps, limit: Optional[int]):
@@ -688,32 +705,34 @@ class Trainer:
                     break
             return agg, n
 
-        train_epoch = _epoch(train_data, self.train_step, self.fused_train_step_fn)
+        train_epoch = _epoch(train_data, self.train_step, self.fused_train_step_fn, "train.step")
         if validation_data is not None:
-            eval_epoch = _epoch(validation_data, self.eval_step, self.fused_eval_step_fn)
+            eval_epoch = _epoch(validation_data, self.eval_step, self.fused_eval_step_fn,
+                                "train.eval_step")
         history: Dict[str, list] = {}
         for epoch in range(epochs):
-            t0 = time.perf_counter()
-            agg, n = _run((metrics for _, metrics in train_epoch()), steps_per_epoch)
-            for k in agg:
-                history.setdefault(k, []).append(float(agg[k]) / max(n, 1))
-            if validation_data is not None:
-                vagg, vn = _run(eval_epoch(), None)
-                for k in vagg:
-                    history.setdefault(f"val_{k}", []).append(float(vagg[k]) / max(vn, 1))
+            with span("train.epoch", epoch):
+                t0 = time.perf_counter()
+                agg, n = _run((metrics for _, metrics in train_epoch()), steps_per_epoch)
+                for k in agg:
+                    history.setdefault(k, []).append(float(agg[k]) / max(n, 1))
+                if validation_data is not None:
+                    vagg, vn = _run(eval_epoch(), None)
+                    for k in vagg:
+                        history.setdefault(f"val_{k}", []).append(float(vagg[k]) / max(vn, 1))
 
-            dt = time.perf_counter() - t0
-            msg = f"epoch {epoch + 1}/{epochs} [{dt:.1f}s, {n} steps]"
-            for k in ("loss", "iou/mask", "iou/boxes"):
-                if k in history:
-                    msg += f" {k}={history[k][-1]:.4f}"
-                if f"val_{k}" in history:
-                    msg += f" val_{k}={history[f'val_{k}'][-1]:.4f}"
-            log_fn(msg)
-            if metrics_logger is not None:
-                metrics_logger.log({k: v[-1] for k, v in history.items()}, step=state.step)
-            if checkpointer is not None:
-                checkpointer.save(state.step, state)
+                dt = time.perf_counter() - t0
+                msg = f"epoch {epoch + 1}/{epochs} [{dt:.1f}s, {n} steps]"
+                for k in ("loss", "iou/mask", "iou/boxes"):
+                    if k in history:
+                        msg += f" {k}={history[k][-1]:.4f}"
+                    if f"val_{k}" in history:
+                        msg += f" val_{k}={history[f'val_{k}'][-1]:.4f}"
+                log_fn(msg)
+                if metrics_logger is not None:
+                    metrics_logger.log({k: v[-1] for k, v in history.items()}, step=state.step)
+                if checkpointer is not None:
+                    checkpointer.save(state.step, state)
 
         if checkpointer is not None and hasattr(checkpointer, "wait_until_finished"):
             # a checkpointer may write in the background: fence before

@@ -8,7 +8,10 @@ Counterpart of ``ssdseglib_tpu/utils/profiling.py``:
   ``block_until_ready``);
 - `trace`: a context manager around ``torch.profiler`` that writes a trace
   directory (TensorBoard's profiler plugin or Perfetto read it) and hands
-  back the profiler for ``key_averages()``.
+  back the profiler for ``key_averages()``;
+- `span` / `spans`: the program's own host spans (serving call, `fit` loop,
+  loader), recorded in memory while a ``torch.profiler`` session records and
+  stamped with ``time.time_ns()``, the clock of the profiler's events.
 
 A time is a device measurement: `time_fn` raises without a card rather than
 time the CPU.
@@ -18,7 +21,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, Sequence
+import threading
+import time
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -79,7 +84,9 @@ def time_jit_fn(fn: Callable, args: Sequence[Any], warmup: int = 3,
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """Profile the block with ``torch.profiler`` (host and, with a card,
-    device activity) and write the trace into ``log_dir`` when it ends."""
+    device activity) and write the trace into ``log_dir`` when it ends.  The
+    program's spans of the block are read from `spans` afterwards: the
+    records added since the block began."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -94,3 +101,66 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         profiler.stop()
+
+
+class SpanRecord(NamedTuple):
+    """One span: ``index`` identifies the request, step or batch it belongs
+    to (shared by the spans of one request), ``parent`` is the name of the
+    enclosing span on the same thread (None at the top), ``thread`` the
+    recording thread's ``threading.get_ident()``, both times
+    ``time.time_ns()``, ``value`` a number read when the span opened."""
+
+    name: str
+    index: Optional[int]
+    parent: Optional[str]
+    thread: int
+    start_ns: int
+    end_ns: int
+    value: Optional[float]
+
+
+_records: List[SpanRecord] = []
+_local = threading.local()
+_OFF = contextlib.nullcontext()
+# process-wide: True on every thread while a torch.profiler session records
+# (torch.autograd._profiler_enabled() is per thread and misses the loader's)
+_profiler = torch.autograd.profiler
+
+
+class _Span:
+    __slots__ = ("name", "index", "value", "parent", "start_ns")
+
+    def __init__(self, name: str, index: Optional[int], value: Optional[float]) -> None:
+        self.name, self.index, self.value = name, index, value
+
+    def __enter__(self) -> None:
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.start_ns = time.time_ns()
+
+    def __exit__(self, *exc) -> None:
+        end_ns = time.time_ns()
+        _local.stack.pop()
+        _records.append(SpanRecord(self.name, self.index, self.parent, threading.get_ident(),
+                                   self.start_ns, end_ns, self.value))
+
+
+def span(name: str, index: Optional[int] = None, value: Optional[float] = None):
+    """A context manager that records the block as one `SpanRecord` while a
+    ``torch.profiler`` session records, on any thread.  Otherwise it is one
+    shared no-op context: no clock is read and nothing is allocated.  It
+    adds no event to the profiler's own trace (no ``record_function``, no
+    NVTX range), so the device timeline holds the same operations with the
+    spans on."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, index, value)
+
+
+def spans() -> List[SpanRecord]:
+    """Every span recorded in this process so far, in the order they ended.
+    Records are kept in memory only and only while a profiler records."""
+    return list(_records)
