@@ -51,6 +51,7 @@ import torch
 import torch.utils._pytree as pytree
 
 # the dispatcher ops a program may call are registered by these imports
+from ssdseglib_torch.ops import depthwise3x3 as _depthwise3x3  # noqa: F401
 from ssdseglib_torch.ops import fused_mbconv as _fused_mbconv  # noqa: F401
 from ssdseglib_torch.ops import int8_pointwise as _int8_pointwise  # noqa: F401
 from ssdseglib_torch.ops import nms_scan as _nms_scan  # noqa: F401

@@ -4,8 +4,11 @@ ssdseglib_tpu/models/fused_inference.py.
 Every ConvBN is folded to conv + bias on the host (NumPy, f32, the same
 arithmetic as the JAX package), then cast to the compute dtype.  The stem
 absorbs the [0, 255] -> [-1, 1] input rescale (`fold_stem_rescale`), the
-stem and the stride-2 / first blocks run as cuDNN convs, and each stride-1
-residual repeat runs as one fused Hopper kernel (`ops/fused_mbconv.py`).
+stem and the stride-2 / first blocks run as cuDNN convs, but for their
+depthwise 3x3 convs, which in bfloat16 run as one Hopper kernel each with
+their padding, bias and relu6 (`ops/depthwise3x3.py`, as do the heads'), and
+each stride-1 residual repeat runs as one fused Hopper kernel
+(`ops/fused_mbconv.py`).
 The heads run folded and without concats (`heads_forward_folded`).
 
 Options of `make_fused_forward`, all off the default path:
@@ -53,6 +56,7 @@ import torch.nn.functional as F
 from ssdseglib_torch.config import ModelConfig
 from ssdseglib_torch.models.blocks import bilinear_resize, conv2d_same
 from ssdseglib_torch.models.mobilenetv2 import _SEQUENCES
+from ssdseglib_torch.ops.depthwise3x3 import depthwise3x3
 from ssdseglib_torch.ops.fused_mbconv import fold_conv_bn, fused_mbconv_rows
 from ssdseglib_torch.ops.int8_pointwise import int8_pointwise
 from ssdseglib_torch.ops.s2d_stem import (
@@ -164,11 +168,28 @@ def fold_stem_rescale(kernel, bias, input_hw):
             np.ascontiguousarray(bias_map.transpose(0, 3, 1, 2)))
 
 
+def _depthwise3x3(x, kernel, bias, stride: int, dilation: int, relu6: bool):
+    """A bf16 depthwise 3x3 conv as one `ops/depthwise3x3.py` call on the
+    NHWC view of the channels-last ``x`` (of its window of rows on split
+    rows), the SAME padding, bias and relu6 inside it; back as a
+    channels-last view."""
+    x, (top, bottom) = spatial.window_rows(x, 3, stride, dilation)
+    left, right = spatial.same_pad(x.shape[3], 3, stride, dilation)
+    y = depthwise3x3(x.permute(0, 2, 3, 1).contiguous(), kernel, bias, stride, dilation,
+                     (top, bottom, left, right), 6.0 if relu6 else None)
+    return y.permute(0, 3, 1, 2)
+
+
 def _conv(x, kernel, bias=None, stride: int = 1, depthwise: bool = False,
           relu6: bool = False, dilation: int = 1):
     """Folded conv + bias (+ relu6), SAME padding.  A bias of more than one
     dimension is the stem's (1, C, H, W) border bias map of the global
-    image, of which split rows take their own."""
+    image, of which split rows take their own.  A depthwise 3x3 conv in
+    bfloat16 runs `_depthwise3x3` (the kernel on the card, its plain version,
+    the same library calls as below, on the CPU); float32 keeps the library
+    route on every device, chosen by dtype."""
+    if depthwise and x.dtype == torch.bfloat16 and tuple(kernel.shape[2:]) == (3, 3):
+        return _depthwise3x3(x, kernel, bias, stride, dilation, relu6)
     groups = x.shape[1] if depthwise else 1
     vector_bias = bias if bias is not None and bias.dim() == 1 else None
     y = conv2d_same(x, kernel, vector_bias, stride, dilation, groups)

@@ -32,6 +32,7 @@ SOURCES = (
     _CSRC / "s2d_stem.cu",
     _CSRC / "pointwise_wgrad.cu",
     _CSRC / "int8_pointwise.cu",
+    _CSRC / "depthwise3x3.cu",
 )
 HEADERS = (_CSRC / "common.cuh",)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -216,5 +217,11 @@ def load_library() -> ctypes.CDLL:
     # (dtype, rows, Ci, Co, *out[11])
     lib.int8_pointwise_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.int8_pointwise_plan.restype = ctypes.c_int
+    # (x, k, kcs, kis, kjs, bias or null, y, B, H, W, C, Ho, Wo, stride,
+    #  dilation, pad_top, pad_left, has_cap, cap, stream)
+    lib.depthwise3x3_launch.argtypes = (
+        [ptr, ptr] + [ctypes.c_int] * 3 + [ptr, ptr] + [ctypes.c_int] * 11 + [ctypes.c_float, ptr]
+    )
+    lib.depthwise3x3_launch.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -39,6 +39,7 @@ SLICE_MODULES = (
     "ssdseglib_torch.ops.nms",
     "ssdseglib_torch.ops.nms_scan",
     "ssdseglib_torch.ops.int8_pointwise",
+    "ssdseglib_torch.ops.depthwise3x3",
     "ssdseglib_torch.ops.s2d_stem",
     "ssdseglib_torch.ops.depthwise",
     "ssdseglib_torch.utils.serving",
@@ -150,15 +151,16 @@ def test_every_module_of_the_port_is_listed():
 
 
 def test_kernel_sources_and_build_name_the_library():
-    """The seven CUDA sources and the shared header exist where `_cuda_build`
+    """The eight CUDA sources and the shared header exist where `_cuda_build`
     looks for them, and the missing-compiler message names the library."""
     import pytest
 
     from ssdseglib_torch.ops import _cuda_build
 
     names = sorted(p.name for p in _cuda_build.SOURCES)
-    assert names == ["depthwise_backward.cu", "fused_chain_backward.cu", "fused_mbconv.cu",
-                     "int8_pointwise.cu", "nms_scan.cu", "pointwise_wgrad.cu", "s2d_stem.cu"]
+    assert names == ["depthwise3x3.cu", "depthwise_backward.cu", "fused_chain_backward.cu",
+                     "fused_mbconv.cu", "int8_pointwise.cu", "nms_scan.cu", "pointwise_wgrad.cu",
+                     "s2d_stem.cu"]
     for path in _cuda_build.SOURCES + _cuda_build.HEADERS:
         assert path.is_file(), path
     if _cuda_build.shutil.which("nvcc") is None and not os.path.exists(
