@@ -1,23 +1,30 @@
 """Serving driver: one client calls ``InferenceModel.__call__`` on batches of
-seeded uint8 scenes in a closed loop, keeping ``in_flight`` batches in
-flight, and copies each batch's detections to the host (the mask stays on
-the card, as a user who post-processes it there keeps it).  The batch is
-the mix's: large enough that the card, not the host's dispatch, sets the
-pace, so that the rate repeats from run to run.
+seeded uint8 scenes in a closed loop, keeping ``in_flight`` batches sent
+and not yet fetched, and copies each batch's detections to the host (the
+mask stays on the card, as a user who post-processes it there keeps it).
+The batch is the mix's: large enough that the card, not the host's
+dispatch, sets the pace, so that the rate repeats from run to run.  Each
+batch's detections are copied after an event recorded behind its own call,
+on a side stream, so the fetch waits for that batch alone and the batches
+sent after it keep the card busy while the host stages the next one or
+stands still.
 
 Set-up: the scenes (a pool of ``pool_batches`` distinct batches in host
 memory), the seeded raw weights on the card, ``get_model_for_inference``
 with the configuration's ``serve`` options (the fold happens here), and
-``warmup_batches`` calls of the window's own loop.  Window: every batch whose
-detections reached the host before the window closed counts.  With a
-trace, ``trace_seconds`` more of the same loop run under the profiler.
-Judged: a sample of the finished batches drawn from the seed, their served
-mask and detections against the plain reference's on the same images.
+``warmup_batches`` calls of the window's own loop, as deep as it runs.
+Window: when its time is up nothing more is sent, every batch sent is
+fetched, and the clock is read after that: every batch sent counts, over
+all of that time.  With a trace, ``trace_seconds`` more of the same loop
+run under the profiler, drained inside it.  Judged: a sample of the
+batches, drawn from the seed as they are sent, their served mask and
+detections against the plain reference's on the same images.
 """
 
 from __future__ import annotations
 
 import gc
+import math
 import time
 from collections import deque
 from typing import Dict, List, Optional
@@ -93,8 +100,11 @@ class Session:
         t = time.perf_counter()
         self.counts_above = self._boxes_above_threshold()
         self.split["library build or load"] = _library_seconds()
-        for i in range(mix["warmup_batches"]):
-            self.inf(self.pool[i % len(self.pool)])[1].cpu()
+        self.copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._reset(Spans())
+        for _ in range(mix["warmup_batches"]):
+            self._send(keep=False)
+        self._drain(timed=False)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.split["warm-up"] = time.perf_counter() - t - self.split["library build or load"]
@@ -108,20 +118,25 @@ class Session:
         return [int((inf.raw_outputs(b)[1] > thr).sum()) for b in self.pool]
 
     # -- window -----------------------------------------------------------
-    def window(self, seconds: float, trace: bool) -> Dict:
-        self.spans = Spans()
+    def _reset(self, spans: Spans) -> None:
+        self.spans = spans
         self.keep_rng = np.random.default_rng([self.seed, 1])
         self.kept: List = []
         self.pending: deque = deque()
         self.calls = self.done = 0
         self.finished: List[float] = []
+
+    def window(self, seconds: float, trace: bool) -> Dict:
+        self._reset(Spans())
         t0 = time.perf_counter()
         self._loop(t0 + seconds)
+        self._drain()
         t_end = time.perf_counter()
         images = self.done * self.mix["batch"]
-        per_second = np.bincount([int(t - t0) for t in self.finished], minlength=int(seconds))
-        self.log(f"[serve] images/s in each second of the window: "
-                 f"{(per_second * self.mix['batch']).tolist()}")
+        per_second = np.bincount([int(t - t0) for t in self.finished],
+                                 minlength=int(math.ceil(t_end - t0)))
+        self.log(f"[serve] images/s in each second of the window (the last after the close, "
+                 f"while the batches sent drain): {(per_second * self.mix['batch']).tolist()}")
         out = {"attempted": self.done, "failed": 0, "images_per_s": images / (t_end - t0),
                "spans": self.spans}
         if trace:
@@ -130,42 +145,60 @@ class Session:
             done = self.done
             with profiled(traced) as prof:
                 self._loop(time.perf_counter() + self.mix["trace_seconds"])
+                self._drain(timed=False)
             timeline = prof["timeline"]
             out["trace"] = {"timeline": timeline, "units": self.done - done, "spans": traced}
-        self._drain()
         out["metrics"] = {"serve_images_per_s": out["images_per_s"]}
         return out
 
     def _loop(self, deadline: float) -> None:
-        pool, in_flight = self.pool, self.mix["in_flight"]
         while time.perf_counter() < deadline:
-            images = pool[self.calls % len(pool)]
-            with self.spans.span("serve.call"):
-                mask, det = self.inf(images)
-            self.pending.append((self.calls, mask, det))
-            self.calls += 1
-            while len(self.pending) >= in_flight:
+            self._send()
+            while len(self.pending) >= self.mix["in_flight"]:
                 self._fetch()
 
+    def _send(self, keep: bool = True) -> None:
+        """One call on the pool's next batch, an event behind it, and
+        whether the reservoir of judged batches (drawn from the seed) keeps
+        it: the batch's mask is held only then."""
+        index = self.calls
+        with self.spans.span("serve.call"):
+            mask, det = self.inf(self.pool[index % len(self.pool)])
+        ready = None
+        if self.copy_stream is not None:
+            ready = torch.cuda.Event()
+            ready.record()
+        slot = None
+        k = self.mix["judged_batches"]
+        if keep and index < k:
+            slot = index
+        elif keep:
+            j = int(self.keep_rng.integers(0, index + 1))
+            slot = j if j < k else None
+        self.pending.append((index, mask if slot is not None else None, det, ready, slot))
+        self.calls += 1
+
     def _fetch(self, timed: bool = True) -> None:
-        index, mask, det = self.pending.popleft()
+        index, mask, det, ready, slot = self.pending.popleft()
         with self.spans.span("serve.fetch"):
-            host = det.cpu()
+            if ready is None:
+                host = det.cpu()
+            else:
+                with torch.cuda.stream(self.copy_stream):
+                    self.copy_stream.wait_event(ready)
+                    host = det.cpu()
         if timed:
             self.finished.append(time.perf_counter())
         self.done += 1
-        # a reservoir of the finished batches, drawn from the seed
-        k = self.mix["judged_batches"]
-        if len(self.kept) < k:
-            self.kept.append((index, mask, host))
-        else:
-            j = int(self.keep_rng.integers(0, self.done))
-            if j < k:
-                self.kept[j] = (index, mask, host)
+        if slot is not None:
+            if slot < len(self.kept):
+                self.kept[slot] = (index, mask, host)
+            else:
+                self.kept.append((index, mask, host))
 
-    def _drain(self) -> None:
+    def _drain(self, timed: bool = True) -> None:
         while self.pending:
-            self._fetch(timed=False)
+            self._fetch(timed)
 
     # -- after the window -------------------------------------------------
     def release(self) -> None:

@@ -2,7 +2,9 @@
 configuration ``configs/<config>.json``, the traffic mix
 ``traffic/<traffic>.json`` (whose ``driver`` names ``drivers/<driver>.py``),
 one reader ``metrics/<metric>.py`` per per-layer metric and the cell's
-limits ``limits/<cell>.json``.  Adding a cell is adding files and entries."""
+limits ``limits/<cell>.json``; the configuration's backbone is found by its
+name in ``reference/backbones/`` and ``harness/backbones/``.  Adding a cell,
+or a backbone, is adding files and entries."""
 
 from __future__ import annotations
 
@@ -19,7 +21,10 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 
 
-def _load_module(path: Path, name: str) -> ModuleType:
+def load_module(path: Path, name: str) -> ModuleType:
+    """The Python file ``path``, loaded as a module named ``name``."""
+    if not path.is_file():
+        raise FileNotFoundError(f"{path} does not exist")
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -49,11 +54,11 @@ class Cell:
 
     def driver(self) -> ModuleType:
         name = self.mix["driver"]
-        return _load_module(self.bench_dir / "drivers" / f"{name}.py", f"bench_driver_{name}")
+        return load_module(self.bench_dir / "drivers" / f"{name}.py", f"bench_driver_{name}")
 
     def readers(self) -> Dict[str, ModuleType]:
-        return {m["name"]: _load_module(self.bench_dir / "metrics" / f"{m['name']}.py",
-                                        "bench_metric_" + m["name"].replace(".", "_"))
+        return {m["name"]: load_module(self.bench_dir / "metrics" / f"{m['name']}.py",
+                                       "bench_metric_" + m["name"].replace(".", "_"))
                 for m in self.per_layer}
 
 

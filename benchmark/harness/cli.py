@@ -77,7 +77,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device, started: float,
     if trace:
         records = {**measured["trace"], "untraced_spans": measured["spans"],
                    "untraced_units": measured["attempted"],
-                   "untraced_images_per_s": measured["images_per_s"], "work": work}
+                   "untraced_images_per_s": measured["images_per_s"], "work": work,
+                   "config": cell.config, "mix": cell.mix}
         timeline = records["timeline"]
         for name, reader in cell.readers().items():
             value = reader.read(records)

@@ -4,9 +4,13 @@ holding the harness's seeded raw weights."""
 
 from __future__ import annotations
 
+import re
+from types import ModuleType
 from typing import Dict
 
 import torch
+
+from benchmark.harness import catalog
 
 
 def anchors(config: Dict):
@@ -33,9 +37,15 @@ def encoding(config: Dict):
                           max_ground_truth_boxes=e["max_ground_truth_boxes"])
 
 
-def builder(config: Dict, anchor_set):
-    from ssdseglib_torch.models import builder as b
+def backbone(name: str) -> ModuleType:
+    """``harness/backbones/<name>.py``, loaded by path: its ``builder(model,
+    common)`` returns the port's public builder for the backbone, given the
+    configuration's ``model`` and the arguments every builder takes."""
+    return catalog.load_module(catalog.BENCH_DIR / "harness" / "backbones" / f"{name}.py",
+                               "bench_harness_backbone_" + re.sub(r"\W", "_", name))
 
+
+def builder(config: Dict, anchor_set):
     m = config["model"]
     common = dict(
         input_image_shape=tuple(m["input_image_shape"]),
@@ -44,12 +54,7 @@ def builder(config: Dict, anchor_set):
         center_x_boxes_default=anchor_set.center_x, center_y_boxes_default=anchor_set.center_y,
         width_boxes_default=anchor_set.width, height_boxes_default=anchor_set.height,
         standard_deviations_centroids_offsets=tuple(config["encoding"]["standard_deviations"]))
-    if m["backbone"] == "mobilenetv2":
-        return b.MobileNetV2SsdSegBuilder(**common)
-    return b.ShuffleNetV2SsdSegBuilder(
-        model_size=m["shufflenet_size"],
-        use_additional_depthwise_convolution=m["shufflenet_extra_depthwise"],
-        use_residual_connections=m["shufflenet_residuals"], **common)
+    return backbone(m["backbone"]).builder(m, common)
 
 
 def network(config: Dict, build, weights: Dict[str, torch.Tensor], device):

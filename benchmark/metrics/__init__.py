@@ -5,4 +5,7 @@ records of a ``--trace 1`` run: ``timeline`` (the profiled window's device
 operations, their union and the host spans, `harness.trace.Timeline`),
 ``units`` (batches or steps in that window), ``spans`` (its host spans),
 ``untraced_spans`` / ``untraced_units`` / ``untraced_images_per_s`` (the
-measured window before it, with the profiler off) and ``work`` (operations from the configuration's shapes)."""
+measured window before it, with the profiler off), ``work`` (the driver's
+operations from the configuration's shapes), and ``config`` and ``mix``
+(the cell's configuration and traffic mix as loaded), from which a new
+reader can work out its own yardstick with a new ``work/<name>.py``."""

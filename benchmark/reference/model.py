@@ -14,23 +14,23 @@ largest magnitude over the format's largest value), around an f32 product.
 from __future__ import annotations
 
 import contextlib
+import re
+from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from benchmark.harness.catalog import load_module
+
 BN_EPSILON = 1e-3
 FP8_E4M3_MAX = 448.0
 FP8_E5M2_MAX = 57344.0
 _MODE = {"precision": "float32", "trace": None}
 
-# MobileNetV2: (expansion, channels out, repeats, first stride)
-MOBILENETV2_SEQUENCES = ((6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
-                         (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
-SHUFFLENETV2_CHANNELS = {"0.5x": {2: 48, 3: 96, 4: 192}, "1x": {2: 116, 3: 232, 4: 464},
-                         "1.5x": {2: 176, 3: 352, 4: 704}, "2x": {2: 244, 3: 488, 4: 976}}
-SHUFFLENETV2_BLOCKS = ((2, 3), (3, 7), (4, 3))
+BACKBONES = Path(__file__).resolve().parent / "backbones"
 
 
 @contextlib.contextmanager
@@ -148,99 +148,6 @@ class SepConvBN(nn.Module):
         return relu(self.batchnorm(x), self.relu_max)
 
 
-class MobileNetV2(nn.ModuleDict):
-    def __init__(self):
-        super().__init__()
-        self["backbone-block0-expand"] = ConvBN(3, 32, 3, 2, relu_max=6.0)
-        self["backbone-block0-depthwise"] = DepthwiseConvBN(32, 1, 6.0)
-        self["backbone-block0-project"] = ConvBN(32, 16)
-        cin, block = 16, 0
-        for expansion, cout, repeats, stride in MOBILENETV2_SEQUENCES:
-            for n in range(repeats):
-                block += 1
-                e = cin * expansion
-                self[f"backbone-block{block}-expand"] = ConvBN(cin, e, relu_max=6.0)
-                self[f"backbone-block{block}-depthwise"] = DepthwiseConvBN(
-                    e, stride if n == 0 else 1, 6.0)
-                self[f"backbone-block{block}-project"] = ConvBN(e, cout)
-                cin = cout
-
-    def forward(self, x):
-        """(fm1 os16, fm2 os32, decoder skip os4)."""
-        for name in ("expand", "depthwise", "project"):
-            x = self[f"backbone-block0-{name}"](x)
-        taps, block = {}, 0
-        for _, _, repeats, _ in MOBILENETV2_SEQUENCES:
-            for n in range(repeats):
-                block += 1
-                e = self[f"backbone-block{block}-expand"](x)
-                taps[f"expand{block}"] = e
-                y = self[f"backbone-block{block}-project"](self[f"backbone-block{block}-depthwise"](e))
-                x = x + y if n > 0 else y
-            taps[f"out{block}"] = x
-        return taps["expand13"], taps["out16"], taps["expand3"]
-
-
-def channel_shuffle(x, groups=2):
-    b, c, h, w = x.shape
-    return x.reshape(b, groups, c // groups, h, w).transpose(1, 2).reshape(b, c, h, w)
-
-
-class ShuffleNetV2(nn.ModuleDict):
-    def __init__(self, size="1x", extra_depthwise=False, residuals=False):
-        super().__init__()
-        self.extra_depthwise, self.residuals = extra_depthwise, residuals
-        channels = SHUFFLENETV2_CHANNELS[size]
-        self["backbone-stage1-conv"] = _holder(3, 24, 3, bias=True)
-        cin = 24
-        for stage, blocks in SHUFFLENETV2_BLOCKS:
-            half = channels[stage] // 2
-            self._unit(f"backbone-stage{stage}-downblock-", cin, half, True)
-            for b in range(blocks):
-                self._unit(f"backbone-stage{stage}-block{b + 1}-", half, half, False)
-            cin = channels[stage]
-        self.stage_channels = channels
-
-    def _unit(self, prefix, cin, half, down):
-        branch = f"{prefix}branch-right-" if down else f"{prefix}branch-conv-"
-        if down:
-            self[f"{prefix}branch-left-depthconv1"] = DepthwiseConvBN(cin, 2)
-            self[f"{prefix}branch-left-conv2"] = ConvBN(cin, half, relu_max=0.0)
-        if self.extra_depthwise:
-            self[f"{branch}depthconv0"] = DepthwiseConvBN(cin)
-        self[f"{branch}conv1"] = ConvBN(cin, half, relu_max=0.0)
-        self[f"{branch}depthconv2"] = DepthwiseConvBN(half, 2 if down else 1)
-        self[f"{branch}conv3"] = ConvBN(half, half, relu_max=0.0 if down else None)
-
-    def _branch(self, branch, x):
-        if self.extra_depthwise:
-            x = self[f"{branch}depthconv0"](x)
-        for name in ("conv1", "depthconv2", "conv3"):
-            x = self[f"{branch}{name}"](x)
-        return x
-
-    def forward(self, x):
-        """(fm1 os16, fm2 os32, decoder skip os8)."""
-        stem = self["backbone-stage1-conv"]
-        x = conv(x, stem.weight, stem.bias, 2)
-        top, bottom = same_pad(x.shape[2], 3, 2, 1)
-        left, right = same_pad(x.shape[3], 3, 2, 1)
-        x = F.max_pool2d(F.pad(x, (left, right, top, bottom), value=float("-inf")), 3, 2)
-        taps = {}
-        for stage, blocks in SHUFFLENETV2_BLOCKS:
-            p = f"backbone-stage{stage}-downblock-"
-            left_branch = self[f"{p}branch-left-conv2"](self[f"{p}branch-left-depthconv1"](x))
-            x = channel_shuffle(torch.cat([left_branch, self._branch(f"{p}branch-right-", x)], 1))
-            for b in range(blocks):
-                identity, branch_in = x.chunk(2, dim=1)
-                y = self._branch(f"backbone-stage{stage}-block{b + 1}-branch-conv-", branch_in)
-                if self.residuals:
-                    y = y + branch_in
-                x = channel_shuffle(torch.cat([identity, F.relu(y)], 1))
-            taps[stage] = x
-        return taps[3], taps[4], taps[2]
-
-
 class SsdLiteBlock(nn.Module):
     def __init__(self, cin, filters, out_channels, relu_max):
         super().__init__()
@@ -307,6 +214,17 @@ class Decoder(nn.ModuleDict):
         return torch.softmax(x, 1)
 
 
+def backbone(name: str) -> ModuleType:
+    """The backbone ``name``: ``backbones/<name>.py``, loaded by path.  It
+    builds on this module's primitives and exposes ``backbone(model)``, the
+    module whose forward takes NCHW images in [-1, 1] and returns (fm1 at
+    os16, fm2 at os32, the decoder's skip), and ``wiring(model)``, what the
+    heads take from it: ``fm1_channels``, ``fm2_channels``,
+    ``skip_channels``, the heads' ``relu_max`` and ``extra``, the two extra
+    pyramid blocks as (channels, name)."""
+    return load_module(BACKBONES / f"{name}.py", "bench_reference_backbone_" + re.sub(r"\W", "_", name))
+
+
 class Network(nn.ModuleDict):
     """Backbone + DeepLabV3+ + SSDLite.  ``forward`` takes NHWC images in
     [0, 255] and returns the mask (B, H, W, C) and labels (B, N, 4)
@@ -315,18 +233,11 @@ class Network(nn.ModuleDict):
     def __init__(self, model: Dict) -> None:
         super().__init__()
         classes = model["number_of_classes"]
-        if model["backbone"] == "mobilenetv2":
-            self["backbone"] = MobileNetV2()
-            fm1_c, fm2_c, skip_c, relu_max = 576, 320, 144, 6.0
-            extra = ((320, "backbone-block17"), (360, "backbone-block18"))
-        elif model["backbone"] == "shufflenetv2":
-            self["backbone"] = ShuffleNetV2(model["shufflenet_size"], model["shufflenet_extra_depthwise"],
-                                            model["shufflenet_residuals"])
-            ch = SHUFFLENETV2_CHANNELS[model["shufflenet_size"]]
-            fm1_c, fm2_c, skip_c, relu_max = ch[3], ch[4], ch[2], 0.0
-            extra = ((ch[4], "backbone-stage5-block1"), (ch[4], "backbone-stage5-block2"))
-        else:
-            raise ValueError(f"unknown backbone {model['backbone']!r}")
+        source = backbone(model["backbone"])
+        self["backbone"] = source.backbone(model)
+        wiring = source.wiring(model)
+        fm1_c, fm2_c, skip_c = (wiring[k] for k in ("fm1_channels", "fm2_channels", "skip_channels"))
+        relu_max, extra = wiring["relu_max"], wiring["extra"]
         self[extra[0][1]] = SepConvBN(fm2_c, extra[0][0], 3, 2, relu_max=relu_max)
         self[extra[1][1]] = SepConvBN(extra[0][0], extra[1][0], 3, 2, relu_max=relu_max)
         self["mask-encoder"] = Encoder(fm1_c, 256, model["segmentation_dilation_rates"], relu_max)

@@ -18,7 +18,12 @@ batch, TF's combined NMS), and the numbers that judge a served batch:
   how far its reference score lies below the best candidate the reference
   still had, and for each class that stopped early, how far the best
   candidate left lies above the threshold (or above the lowest served row
-  where the batch was cut at its row budget).
+  where the batch was cut at its row budget).  Candidates that overlap a
+  served row's box at all but not past the NMS IoU threshold stay in the
+  reference's NMS and are left out of both gaps: at the configurations'
+  threshold of 0.025 their suppression turns on a pixel or two of box
+  rounding (an f32 IoU of 0.017 is suppressed in bf16), so a bf16 program
+  may drop them or keep them.
 """
 
 from __future__ import annotations
@@ -114,6 +119,9 @@ def judge_detections(rows: torch.Tensor, scores: torch.Tensor, boxes_yx: torch.T
     sides = (boxes_yx[:, 2:] - boxes_yx[:, :2]).abs().amax(dim=-1) + SIDE_FLOOR_PX
     for c in range(scores.shape[1]):
         avail = scores[:, c] > thr
+        # candidates whose suppression turns on rounding: overlapping a
+        # served row's box, not past the threshold
+        touching = torch.zeros_like(avail)
         mine = served[served[:, 0] == c]
         for row in mine:
             box = torch.stack([row[3], row[2], row[5], row[4]])
@@ -123,12 +131,16 @@ def judge_detections(rows: torch.Tensor, scores: torch.Tensor, boxes_yx: torch.T
             j = int((rel + (scores[:, c] - row[1]).abs() / SCORE_SCALE).argmin())
             box_px = max(box_px, float(dist[j]))
             box_rel = max(box_rel, float(rel[j]))
-            best = float(scores[avail, c].max()) if bool(avail.any()) else thr
+            clear = avail & ~touching
+            best = float(scores[clear, c].max()) if bool(clear.any()) else thr
             gap = max(gap, best - float(scores[j, c]))
-            avail &= ~(_iou_one(boxes_yx[j], boxes_yx) > iou_thr)
+            iou = _iou_one(boxes_yx[j], boxes_yx)
+            avail &= ~(iou > iou_thr)
             avail[j] = False
-        if len(mine) < per_class and bool(avail.any()):
-            left = float(scores[avail, c].max())
+            touching |= iou > 0
+        clear = avail & ~touching
+        if len(mine) < per_class and bool(clear.any()):
+            left = float(scores[clear, c].max())
             gap = max(gap, left - (lowest if cut else thr))
     return gap, box_px, box_rel, int(len(served))
 

@@ -4,6 +4,9 @@ resolving to its file, also for a cell added as new files only."""
 import hashlib
 import json
 import re
+import subprocess
+import sys
+import textwrap
 
 import pytest
 
@@ -82,14 +85,55 @@ def _digests(root):
             and ".cache" not in p.parts}
 
 
+SCRIPT = textwrap.dedent("""
+    import json, sys
+    sys.path[:0] = [{checkout!r}, {repo!r}]
+    import torch
+    torch.set_num_threads(2)
+    from benchmark.harness import catalog, cli
+    results = [cli.run(catalog.find_cell(name), 5, 0.2, False, torch.device("cpu"), 0.0,
+                       out=lambda line: None) for name in {names!r}]
+    print(json.dumps({{"root": str(catalog.ROOT), "results": results}}))
+""")
+
+
 def test_cell_added_from_a_temporary_folder(tmp_path):
-    root = small.checkout(tmp_path, limits={"mnv2-serve-small": {"mask_mean_abs": 1.0}})
+    """A cell, and a backbone with its configuration, cell and limits, added
+    as new files and entries; the copy of MobileNetV2 runs ``correct`` from
+    the checkout alone and its judged numbers are the original's."""
+    small_cell = small.name("mnv2-serve-b128")
+    root = small.checkout(tmp_path, limits={small_cell: {"mask_mean_abs": 1.0}})
+    copy, original = small.add_backbone_copy(root, "mnv2-serve-b128", "mobilenetv2_copy")
     before = _digests(catalog.ROOT)
     after = _digests(root)
     changed = [k for k, v in before.items() if after.get(k) != v]
     assert not changed, changed
-    cell = catalog.find_cell("mnv2-serve-small", root)
+    assert {"benchmark/reference/backbones/mobilenetv2_copy.py",
+            "benchmark/harness/backbones/mobilenetv2_copy.py"} <= set(after) - set(before)
+    cell = catalog.find_cell(small_cell, root)
     assert cell.config["model"]["input_image_shape"] == [96, 128, 3]
     assert cell.mix["batch"] == 2 and cell.limits["numbers"]["mask_mean_abs"]["limit"] == 1.0
     assert {m["name"] for m in cell.per_layer} >= {"serve.launches", "mfu.serve"}
     assert re.match(r"^[a-z]", cell.driver().__name__)
+    assert catalog.find_cell(copy, root).config["model"]["backbone"] == "mobilenetv2_copy"
+
+    # the copy's files are not in this checkout: run both cells from the temporary one
+    out = subprocess.run([sys.executable, "-c", SCRIPT.format(
+        checkout=str(root), repo=str(catalog.ROOT), names=[copy, original])],
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    assert seen["root"] == str(root)
+    ours, theirs = seen["results"]
+    assert ours["correct"] and theirs["correct"], (ours["checks"], theirs["checks"])
+    assert ours["checks"] == theirs["checks"]
+
+
+def test_a_missing_backbone_names_the_file_it_looked_for():
+    from benchmark.harness import program
+    from benchmark.reference import model as ref_model
+
+    with pytest.raises(FileNotFoundError, match=r"reference/backbones/no_such_net\.py"):
+        ref_model.Network({"backbone": "no_such_net", "number_of_classes": 4})
+    with pytest.raises(FileNotFoundError, match=r"harness/backbones/no_such_net\.py"):
+        program.backbone("no_such_net")

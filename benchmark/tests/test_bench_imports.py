@@ -14,7 +14,7 @@ SCRIPT = textwrap.dedent("""
     import torch
     torch.set_num_threads(2)
     from benchmark.harness import catalog, cli
-    cell = catalog.find_cell("mnv2-serve-small", __import__("pathlib").Path({checkout!r}))
+    cell = catalog.find_cell({cell!r}, __import__("pathlib").Path({checkout!r}))
     for name in {names!r}:
         catalog.find_cell(name).driver(), catalog.find_cell(name).readers()
     import benchmark.calibrate, benchmark.reference.train, benchmark.work.flops
@@ -30,7 +30,8 @@ def test_a_run_loads_no_jax(tmp_path):
     checkout = small.checkout(tmp_path)
     names = [w["name"] for w in catalog.load_bench()["workloads"]]
     out = subprocess.run([sys.executable, "-c", SCRIPT.format(
-        root=str(catalog.ROOT), checkout=str(checkout), names=names)],
+        root=str(catalog.ROOT), checkout=str(checkout), cell=small.name("mnv2-serve-b128"),
+        names=names)],
         capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     seen = json.loads(out.stdout.strip().splitlines()[-1])

@@ -160,7 +160,7 @@ def root(tmp_path_factory):
     return small.checkout(tmp_path_factory.mktemp("bench"), limits=limits)
 
 
-@pytest.mark.parametrize("name", ["mnv2-serve-small", "mnv2-train-small"])
+@pytest.mark.parametrize("name", [small.name("mnv2-serve-b128"), small.name("mnv2-train-b32")])
 def test_a_traced_run_reports_every_metric_that_reads_the_spans(root, name, monkeypatch):
     import torch.profiler
 

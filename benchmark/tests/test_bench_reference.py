@@ -18,7 +18,7 @@ from benchmark.reference import model as ref_model
 from benchmark.reference import serve as ref_serve
 from benchmark.tests import small
 
-CONFIGS = ["mobilenetv2-dlv3p-ssdlite-480x640", "shufflenetv2-1.5x-dlv3p-ssdlite-480x640"]
+CONFIGS = [c["name"] for c in catalog.load_bench()["configs"]]
 
 
 def _config(name):
@@ -27,7 +27,10 @@ def _config(name):
 
 
 def test_reference_imports_nothing_of_the_program():
-    for path in (catalog.BENCH_DIR / "reference").glob("*.py"):
+    """Every file under reference/, the backbones' included."""
+    paths = list((catalog.BENCH_DIR / "reference").rglob("*.py"))
+    assert catalog.BENCH_DIR / "reference" / "backbones" / "mobilenetv2.py" in paths
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, (ast.Import, ast.ImportFrom)):
                 names = [a.name for a in node.names] + [getattr(node, "module", None) or ""]
@@ -77,11 +80,33 @@ def test_served_outputs_equal_the_references_in_f32(name):
     assert (det - ours).abs().max() <= 1e-3 * max(1.0, float(ours.abs().max()))
 
 
+NMS = {"score_threshold": 0.725, "iou_threshold": 0.025, "max_boxes_per_class": 4,
+       "max_boxes_per_sample": 10}
+
+
+@pytest.mark.parametrize("offset,counted", [(98.0, False), (110.0, True)])
+def test_a_candidate_touching_a_served_box_is_not_a_gap(offset, counted):
+    """Boxes A (0.95, served), B (0.9, not served) and C (0.8, served, far
+    away).  B overlapping A by a sliver (IoU 0.0101, under the threshold)
+    may be suppressed by a bf16 program: no gap.  B clear of A: its score
+    above C's and above the threshold are gaps."""
+    boxes = torch.tensor([[0.0, 0.0, 100.0, 100.0], [0.0, offset, 100.0, offset + 100.0],
+                          [300.0, 300.0, 400.0, 400.0]])
+    scores = torch.tensor([[0.95], [0.9], [0.8]])
+    rows = torch.zeros(10, 6)
+    for i, k in enumerate((0, 2)):
+        y0, x0, y1, x1 = boxes[k].tolist()
+        rows[i] = torch.tensor([0.0, float(scores[k, 0]), x0, y0, x1, y1])
+    gap, box_px, _, n = ref_serve.judge_detections(rows, scores, boxes, NMS)
+    assert n == 2 and box_px == 0.0
+    assert gap == (pytest.approx(0.9 - 0.725) if counted else 0.0)
+
+
 @pytest.mark.parametrize("prefix", ["", "window_"])
 def test_followed_steps_equal_the_programs_f32_steps(tmp_path, prefix):
     """Both followed runs, the set-up's from the seeded weights and the
     window's from the program's state at a later epoch."""
-    cell = catalog.find_cell("mnv2-train-small", small.checkout(tmp_path, float32=True))
+    cell = catalog.find_cell(small.name("mnv2-train-b32"), small.checkout(tmp_path, float32=True))
     session = cell.driver().Session(cell, 5, small.cpu(), log)
     session.setup()
     session.window(0.1, False)
