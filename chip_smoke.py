@@ -45,16 +45,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    bound, plain version and, as information, the cuDNN 1x1 conv + clamp it
    replaces and the eager ``torch._int_mm`` sequence;
    3e. the depthwise 3x3 kernel of the folded forward (``ops/depthwise3x3.py``)
-   at every depthwise conv of a default bf16 forward (recorded from a b1
-   forward) at batch 2 and at DW3_EDGES (odd sizes, a row window's pads, C 8
-   and 1280): its largest error against an f32 evaluation of the plain
-   version no worse than the library route's (cuDNN grouped conv with the
-   bias, ``F.pad``, clamp), which rounds twice where the kernel rounds once,
-   beyond 2^-20 of the largest output; then at batch 16 and 128 each
-   geometry's wrapper held to the same gate, and its time, the kernel alone
-   (20 launches between two CUDA events), byte bound, plain version and
-   library route (``library_ms``, the parent's `_conv` calls), the kernel
-   alone and the route in turns, and the sums over one forward;
+   at every depthwise 3x3 conv of a default bf16 forward of MobileNetV2 and
+   of MobileNetV3-Large (recorded from a b1 forward each, whose launches
+   are counted: 21 and 23, and MobileNetV3-Large's counters: 8
+   squeeze-and-excitations, 6 depthwise convs left to the library) at
+   batch 2 and at DW3_EDGES (odd sizes, a row window's pads, C 8 and 1280):
+   its largest error against an f32 evaluation of the plain version no
+   worse than the library route's (cuDNN grouped conv with the bias,
+   ``F.pad``, the activation's pass), which rounds twice where the kernel
+   rounds once, beyond 2^-20 of the largest output (a ReLU6 conv with and
+   without its clamp, a MobileNetV3-Large one with its ReLU and with its
+   h-swish, on inputs across the h-swish's knees); then at batch 16 and 128
+   each geometry's wrapper held to the same gate, and its time, the kernel
+   alone (20 launches between two CUDA events), byte bound, plain version
+   and library route (``library_ms``, the parent's `_conv` calls), the
+   kernel alone and the route in turns, and the sums over one forward of
+   each backbone;
 4. the two backward kernels (depthwise 3x3 backward, dw + BN + ReLU6 chain
    backward) vs their plain versions, in bf16 and f32, at the training
    path's shape (16, 240, 320, 32), at two shapes outside the model's
@@ -336,8 +342,9 @@ channels, warps), ``python3 chip_smoke.py
 (tile rows, tile columns, chunk),
 all through the launchers' runtime arguments, and
 ``python3 chip_smoke.py --ab PARENT_ROOT`` the stem, chain and depthwise
-backward kernels, `wgrad_fma`, the int8 pointwise kernel at its two shapes
-and phase 6's serving (b16 images/s, b1 ms) of
+backward kernels, `wgrad_fma`, the int8 pointwise kernel at its two shapes,
+the depthwise 3x3 kernel at the default forward's geometries at b128 (with
+a digest of its outputs) and phase 6's serving (b16 images/s, b1 ms) of
 an unpacked parent tree and of this one in turns (parent, change, change,
 parent; one process each), and ``python3 chip_smoke.py --deployment`` runs
 phase 11 alone, ``python3 chip_smoke.py --data-parallel`` phase 12,
@@ -383,6 +390,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
 import json
 import math
 import statistics
@@ -506,9 +514,9 @@ def _mbconv_sequence(x, w1, b1, wd, b2, w3, b3):
     e, cin, cout = w1.shape[1], w1.shape[0], w3.shape[1]
     cl = torch.channels_last
     xc = x.permute(0, 3, 1, 2)
-    y = _conv(xc, w1.t().reshape(e, cin, 1, 1).contiguous(memory_format=cl), b1, relu6=True)
+    y = _conv(xc, w1.t().reshape(e, cin, 1, 1).contiguous(memory_format=cl), b1, act="relu6")
     y = _conv(y, wd.t().reshape(e, 1, 3, 3).contiguous(memory_format=cl), b2, depthwise=True,
-              relu6=True)
+              act="relu6")
     y = _conv(y, w3.t().reshape(cout, e, 1, 1).contiguous(memory_format=cl), b3)
     return (y + xc).permute(0, 2, 3, 1)
 
@@ -703,10 +711,10 @@ def _six_convs(folded, x):
     from ssdseglib_torch.models.fused_inference import _block_convs, _conv
 
     (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 0)
-    x = _conv(x.permute(0, 3, 1, 2), we, be, stride=2, relu6=True)
-    x = _conv(_conv(x, wd, bd, depthwise=True, relu6=True), wp, bp)
+    x = _conv(x.permute(0, 3, 1, 2), we, be, stride=2, act="relu6")
+    x = _conv(_conv(x, wd, bd, depthwise=True, act="relu6"), wp, bp)
     (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 1)
-    d = _conv(_conv(x, we, be, relu6=True), wd, bd, stride=2, depthwise=True, relu6=True)
+    d = _conv(_conv(x, we, be, act="relu6"), wd, bd, stride=2, depthwise=True, act="relu6")
     return _conv(d, wp, bp).permute(0, 2, 3, 1)
 
 
@@ -1043,38 +1051,56 @@ DW3_BATCHES = (16, 128)
 # block 0, the six first blocks, the two extra blocks, three ASPP branches,
 # the decoder, eight heads
 DW3_CONVS = 21
+# MobileNetV3-Large's: its nine 3x3 bneck convs and the same fourteen of the
+# heads (phase 3e counts their launches), and the forward's counters
+# (squeeze-and-excitations, depthwise convs left to the library: the 5x5)
+DW3_CONVS_MNV3, MNV3_COUNTERS = 23, (8, 6)
+MNV3_BUILDER = "MobileNetV3LargeSsdSegBuilder"
+# (relu_cap, activation) held at a geometry of each act of
+# `fused_inference.ACTIVATIONS`: a ReLU6 conv also without its clamp, a
+# MobileNetV3-Large one with each of its two activations
+DW3_HELD = {None: ((None, None),), "relu6": ((6.0, None), (None, None)),
+            "relu": ((None, "relu"), (None, "hard_swish")),
+            "hard_swish": ((None, "relu"), (None, "hard_swish"))}
 
 
-def _dw3_geometries():
-    """{(H, W, C, stride, dilation, bias, relu6): convs} of the depthwise 3x3
-    convs of one default bf16 forward of the flagship at 480x640, recorded
-    from a b1 forward."""
+def _dw3_geometries(builder_name="MobileNetV2SsdSegBuilder"):
+    """{(H, W, C, stride, dilation, bias, act): convs} of the depthwise 3x3
+    convs of one default bf16 forward of ``builder_name``'s model at
+    480x640, recorded from a b1 forward, before which
+    ``depthwise3x3.launches`` is set to 0; act is the name
+    `fused_inference.ACTIVATIONS` gives it."""
     from ssdseglib_torch.models import fused_inference
+    from ssdseglib_torch.ops.depthwise3x3 import depthwise3x3
 
-    builder, model, nms = _builder()
+    builder, model, nms = _builder(builder_name)
     infer = builder.get_model_for_inference(model_trained=model, compute_dtype="bfloat16",
                                             fused_backbone=True, mask_output="bfloat16",
                                             device="cuda", **nms)
     seen = {}
     real = fused_inference._depthwise3x3
 
-    def record(x, kernel, bias, stride, dilation, relu6):
-        key = (*x.shape[2:], x.shape[1], stride, dilation, bias is not None, relu6)
+    def record(x, kernel, bias, stride, dilation, act):
+        # a parent tree under `--ab` passes relu6 as a bool
+        name = ("relu6" if act else None) if isinstance(act, bool) else act
+        key = (*x.shape[2:], x.shape[1], stride, dilation, bias is not None, name)
         seen[key] = seen.get(key, 0) + 1
-        return real(x, kernel, bias, stride, dilation, relu6)
+        return real(x, kernel, bias, stride, dilation, act)
 
     fused_inference._depthwise3x3 = record
+    depthwise3x3.launches = 0
     try:
-        infer.raw_outputs(_uint8_images(1, 1))
+        outputs = infer.raw_outputs(_uint8_images(1, 1))
     finally:
         fused_inference._depthwise3x3 = real
+    assert all(bool(torch.isfinite(t).all()) for t in outputs)
     return seen
 
 
-def _dw3_operands(gen, b, h, w, c, with_bias=True):
-    """x (B, H, W, C) NHWC bf16 in [0, 6) (a ReLU6 output), a (C, 1, 3, 3)
-    folded weight and a bias, on the card."""
-    x = (torch.rand(b, h, w, c, generator=gen) * 6.0).to("cuda", torch.bfloat16)
+def _dw3_operands(gen, b, h, w, c, with_bias=True, low=0.0):
+    """x (B, H, W, C) NHWC bf16 in [low, low + 6) ([0, 6): a ReLU6 output),
+    a (C, 1, 3, 3) folded weight and a bias, on the card."""
+    x = (torch.rand(b, h, w, c, generator=gen) * 6.0 + low).to("cuda", torch.bfloat16)
     weight = (torch.randn(c, 1, 3, 3, generator=gen) * 0.4).to("cuda", torch.bfloat16)
     bias = (torch.rand(c, generator=gen) * 2.0 - 1.0).to("cuda", torch.bfloat16)
     return x, weight.contiguous(memory_format=torch.channels_last), bias if with_bias else None
@@ -1086,12 +1112,12 @@ def _dw3_pads(h, w, stride, dilation):
     return (*same_pad(h, 3, stride, dilation), *same_pad(w, 3, stride, dilation))
 
 
-def _dw3_errors(op, x, weight, bias, stride, dilation, pads, cap):
+def _dw3_errors(op, x, weight, bias, stride, dilation, pads, cap, activation=None):
     """(kernel, route) max |. - the f32 evaluation of the plain version|."""
     f32 = op.depthwise3x3_reference(x.float(), weight.float(), None if bias is None
-                                    else bias.float(), stride, dilation, pads, cap)
-    got = op.depthwise3x3(x, weight, bias, stride, dilation, pads, cap)
-    route = op.depthwise3x3_reference(x, weight, bias, stride, dilation, pads, cap)
+                                    else bias.float(), stride, dilation, pads, cap, activation)
+    got = op.depthwise3x3(x, weight, bias, stride, dilation, pads, cap, activation)
+    route = op.depthwise3x3_reference(x, weight, bias, stride, dilation, pads, cap, activation)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     return (float((got.float() - f32).abs().max()), float((route.float() - f32).abs().max()),
@@ -1100,87 +1126,117 @@ def _dw3_errors(op, x, weight, bias, stride, dilation, pads, cap):
 
 def phase_depthwise_kernel_vs_plain():
     """Phase 3e.  The depthwise 3x3 kernel against the library route's error
-    at every geometry of a default forward (b2) and at DW3_EDGES, then at
-    DW3_BATCHES its error and timings (see the module's docstring).  Returns
-    its report: the sums over one b16 forward."""
+    at every geometry of a default forward of MobileNetV2 and of
+    MobileNetV3-Large (b2) and at DW3_EDGES, then at DW3_BATCHES its error
+    and timings (see the module's docstring).  Returns its report: the sums
+    over one b16 forward of MobileNetV2."""
+    from ssdseglib_torch.models import fused_inference
     from ssdseglib_torch.models.blocks import conv2d_same
     from ssdseglib_torch.ops import depthwise3x3 as op
 
-    geometries = _dw3_geometries()
-    log(f"[dw3] {sum(geometries.values())} depthwise 3x3 convs a forward at "
-        f"{len(geometries)} geometries (H, W, C, stride, dilation, bias, relu6): "
-        f"{sorted(geometries.items(), reverse=True)}")
+    counters = fused_inference.mobilenetv3_large_features_fused
+    backbones = {"MobileNetV2": _dw3_geometries()}
+    assert op.depthwise3x3.launches == sum(backbones["MobileNetV2"].values()) == DW3_CONVS, (
+        op.depthwise3x3.launches)
+    before = (counters.se_blocks, counters.library_depthwise)
+    backbones["MobileNetV3-Large"] = _dw3_geometries(MNV3_BUILDER)
+    launches = op.depthwise3x3.launches
+    ran = (counters.se_blocks - before[0], counters.library_depthwise - before[1])
+    assert launches == sum(backbones["MobileNetV3-Large"].values()) == DW3_CONVS_MNV3, launches
+    assert ran == MNV3_COUNTERS, ran
+    log(f"[dw3] MobileNetV3-Large b1 forward: {launches} depthwise3x3 launches (counted from 0 "
+        f"before it), {ran[0]} squeeze-and-excitations, {ran[1]} depthwise convs on the "
+        f"library route")
+    for label, geometries in backbones.items():
+        log(f"[dw3] {label}: {sum(geometries.values())} depthwise 3x3 convs a forward at "
+            f"{len(geometries)} geometries (H, W, C, stride, dilation, bias, act): "
+            f"{sorted(geometries.items(), key=repr, reverse=True)}")
     gen = torch.Generator().manual_seed(5)
-    cases = [(2, h, w, c, s, d, None, has_bias, relu6)
-             for (h, w, c, s, d, has_bias, relu6) in geometries]
-    cases += [(*edge, True, True) for edge in DW3_EDGES]
+    cases = [(2, h, w, c, s, d, None, has_bias, act)
+             for geometries in backbones.values()
+             for (h, w, c, s, d, has_bias, act) in geometries]
+    cases += [(*edge, True, "relu6") for edge in DW3_EDGES]
     failed = []
     worst = 0.0
 
-    def hold(b, h, w, c, s, d, pads, has_bias, cap, x, weight, bias):
-        nonlocal worst
-        kernel, route, largest = _dw3_errors(op, x, weight, bias, s, d, pads, cap)
-        ok = kernel <= route + 2.0 ** -20 * largest
-        worst = max(worst, kernel)
-        log(f"[dw3] ({b}, {h}, {w}, {c}) s{s} d{d} pads {pads} bias {has_bias} cap {cap}: "
-            f"max |kernel - f32| {kernel:.4g}, library route {route:.4g} (largest "
-            f"|y| {largest:.3g}){'' if ok else ' FAILED'}")
-        if not ok:
-            failed.append((b, h, w, c, s, d, pads, cap))
+    def operands(b, h, w, c, has_bias, act):
+        # MobileNetV3-Large's activations on inputs across the h-swish's knees
+        low = -3.0 if act in ("relu", "hard_swish") else 0.0
+        return _dw3_operands(gen, b, h, w, c, has_bias, low)
 
-    for b, h, w, c, s, d, pads, has_bias, relu6 in cases:
-        x, weight, bias = _dw3_operands(gen, b, h, w, c, has_bias)
-        pads = pads or _dw3_pads(h, w, s, d)
-        for cap in ((6.0, None) if relu6 else (None,)):
-            hold(b, h, w, c, s, d, pads, has_bias, cap, x, weight, bias)
+    def hold(b, h, w, c, s, d, pads, has_bias, act, x, weight, bias):
+        nonlocal worst
+        for cap, activation in DW3_HELD[act]:
+            kernel, route, largest = _dw3_errors(op, x, weight, bias, s, d, pads, cap,
+                                                 activation)
+            ok = kernel <= route + 2.0 ** -20 * largest
+            worst = max(worst, kernel)
+            log(f"[dw3] ({b}, {h}, {w}, {c}) s{s} d{d} pads {pads} bias {has_bias} cap {cap} "
+                f"activation {activation}: max |kernel - f32| {kernel:.4g}, library route "
+                f"{route:.4g} (largest |y| {largest:.3g}){'' if ok else ' FAILED'}")
+            if not ok:
+                failed.append((b, h, w, c, s, d, pads, cap, activation))
+
+    for b, h, w, c, s, d, pads, has_bias, act in cases:
+        x, weight, bias = operands(b, h, w, c, has_bias, act)
+        hold(b, h, w, c, s, d, pads or _dw3_pads(h, w, s, d), has_bias, act, x, weight, bias)
     if failed:
         raise AssertionError(f"depthwise3x3 kernel worse than the library route at {failed}")
 
     report = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
               "max_abs_err": worst, "bound_by": "bytes"}
     for batch in DW3_BATCHES:
-        sums = dict.fromkeys(("ms", "alone", "bound", "plain", "library"), 0.0)
-        for (h, w, c, s, d, has_bias, relu6), convs in sorted(geometries.items(), reverse=True):
-            x, weight, bias = _dw3_operands(gen, batch, h, w, c, has_bias)
-            pads = _dw3_pads(h, w, s, d)
-            cap = 6.0 if relu6 else None
-            hold(batch, h, w, c, s, d, pads, has_bias, cap, x, weight, bias)
-            nchw = x.permute(0, 3, 1, 2)
-            ho = op.output_size(h, pads[0], pads[1], s, d)
-            wo = op.output_size(w, pads[2], pads[3], s, d)
-            nbytes = 2 * batch * c * (h * w + ho * wo) + 2 * c * (9 + int(has_bias))
-            least, _ = bound_ms(nbytes, (2 * 9 * batch * ho * wo * c, PEAK_FLOPS[torch.float32]))
+        for label, geometries in backbones.items():
+            sums = dict.fromkeys(("ms", "alone", "bound", "plain", "library"), 0.0)
+            for (h, w, c, s, d, has_bias, act), convs in sorted(geometries.items(), key=repr,
+                                                               reverse=True):
+                x, weight, bias = operands(batch, h, w, c, has_bias, act)
+                pads = _dw3_pads(h, w, s, d)
+                cap, activation = fused_inference.ACTIVATIONS[act][0]
+                code = op._act_code(cap, activation)
+                hold(batch, h, w, c, s, d, pads, has_bias, act, x, weight, bias)
+                nchw = x.permute(0, 3, 1, 2)
+                ho = op.output_size(h, pads[0], pads[1], s, d)
+                wo = op.output_size(w, pads[2], pads[3], s, d)
+                nbytes = 2 * batch * c * (h * w + ho * wo) + 2 * c * (9 + int(has_bias))
+                least, _ = bound_ms(nbytes, (2 * 9 * batch * ho * wo * c,
+                                             PEAK_FLOPS[torch.float32]))
 
-            def library():  # the parent's `_conv`: conv2d_same (cuDNN, F.pad), clamp
-                y = conv2d_same(nchw, weight, bias, s, d, c)
-                return y.clamp(0.0, 6.0) if relu6 else y
+                def library():  # the parent's `_conv`: conv2d_same (cuDNN, F.pad), act
+                    return fused_inference.ACTIVATIONS[act][1](
+                        conv2d_same(nchw, weight, bias, s, d, c))
 
-            ms = cuda_median_ms(lambda: op.depthwise3x3(x, weight, bias, s, d, pads, cap))
-            turns = [_events_ms(lambda: op._launch(x, weight, bias, s, d, pads, cap)),
-                     _events_ms(library), _events_ms(library),
-                     _events_ms(lambda: op._launch(x, weight, bias, s, d, pads, cap))]
-            alone, library_ms = min(turns[0], turns[3]), min(turns[1], turns[2])
-            plain = cuda_median_ms(lambda: op.depthwise3x3_reference(x, weight, bias, s, d,
-                                                                     pads, cap))
-            log(f"[dw3] b{batch} ({h}, {w}, {c}) s{s} d{d} x{convs}: wrapper {ms:.4f} ms | "
-                f"alone {turns[0]:.4f}, {turns[3]:.4f} ms | {least / alone:.3f} of the bound "
-                f"{least:.4f} ms ({nbytes / 1e6:.1f} MB) | plain {plain:.4f} ms | library "
-                f"route {turns[1]:.4f}, {turns[2]:.4f} ms (in turns with the kernel)")
-            for key, value in (("ms", ms), ("alone", alone), ("bound", least), ("plain", plain),
-                               ("library", library_ms)):
-                sums[key] += convs * value
-            del x, weight, bias, nchw
-            torch.cuda.empty_cache()
-        if failed:
-            raise AssertionError(f"depthwise3x3 kernel worse than the library route at {failed}")
-        log(f"[dw3] b{batch} one forward ({sum(geometries.values())} convs): wrapper "
-            f"{sums['ms']:.4f} ms | kernel alone {sums['alone']:.4f} ms | bound "
-            f"{sums['bound']:.4f} ms ({sums['bound'] / sums['alone']:.3f} of it alone) | plain "
-            f"{sums['plain']:.4f} ms | library route {sums['library']:.4f} ms "
-            f"({sums['library'] / sums['alone']:.2f}x the kernel alone)")
-        if batch == BATCH:
-            report.update(ms=sums["ms"], plain_ms=sums["plain"], bound_ms=sums["bound"],
-                          library_ms=sums["library"])
+                def kernel():
+                    return op._launch(x, weight, bias, s, d, pads, cap, code)
+
+                ms = cuda_median_ms(lambda: op.depthwise3x3(x, weight, bias, s, d, pads, cap,
+                                                            activation))
+                turns = [_events_ms(kernel), _events_ms(library), _events_ms(library),
+                         _events_ms(kernel)]
+                alone, library_ms = min(turns[0], turns[3]), min(turns[1], turns[2])
+                plain = cuda_median_ms(lambda: op.depthwise3x3_reference(
+                    x, weight, bias, s, d, pads, cap, activation))
+                log(f"[dw3] {label} b{batch} ({h}, {w}, {c}) s{s} d{d} {act} x{convs}: "
+                    f"wrapper {ms:.4f} ms | alone {turns[0]:.4f}, {turns[3]:.4f} ms | "
+                    f"{least / alone:.3f} of the bound {least:.4f} ms ({nbytes / 1e6:.1f} MB) | "
+                    f"plain {plain:.4f} ms | library route {turns[1]:.4f}, {turns[2]:.4f} ms "
+                    f"(in turns with the kernel)")
+                for key, value in (("ms", ms), ("alone", alone), ("bound", least),
+                                   ("plain", plain), ("library", library_ms)):
+                    sums[key] += convs * value
+                del x, weight, bias, nchw
+                torch.cuda.empty_cache()
+            if failed:
+                raise AssertionError(
+                    f"depthwise3x3 kernel worse than the library route at {failed}")
+            log(f"[dw3] {label} b{batch} one forward ({sum(geometries.values())} convs): "
+                f"wrapper {sums['ms']:.4f} ms | kernel alone {sums['alone']:.4f} ms | bound "
+                f"{sums['bound']:.4f} ms ({sums['bound'] / sums['alone']:.3f} of it alone) | "
+                f"plain {sums['plain']:.4f} ms | library route {sums['library']:.4f} ms "
+                f"({sums['library'] / sums['alone']:.2f}x the kernel alone)")
+            if batch == BATCH and label == "MobileNetV2":
+                report.update(ms=sums["ms"], plain_ms=sums["plain"], bound_ms=sums["bound"],
+                              library_ms=sums["library"])
     return report
 
 
@@ -1744,14 +1800,17 @@ def _wgrad_alone_ms(kernel: int, x, dy, rows: int = 0, ctas: int = 0, stages: in
     return start.elapsed_time(end) / launches
 
 
-def _builder():
+def _builder(builder_name="MobileNetV2SsdSegBuilder"):
+    """(builder, its model on the card with random BatchNorm, NMS arguments)
+    of the flagship's configuration, on the backbone of ``builder_name`` (a
+    class of `models.builder` with `MobileNetV2SsdSegBuilder`'s surface)."""
     from ssdseglib_torch.boxes import Anchors
     from ssdseglib_torch.config import reference_warehouse_config
-    from ssdseglib_torch.models.builder import MobileNetV2SsdSegBuilder
+    from ssdseglib_torch.models import builder as builders
 
     anchors_cfg, enc_cfg, model_cfg, nms_cfg, _ = reference_warehouse_config()
     anchors = Anchors.from_config(anchors_cfg, enc_cfg.image_shape)
-    builder = MobileNetV2SsdSegBuilder(
+    builder = getattr(builders, builder_name)(
         input_image_shape=model_cfg.input_image_shape,
         number_of_boxes_per_point=list(model_cfg.boxes_per_point),
         number_of_classes=model_cfg.number_of_classes,
@@ -5032,8 +5091,10 @@ def ab_arm(card: str) -> None:
     same function), the bf16 chain backward (with the ATen route of the
     unit), the bf16 depthwise backward, `wgrad_fma` at f32 batch 16 (both
     layers summed; the library's weight gradient beside) and the bf16 int8
-    pointwise kernel at INT8_FLAGSHIP's two shapes, then phase 6's serving
-    (b16 images/s, the median of its rounds, and b1 ms); one JSON line."""
+    pointwise kernel at INT8_FLAGSHIP's two shapes, the depthwise 3x3
+    kernel alone at each geometry of the default forward at b128 (and a
+    digest of its outputs), then phase 6's serving (b16 images/s, the median
+    of its rounds, and b1 ms); one JSON line."""
     import torch.nn.functional as F
 
     from ssdseglib_torch.ops import _cuda_build
@@ -5113,6 +5174,26 @@ def ab_arm(card: str) -> None:
         del x, tables
     torch.cuda.empty_cache()
 
+    # the depthwise 3x3 kernel alone at the default forward's geometries at
+    # b128, and a digest of its outputs' bits
+    from ssdseglib_torch.ops import depthwise3x3 as dw3
+
+    gen = torch.Generator().manual_seed(5)
+    digest, row["dw3_forward_alone_ms"] = hashlib.sha256(), 0.0
+    for (h, w, c, s, d, has_bias, act), convs in sorted(_dw3_geometries().items(),
+                                                         key=repr, reverse=True):
+        relu6 = act == "relu6"
+        x, weight, bias = _dw3_operands(gen, 128, h, w, c, has_bias)
+        pads, cap = _dw3_pads(h, w, s, d), 6.0 if relu6 else None
+        digest.update(dw3._launch(x, weight, bias, s, d, pads, cap).view(torch.int16).cpu()
+                      .numpy().tobytes())
+        ms = _events_ms(lambda: dw3._launch(x, weight, bias, s, d, pads, cap))
+        row[f"dw3_{h}x{w}x{c}_s{s}_d{d}_{int(has_bias)}{int(relu6)}_alone_ms"] = ms
+        row["dw3_forward_alone_ms"] += convs * ms
+        del x, weight, bias
+    row["dw3_sha256"] = digest.hexdigest()
+    torch.cuda.empty_cache()
+
     # phase 6's serving: b16 images/s (median of the rounds) and b1 ms
     builder, model, nms = _builder()
     infer = builder.get_model_for_inference(
@@ -5146,11 +5227,14 @@ def ab_in_turns(card: str, parent_root: str) -> None:
                                           if isinstance(v, float)) + f" | {row['package']}")
     for key in ("stem_ms", "stem_alone_ms", "chain_ms", "chain_alone_ms", "dw_ms",
                 "dw_alone_ms", "fma_ms", "fma_alone_ms", "int8_aspp_ms", "int8_aspp_alone_ms",
-                "int8_decoder_ms", "int8_decoder_alone_ms", "serve_b1_ms"):
+                "int8_decoder_ms", "int8_decoder_alone_ms", "serve_b1_ms",
+                *(k for k in rows[0][1] if k.startswith("dw3_") and k.endswith("_ms"))):
         parent = [r[key] for arm, r in rows if arm == "parent"]
         change = [r[key] for arm, r in rows if arm == "change"]
         log(f"[ab] {key}: change / parent = {max(change) / min(parent):.3f} at worst, "
             f"{min(change) / max(parent):.3f} at best | {card}")
+    log(f"[ab] dw3 outputs' bits: " + ", ".join(f"{arm} {r['dw3_sha256'][:16]}"
+                                                for arm, r in rows))
     parent = [r["serve_images_per_s"] for arm, r in rows if arm == "parent"]
     change = [r["serve_images_per_s"] for arm, r in rows if arm == "change"]
     log(f"[ab] serve_images_per_s: parent {[round(v, 2) for v in parent]}, change "

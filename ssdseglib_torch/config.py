@@ -94,7 +94,7 @@ class ModelConfig:
     input_image_shape: Tuple[int, int, int] = (480, 640, 3)
     number_of_classes: int = 4
     boxes_per_point: Tuple[int, ...] = (6, 6, 6, 6)
-    backbone: str = "mobilenetv2"  # or "shufflenetv2"
+    backbone: str = "mobilenetv2"  # or "shufflenetv2", "mobilenetv3_large"
     segmentation_dilation_rates: Tuple[int, int, int] = (6, 12, 18)
     # shufflenet-only knobs (reference models.py:429-470)
     shufflenet_size: str = "1x"  # '0.5x' | '1x' | '1.5x' | '2x'

@@ -1,5 +1,5 @@
 // Depthwise 3x3 convolution of the folded serving forward for Hopper (sm_90a),
-// with its padding, stride, dilation, bias and ReLU cap inside it.
+// with its padding, stride, dilation, bias and activation inside it.
 //
 // Replaces no Pallas kernel.  The JAX package leaves these convolutions to
 // XLA, which fuses the padding, the bias and the activation into the
@@ -13,8 +13,16 @@
 //
 // x outside [0, H) x [0, W) reads as zero, so explicit pads (top, bottom,
 // left, right) take the place of `F.pad`, and a row window of a split map
-// (pads (0, 0, left, right)) runs unchanged.  act is the identity or
-// clamp(0, cap).  Products and sums in f32, rounded once to bf16.
+// (pads (0, 0, left, right)) runs unchanged.  act is one of four, by the
+// launcher's code: 0 the identity and 1 clamp(0, cap), told apart by a
+// warp-uniform flag in one instantiation (ACT 0), 2 max(0, y) and 3 the
+// h-swish y min(max(y + 3, 0), 6) / 6, each an instantiation of its own
+// (ACT 2, 3).  The h-swish multiplies by 1/6: a division's range check and
+// slow-path branch on each value made its convs 2.1-3.2x slower on the H100
+// at MobileNetV3-Large's b128 geometries (no spills either way).  Codes 0
+// and 1 share the instantiation that MobileNetV2's convs ran before codes 2
+// and 3 came: with all four as template cases, those convs read 2-11 %
+// slower on the H100.  Products, sums and act in f32, rounded once to bf16.
 //
 // What bounds it on the H100: bytes.  It reads x and writes y once, against
 // 18 operations an output element on the CUDA cores (at the serving path's
@@ -29,7 +37,7 @@
 // - it walks down its TR output rows with the window's input rows in
 //   registers as packed bf16, loading the s new rows of the next output row
 //   before it computes this one; the nine taps and the bias stay in
-//   registers as f32;
+//   registers as f32, and act is applied there before the store;
 // - consecutive threads take consecutive vectors of one pixel, so every load
 //   and store of a warp is whole 32-byte sectors; the columns that two
 //   neighbouring blocks share come from L1 (`ld.global.nc`), the rows that
@@ -61,7 +69,7 @@ struct Dw3Geo {
   int col_groups, row_groups;  // blocks of TW columns, TR rows, spaced d
   long long items;             // B * row_groups * col_groups
   int kcs, kis, kjs;           // the taps' strides
-  int has_cap;
+  int has_cap;                 // ACT 0: clamp to [0, cap] (code 1)
   float cap;
 };
 
@@ -74,7 +82,7 @@ __device__ __forceinline__ unsigned pack2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-template <int S, int TW, int TR>
+template <int S, int TW, int TR, int ACT>
 __global__ void __launch_bounds__(kThreads)
 depthwise3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
@@ -151,7 +159,14 @@ depthwise3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
           for (int p = 0; p < kV; ++p) acc[p] = fmaf(kk[ki * 3 + kj][p], f[p], acc[p]);
         }
       if (wo < g.Wo) {
-        if (g.has_cap) {
+        if (ACT == 2) {
+#pragma unroll
+          for (int p = 0; p < kV; ++p) acc[p] = fmaxf(acc[p], 0.0f);
+        } else if (ACT == 3) {
+#pragma unroll
+          for (int p = 0; p < kV; ++p)
+            acc[p] = acc[p] * fminf(fmaxf(acc[p] + 3.0f, 0.0f), 6.0f) * (1.0f / 6.0f);
+        } else if (g.has_cap) {
 #pragma unroll
           for (int p = 0; p < kV; ++p) acc[p] = fminf(fmaxf(acc[p], 0.0f), g.cap);
         }
@@ -166,18 +181,30 @@ depthwise3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
 // (TW, TR) of each stride
 constexpr int kTW1 = 4, kTR1 = 4, kTW2 = 2, kTR2 = 4;
 
+using Dw3Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+                           __nv_bfloat16*, const Dw3Geo);
+
+// the instantiation of stride S for act (0 the identity, 1 the clamp, 2 the
+// ReLU, 3 the h-swish)
+template <int S, int TW, int TR>
+Dw3Kernel kernel_for(int act) {
+  if (act == 2) return depthwise3x3_kernel<S, TW, TR, 2>;
+  if (act == 3) return depthwise3x3_kernel<S, TW, TR, 3>;
+  return depthwise3x3_kernel<S, TW, TR, 0>;
+}
+
 }  // namespace
 
 // One launch.  x, k, bias (or null), y bf16 as the header says; (Ho, Wo) the
 // output's size for the pads (pad_top, bottom, pad_left, right), which the
-// caller computed; has_cap: clamp to [0, cap].  Returns a cudaError_t (0 on
-// success).
+// caller computed; act 0 the identity, 1 clamp to [0, cap], 2 max(0, y), 3
+// the h-swish.  Returns a cudaError_t (0 on success).
 extern "C" int depthwise3x3_launch(const void* x, const void* k, int kcs, int kis, int kjs,
                                    const void* bias, void* y, int B, int H, int W, int C, int Ho,
                                    int Wo, int stride, int dilation, int pad_top, int pad_left,
-                                   int has_cap, float cap, void* stream) {
+                                   int act, float cap, void* stream) {
   if (stride < 1 || stride > 2 || B < 1 || H < 1 || W < 1 || C < kV || C % kV || Ho < 1 ||
-      Wo < 1 || dilation < 1)
+      Wo < 1 || dilation < 1 || act < 0 || act > 3)
     return cudaErrorInvalidValue;
   const int tw = stride == 1 ? kTW1 : kTW2, tr = stride == 1 ? kTR1 : kTR2;
   Dw3Geo g;
@@ -188,14 +215,14 @@ extern "C" int depthwise3x3_launch(const void* x, const void* k, int kcs, int ki
   g.row_groups = (Ho + tr * dilation - 1) / (tr * dilation) * dilation;
   g.items = (long long)B * g.row_groups * g.col_groups;
   g.kcs = kcs, g.kis = kis, g.kjs = kjs;
-  g.has_cap = has_cap, g.cap = cap;
+  g.has_cap = act == 1, g.cap = cap;
   const int bx = g.cv < 128 ? g.cv : 128;
   const int by = kThreads / bx;
   const long long blocks = (g.items + by - 1) / by;
   const int chunks = (g.cv + bx - 1) / bx;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  const auto kernel = stride == 1 ? depthwise3x3_kernel<1, kTW1, kTR1>
-                                  : depthwise3x3_kernel<2, kTW2, kTR2>;
+  const Dw3Kernel kernel = stride == 1 ? kernel_for<1, kTW1, kTR1>(act)
+                                       : kernel_for<2, kTW2, kTR2>(act);
   kernel<<<dim3(unsigned(blocks), chunks), dim3(bx, by), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), g);

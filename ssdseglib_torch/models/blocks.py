@@ -12,7 +12,10 @@ names mirror the Flax tree ("conv", "batchnorm", "depthwise", "pointwise"),
 so ``weights.py`` bridges the two by a rename plus a transpose.
 
 Activation convention (``relu_max``): None = no activation, 0.0 = uncapped
-ReLU, x > 0 = ReLU capped at x.
+ReLU, x > 0 = ReLU capped at x.  ``activation`` names the two hard
+activations of MobileNetV3 instead (Howard et al., 2019, section 5.2):
+'hard_swish' ``x * relu6(x + 3) / 6`` and 'hard_sigmoid' ``relu6(x + 3) / 6``;
+`squeeze_excite` is its squeeze-and-excitation (section 5.3).
 
 Train mode follows Flax: `FlaxBatchNorm2d` keeps the BIASED batch variance in
 ``running_var``; inside a `parallel.mesh.data_parallel` scope its statistics
@@ -137,6 +140,33 @@ def apply_relu(x: torch.Tensor, relu_max: Optional[float]) -> torch.Tensor:
     if relu_max > 0.0:
         return x.clamp(0.0, relu_max)
     return F.relu(x)
+
+
+# the hard activations by name: x * relu6(x + 3) / 6 and relu6(x + 3) / 6
+HARD_ACTIVATIONS = {"hard_swish": F.hardswish, "hard_sigmoid": F.hardsigmoid}
+
+
+def apply_activation(x: torch.Tensor, relu_max: Optional[float],
+                     activation: Optional[str]) -> torch.Tensor:
+    """``activation`` (a name of HARD_ACTIVATIONS) where given, else the
+    ReLU of ``relu_max`` (`apply_relu`)."""
+    if activation is None:
+        return apply_relu(x, relu_max)
+    return HARD_ACTIVATIONS[activation](x)
+
+
+def _check_activation(relu_max: Optional[float], activation: Optional[str]) -> None:
+    if activation is not None and (activation not in HARD_ACTIVATIONS or relu_max is not None):
+        raise ValueError(f"activation must be one of {sorted(HARD_ACTIVATIONS)} with no "
+                         f"relu_max, got {activation!r} and relu_max {relu_max!r}")
+
+
+def squeeze_excite(x: torch.Tensor, reduce: nn.Conv2d, expand: nn.Conv2d) -> torch.Tensor:
+    """MobileNetV3's squeeze-and-excitation: x scaled per channel by
+    hard_sigmoid(expand(relu(reduce(mean of x over H x W)))), both 1x1 convs
+    with their biases; the mean is the global map's on split rows."""
+    s = F.relu(reduce(spatial.mean_hw(x)))
+    return x * F.hardsigmoid(expand(s))
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -293,33 +323,39 @@ class SameConv2d(nn.Conv2d):
 
 
 class ConvBN(nn.Module):
-    """Pointwise/standard conv -> batchnorm -> optional capped relu."""
+    """Pointwise/standard conv -> batchnorm -> optional capped relu or hard
+    activation."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1,
                  strides: int = 1, dilation: int = 1,
-                 relu_max: Optional[float] = None) -> None:
+                 relu_max: Optional[float] = None, activation: Optional[str] = None) -> None:
         super().__init__()
+        _check_activation(relu_max, activation)
         self.conv = SameConv2d(cin, features, kernel_size, strides, dilation)
         self.batchnorm = batchnorm(features)
-        self.relu_max = relu_max
+        self.relu_max, self.activation = relu_max, activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_relu(self.batchnorm(dense_conv(self.conv, x)), self.relu_max)
+        return apply_activation(self.batchnorm(dense_conv(self.conv, x)), self.relu_max,
+                                self.activation)
 
 
 class DepthwiseConvBN(nn.Module):
-    """Depthwise conv (one filter per channel) -> batchnorm -> optional relu."""
+    """Depthwise conv (one filter per channel) -> batchnorm -> optional relu
+    or hard activation."""
 
     def __init__(self, channels: int, kernel_size: int = 3, strides: int = 1,
-                 dilation: int = 1, relu_max: Optional[float] = None) -> None:
+                 dilation: int = 1, relu_max: Optional[float] = None,
+                 activation: Optional[str] = None) -> None:
         super().__init__()
+        _check_activation(relu_max, activation)
         self.conv = SameConv2d(channels, channels, kernel_size, strides, dilation,
                                groups=channels)
         self.batchnorm = batchnorm(channels)
-        self.relu_max = relu_max
+        self.relu_max, self.activation = relu_max, activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and CHAIN_BWD_IMPL == "cuda":
+        if self.training and CHAIN_BWD_IMPL == "cuda" and self.activation is None:
             from ssdseglib_torch.ops.fused_chain_backward import chain_applicable
 
             # the envelope reads the global map: a shard routes where one process does
@@ -328,7 +364,7 @@ class DepthwiseConvBN(nn.Module):
                                 self.conv.dilation, self.relu_max):
                 return self._fused_chain(x)
         x = depthwise_conv(self.conv, x)
-        return apply_relu(self.batchnorm(x), self.relu_max)
+        return apply_activation(self.batchnorm(x), self.relu_max, self.activation)
 
     def _fused_chain(self, x: torch.Tensor) -> torch.Tensor:
         """Train-mode forward through the whole-chain autograd unit

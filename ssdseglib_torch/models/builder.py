@@ -1,16 +1,18 @@
 """Model assembly and serving (PyTorch), counterpart of
 ssdseglib_tpu/models/builder.py.
 
-`SsdSegModel` is the joint SSDLite + DeepLabV3+ network on MobileNetV2 or
-ShuffleNetV2 (built in eval mode; ``.train()`` reaches every BatchNorm for
-the trainer); `InferenceModel` is the serving path: forward -> decode ->
-segmentation gating -> exact NMS, on one device, data-parallel over a mesh
+`SsdSegModel` is the joint SSDLite + DeepLabV3+ network on MobileNetV2,
+ShuffleNetV2 or MobileNetV3-Large (built in eval mode; ``.train()`` reaches
+every BatchNorm for the trainer); `InferenceModel` is the serving path:
+forward -> decode -> segmentation gating -> exact NMS, on one device,
+data-parallel over a mesh
 (`parallel.make_mesh`) or over a ``("data", "spatial")`` mesh that splits the
 rows too (`parallel.make_hybrid_mesh`), with the NMS thresholds held as 0-d
 device tensors so
 an operating point changes without any host synchronisation.
 `MobileNetV2SsdSegBuilder` and `ShuffleNetV2SsdSegBuilder` mirror the
-reference builder surface.
+reference builder surface; `MobileNetV3LargeSsdSegBuilder`, the port's own,
+takes `MobileNetV2SsdSegBuilder`'s.
 
 `TrainableModel` is `SsdSegModel` under the reference's name: the
 ``nn.Module`` is the trainable model (it has `parameter_counts`), and Flax's
@@ -39,6 +41,11 @@ from ssdseglib_torch.models.heads import (
     SsdLiteHeads,
 )
 from ssdseglib_torch.models.mobilenetv2 import MobileNetV2Backbone
+from ssdseglib_torch.models.mobilenetv3 import (
+    LAST_BLOCK,
+    LAST_CHANNELS,
+    MobileNetV3LargeBackbone,
+)
 from ssdseglib_torch.models.shufflenetv2 import STAGE_CHANNELS, ShuffleNetV2Backbone
 from ssdseglib_torch.ops.encoding import decode_predictions_to_corners_yx
 from ssdseglib_torch.parallel import mesh as mesh_lib
@@ -55,6 +62,10 @@ def _backbone_head_config(cfg: ModelConfig):
     if cfg.backbone == "shufflenetv2":
         c4 = STAGE_CHANNELS[cfg.shufflenet_size][4]
         return 0.0, ((c4, "backbone-stage5-block1"), (c4, "backbone-stage5-block2"))
+    if cfg.backbone == "mobilenetv3_large":
+        # the first two depths of SSDLite's extra layers (Howard et al., 2019,
+        # section 6.2), under MobileNetV2's names
+        return 6.0, ((512, "backbone-block17"), (256, "backbone-block18"))
     raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
@@ -77,6 +88,13 @@ def _backbone(cfg: ModelConfig):
             use_residual_connections=cfg.shufflenet_residuals,
         )
         return backbone, taps, (channels[3], channels[4], channels[2])
+    if cfg.backbone == "mobilenetv3_large":
+        # section 6.2's C4, the expansion of block 13 (672, os16), and C5, the
+        # 1x1 conv of 960 (os32); the decoder's skip is block 4's expansion
+        # (72, os4), as MobileNetV2's is block 3's
+        taps = ("backbone-block13-expand", f"backbone-block{LAST_BLOCK}-expand",
+                "backbone-block4-expand")
+        return MobileNetV3LargeBackbone(), taps, (672, LAST_CHANNELS, 72)
     raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
@@ -222,9 +240,12 @@ class InferenceModel:
         """compute_dtype: 'bfloat16' is the serving fast path (weights and
         convs in bf16); decode, gating and NMS always run in f32.
 
-        fused_backbone: BN-folded forward with the fused MBConv kernel
-        (models/fused_inference.py); every batch goes through the kernel.
-        Otherwise the eval-mode module runs as it is, in compute_dtype.
+        fused_backbone: the BN-folded forward (models/fused_inference.py):
+        on MobileNetV2 with the fused MBConv kernel, on MobileNetV3-Large
+        with its squeeze-and-excitation and hard activations; in bfloat16
+        every depthwise 3x3 conv runs the depthwise kernel.  ShuffleNetV2
+        raises.  Otherwise the eval-mode module runs as it is, in
+        compute_dtype.
 
         mask_output: 'float32' | 'bfloat16' | 'class_map' (`_format_mask`).
 
@@ -233,12 +254,13 @@ class InferenceModel:
         for batch- and row-parallel serving, or None.  On a mesh that splits
         the rows the fused forward runs under the model's row partition
         (`fused_inference.fused_forward`): its kernels on this rank's windows
-        of rows, the int8 1x1s on its rows as they are.
+        of rows, the int8 1x1s on its rows as they are.  The folded
+        MobileNetV3-Large takes no spatial mesh.
 
         quantize_pointwise / calibration_images: int8 post-training
         quantization of the two pointwise convs of
         `fused_inference.QUANT_TARGETS`, calibrated on a representative
-        uint8 batch; requires ``fused_backbone``.  On a mesh (data or
+        uint8 batch; requires ``fused_backbone`` on MobileNetV2.  On a mesh (data or
         spatial) every rank calibrates on the whole batch with the replicated
         weights, outside any row partition, so every rank holds one
         process's tables.
@@ -246,7 +268,7 @@ class InferenceModel:
         s2d_stem: the stem + block 1 route of the fused forward, False,
         ``"cuda"`` (the fused kernel) or ``"xla"`` (the packed conv
         reformulation) (`fused_inference.make_fused_forward`); requires
-        ``fused_backbone``.
+        ``fused_backbone`` on MobileNetV2.
 
         input_layout / input_layout_batch: the JAX package's 'auto' compiles
         a program with XLA-chosen input layouts for one batch size.  The
@@ -262,6 +284,10 @@ class InferenceModel:
             )
         if s2d_stem and not fused_backbone:
             raise ValueError("s2d_stem requires fused_backbone=True")
+        if (fused_backbone and module.cfg.backbone == "mobilenetv3_large" and mesh is not None
+                and spatial.has_spatial_axis(mesh)):
+            raise ValueError("fused inference of mobilenetv3_large takes no ('data', 'spatial') "
+                             "mesh; a 1-D data mesh serves it")
         if input_layout not in ("default", "auto"):
             raise ValueError(
                 f"input_layout must be 'default' or 'auto', got {input_layout!r}"
@@ -308,17 +334,15 @@ class InferenceModel:
             state_dict = mesh_lib.replicate(mesh, state_dict)
         if fused_backbone:
             from ssdseglib_torch.models.fused_inference import (
-                _check_s2d_stem,
+                check_fused_options,
                 fused_forward,
                 fused_operands,
             )
 
-            if module.cfg.backbone != "mobilenetv2":
-                raise ValueError("fused inference currently supports mobilenetv2 only")
             cfg = module.cfg
+            check_fused_options(cfg, s2d_stem, quantize_pointwise)
             self._net = None
             # fold BN from the f32 weights, then cast to the compute dtype
-            _check_s2d_stem(s2d_stem)
             weights = fused_operands(cfg, state_dict, self._dtype, self.device,
                                      s2d_stem=s2d_stem,
                                      quantize_pointwise=quantize_pointwise,
@@ -579,8 +603,9 @@ class _BuilderBase:
         """Args:
             model_trained: the trained `SsdSegModel`, or its state_dict.
             compute_dtype: 'bfloat16' for the serving fast path.
-            fused_backbone: BN-folded forward through the fused MBConv kernel
-                (MobileNetV2 only: ShuffleNetV2 raises ValueError).
+            fused_backbone: the BN-folded forward (MobileNetV2 through the
+                fused MBConv kernel, MobileNetV3-Large; ShuffleNetV2 raises
+                ValueError).
             mask_output: 'float32' | 'bfloat16' | 'class_map'.
             device: where the model serves; the card unless the caller
                 asks for the CPU.
@@ -592,11 +617,11 @@ class _BuilderBase:
                 program either way on the port (`InferenceModel`).
             quantize_pointwise / calibration_images: opt-in int8 PTQ of the
                 two pointwise convs of `fused_inference.QUANT_TARGETS`;
-                requires fused_backbone and a representative calibration
-                batch in [0, 255].
+                requires fused_backbone on MobileNetV2 and a representative
+                calibration batch in [0, 255].
             s2d_stem: the fused forward's stem + block 1 route, False,
-                ``"cuda"`` or ``"xla"``; requires fused_backbone
-                (`InferenceModel`).
+                ``"cuda"`` or ``"xla"``; requires fused_backbone on
+                MobileNetV2 (`InferenceModel`).
         """
         if isinstance(model_trained, SsdSegModel):
             module = model_trained
@@ -659,6 +684,39 @@ class MobileNetV2SsdSegBuilder(_BuilderBase):
             height_boxes_default,
             standard_deviations_centroids_offsets,
             backbone="mobilenetv2",
+            **model_kwargs,
+        )
+
+
+class MobileNetV3LargeSsdSegBuilder(_BuilderBase):
+    """MobileNetV3-Large (`models/mobilenetv3.py`) on the same heads, with
+    `MobileNetV2SsdSegBuilder`'s ctor surface.  The port's own: the
+    reference and the JAX package have no such builder."""
+
+    def __init__(
+        self,
+        input_image_shape,
+        number_of_boxes_per_point,
+        number_of_classes,
+        center_x_boxes_default,
+        center_y_boxes_default,
+        width_boxes_default,
+        height_boxes_default,
+        standard_deviations_centroids_offsets,
+        **model_kwargs,
+    ) -> None:
+        """model_kwargs: extra ModelConfig fields, as for
+        MobileNetV2SsdSegBuilder."""
+        super().__init__(
+            input_image_shape,
+            number_of_boxes_per_point,
+            number_of_classes,
+            center_x_boxes_default,
+            center_y_boxes_default,
+            width_boxes_default,
+            height_boxes_default,
+            standard_deviations_centroids_offsets,
+            backbone="mobilenetv3_large",
             **model_kwargs,
         )
 

@@ -1,17 +1,24 @@
 """BN-folded serving forward for MobileNetV2 (PyTorch), counterpart of
-ssdseglib_tpu/models/fused_inference.py.
+ssdseglib_tpu/models/fused_inference.py, and for MobileNetV3-Large, the
+port's own.
 
 Every ConvBN is folded to conv + bias on the host (NumPy, f32, the same
 arithmetic as the JAX package), then cast to the compute dtype.  The stem
-absorbs the [0, 255] -> [-1, 1] input rescale (`fold_stem_rescale`), the
-stem and the stride-2 / first blocks run as cuDNN convs, but for their
-depthwise 3x3 convs, which in bfloat16 run as one Hopper kernel each with
-their padding, bias and relu6 (`ops/depthwise3x3.py`, as do the heads'), and
-each stride-1 residual repeat runs as one fused Hopper kernel
-(`ops/fused_mbconv.py`).
+absorbs the [0, 255] -> [-1, 1] input rescale (`fold_stem_rescale`), and in
+bfloat16 every depthwise 3x3 conv runs as one Hopper kernel with its padding,
+bias and activation (`ops/depthwise3x3.py`, the heads' too).
+- MobileNetV2 (`mobilenetv2_features_fused`): the stem and the stride-2 /
+  first blocks run as cuDNN convs but for their depthwise convs, and each
+  stride-1 residual repeat runs as one fused Hopper kernel
+  (`ops/fused_mbconv.py`).
+- MobileNetV3-Large (`mobilenetv3_large_features_fused`): the 1x1 convs run
+  on cuDNN, each followed by its activation pass (ReLU or h-swish); the
+  squeeze-and-excitation keeps its two 1x1 convs with their biases; the six
+  5x5 depthwise convs take the library route (cuDNN's grouped conv, bias,
+  activation).  It takes none of the options below and no spatial mesh.
 The heads run folded and without concats (`heads_forward_folded`).
 
-Options of `make_fused_forward`, all off the default path:
+Options of `make_fused_forward`, all off the default path (MobileNetV2's):
 - ``s2d_stem="cuda"``: stem + block 1 as one fused Hopper kernel
   (`ops/s2d_stem.py`) for inputs whose height and width are multiples of
   4; the input rescale is then a pass of its own.
@@ -38,7 +45,7 @@ Activations are NCHW in the channels-last memory format, so the NHWC view
 the fused kernels take is a permute, not a copy.  The public forward takes
 NHWC images and returns NHWC outputs, like the JAX package.
 
-On a ``("data", "spatial")`` mesh (inside `parallel.mesh.data_parallel`,
+On a ``("data", "spatial")`` mesh (MobileNetV2; inside `parallel.mesh.data_parallel`,
 on this rank's rows of the images) the forward runs under the model's row
 partition, as `SsdSegModel.forward` does: every kernel of a split level runs
 on this rank's window of rows (`parallel/spatial.py`), a whole level runs
@@ -56,6 +63,7 @@ import torch.nn.functional as F
 from ssdseglib_torch.config import ModelConfig
 from ssdseglib_torch.models.blocks import bilinear_resize, conv2d_same
 from ssdseglib_torch.models.mobilenetv2 import _SEQUENCES
+from ssdseglib_torch.models.mobilenetv3 import BNECK, LAST_BLOCK, STEM_CHANNELS
 from ssdseglib_torch.ops.depthwise3x3 import depthwise3x3
 from ssdseglib_torch.ops.fused_mbconv import fold_conv_bn, fused_mbconv_rows
 from ssdseglib_torch.ops.int8_pointwise import int8_pointwise
@@ -99,13 +107,17 @@ def _fold_sepconv(s: Dict[str, np.ndarray], prefix: str):
 
 
 def fold_mobilenetv2(state_dict) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
-    """Fold every backbone ConvBN into (OIHW kernel, bias), keyed by block
-    name."""
+    """Fold every backbone ConvBN into (OIHW kernel, bias), keyed by module
+    name; a plain conv with a bias (MobileNetV3-Large's squeeze-and-
+    excitations) passes as its (kernel, bias).  Folds either backbone of
+    `FUSED_BACKBONES` under the JAX package's name."""
     s = _numpy_state(state_dict)
     names = dict.fromkeys(
         k.split(".")[1] for k in s if k.startswith("backbone.")
     )
-    return {name: _fold_convbn(s, f"backbone.{name}") for name in names}
+    return {name: _fold_convbn(s, f"backbone.{name}") if f"backbone.{name}.conv.weight" in s
+            else (s[f"backbone.{name}.weight"], s[f"backbone.{name}.bias"])
+            for name in names}
 
 
 def fold_heads(state_dict, cfg: ModelConfig) -> Dict[str, tuple]:
@@ -168,36 +180,52 @@ def fold_stem_rescale(kernel, bias, input_hw):
             np.ascontiguousarray(bias_map.transpose(0, 3, 1, 2)))
 
 
-def _depthwise3x3(x, kernel, bias, stride: int, dilation: int, relu6: bool):
+# `_conv`'s activations by name: (relu_cap, activation) of `ops/depthwise3x3.py`
+# and the library route's pass
+ACTIVATIONS = {
+    None: ((None, None), lambda y: y),
+    "relu6": ((6.0, None), lambda y: y.clamp(0.0, 6.0)),
+    "relu": ((None, "relu"), F.relu),
+    "hard_swish": ((None, "hard_swish"), F.hardswish),
+}
+
+
+def _depthwise3x3(x, kernel, bias, stride: int, dilation: int, act):
     """A bf16 depthwise 3x3 conv as one `ops/depthwise3x3.py` call on the
     NHWC view of the channels-last ``x`` (of its window of rows on split
-    rows), the SAME padding, bias and relu6 inside it; back as a
-    channels-last view."""
+    rows), the SAME padding, bias and activation ``act`` (of ACTIVATIONS)
+    inside it; back as a channels-last view."""
     x, (top, bottom) = spatial.window_rows(x, 3, stride, dilation)
     left, right = spatial.same_pad(x.shape[3], 3, stride, dilation)
+    relu_cap, activation = ACTIVATIONS[act][0]
     y = depthwise3x3(x.permute(0, 2, 3, 1).contiguous(), kernel, bias, stride, dilation,
-                     (top, bottom, left, right), 6.0 if relu6 else None)
+                     (top, bottom, left, right), relu_cap, activation)
     return y.permute(0, 3, 1, 2)
 
 
+def takes_depthwise_kernel(x, kernel) -> bool:
+    """Whether `_conv` runs a depthwise conv of ``kernel`` on ``x`` through
+    `_depthwise3x3`: a 3x3 one in bfloat16."""
+    return x.dtype == torch.bfloat16 and tuple(kernel.shape[2:]) == (3, 3)
+
+
 def _conv(x, kernel, bias=None, stride: int = 1, depthwise: bool = False,
-          relu6: bool = False, dilation: int = 1):
-    """Folded conv + bias (+ relu6), SAME padding.  A bias of more than one
-    dimension is the stem's (1, C, H, W) border bias map of the global
-    image, of which split rows take their own.  A depthwise 3x3 conv in
-    bfloat16 runs `_depthwise3x3` (the kernel on the card, its plain version,
-    the same library calls as below, on the CPU); float32 keeps the library
-    route on every device, chosen by dtype."""
-    if depthwise and x.dtype == torch.bfloat16 and tuple(kernel.shape[2:]) == (3, 3):
-        return _depthwise3x3(x, kernel, bias, stride, dilation, relu6)
+          act=None, dilation: int = 1):
+    """Folded conv + bias (+ the activation ``act``: None, 'relu6', 'relu'
+    or 'hard_swish'), SAME padding.  A bias of more than one dimension is
+    the stem's (1, C, H, W) border bias map of the global image, of which
+    split rows take their own.  A depthwise 3x3 conv in bfloat16 runs
+    `_depthwise3x3` (the kernel on the card, its plain version, the same
+    library calls as below, on the CPU); float32 and other kernel sizes keep
+    the library route on every device."""
+    if depthwise and takes_depthwise_kernel(x, kernel):
+        return _depthwise3x3(x, kernel, bias, stride, dilation, act)
     groups = x.shape[1] if depthwise else 1
     vector_bias = bias if bias is not None and bias.dim() == 1 else None
     y = conv2d_same(x, kernel, vector_bias, stride, dilation, groups)
     if bias is not None and vector_bias is None:
         y = y + spatial.own_rows(bias)
-    if relu6:
-        y = y.clamp(0.0, 6.0)
-    return y
+    return ACTIVATIONS[act][1](y)
 
 
 def _act(x, relu_max):
@@ -297,6 +325,19 @@ def _check_s2d_stem(s2d_stem) -> None:
         raise ValueError(f"s2d_stem must be False, 'cuda' or 'xla'; got {s2d_stem!r}")
 
 
+def check_fused_options(cfg: ModelConfig, s2d_stem, quantize_pointwise) -> None:
+    """ValueError for a backbone the fold does not take, and for the
+    options (``s2d_stem``, ``quantize_pointwise``) on one that is not
+    MobileNetV2's, whose layers they are built on (`FUSED_BACKBONES`)."""
+    if cfg.backbone not in FUSED_BACKBONES:
+        # the JAX package's message (it folds MobileNetV2 alone)
+        raise ValueError("fused inference currently supports mobilenetv2 only")
+    _check_s2d_stem(s2d_stem)
+    if not FUSED_BACKBONES[cfg.backbone][1] and (s2d_stem or quantize_pointwise):
+        raise ValueError(f"s2d_stem and quantize_pointwise are MobileNetV2's options; "
+                         f"fused inference of {cfg.backbone} takes neither")
+
+
 def _s2d_stem_applicable(x: torch.Tensor, s2d_stem="cuda") -> bool:
     """Shape gate of the stem + block 1 route on an NCHW input, the image's
     size read on the global image (a shard's rows are the mesh's, not the
@@ -363,8 +404,8 @@ def mobilenetv2_features_fused(folded, x: torch.Tensor, s2d_stem=False):
         x = _stem_block1(x, folded, s2d_stem)
     else:
         (we, be), (wd, bd), (wp, bp) = _block_convs(folded, 0)
-        x = _conv(x, we, be, stride=2, relu6=True)
-        x = _conv(x, wd, bd, depthwise=True, relu6=True)
+        x = _conv(x, we, be, stride=2, act="relu6")
+        x = _conv(x, wd, bd, depthwise=True, act="relu6")
         x = _conv(x, wp, bp)
 
     taps = {}
@@ -378,9 +419,9 @@ def mobilenetv2_features_fused(folded, x: torch.Tensor, s2d_stem=False):
                 # stride-s first block, no residual: cuDNN convs; expose the
                 # expand activation (head taps live on first blocks)
                 (we, be), (wd, bd), (wp, bp) = _block_convs(folded, block)
-                e = _conv(x, we, be, relu6=True)
+                e = _conv(x, we, be, act="relu6")
                 taps[f"block{block}-expand"] = e
-                d = _conv(e, wd, bd, stride=stride, depthwise=True, relu6=True)
+                d = _conv(e, wd, bd, stride=stride, depthwise=True, act="relu6")
                 x = _conv(d, wp, bp)
             else:
                 # stride-1 residual repeat: one fused kernel launch on the
@@ -393,6 +434,57 @@ def mobilenetv2_features_fused(folded, x: torch.Tensor, s2d_stem=False):
 
 
 mobilenetv2_features_fused.copies = 0
+
+
+def _squeeze_excite(x, reduce, expand):
+    """`models.blocks.squeeze_excite` on the folded operands: x scaled by
+    hard_sigmoid(expand(relu(reduce(mean of x over H x W)))), the two 1x1
+    convs with their biases."""
+    s = _conv(spatial.mean_hw(x), *reduce, act="relu")
+    return x * F.hardsigmoid(_conv(s, *expand))
+
+
+def mobilenetv3_large_features_fused(folded, x: torch.Tensor):
+    """MobileNetV3-Large's backbone forward (`models/mobilenetv3.py`) on the
+    folded convs, on pre-scaled input ([-1, 1], or raw with the rescale
+    folded into the stem); returns the three head taps (fm1: block 13's
+    expansion, os16; fm2: block 16's output, os32; skip: block 4's
+    expansion, os4), NCHW.  Counters: ``.se_blocks`` (squeeze-and-
+    excitations run, 8 a forward) and ``.library_depthwise`` (depthwise
+    convs left to the library route: the six 5x5 ones in bfloat16, all 15
+    in float32)."""
+    x = _conv(x, *folded["backbone-block0-expand"], stride=2, act="hard_swish")
+    taps = {}
+    cin = STEM_CHANNELS
+    for block, (_, e, cout, se, hs, stride) in enumerate(BNECK, 1):
+        name, act = f"backbone-block{block}", "hard_swish" if hs else "relu"
+        y = x
+        if e != cin:
+            y = taps[block] = _conv(x, *folded[f"{name}-expand"], act=act)
+        kernel, bias = folded[f"{name}-depthwise"]
+        if not takes_depthwise_kernel(y, kernel):
+            mobilenetv3_large_features_fused.library_depthwise += 1
+        y = _conv(y, kernel, bias, stride=stride, depthwise=True, act=act)
+        if se:
+            y = _squeeze_excite(y, folded[f"{name}-se-reduce"], folded[f"{name}-se-expand"])
+            mobilenetv3_large_features_fused.se_blocks += 1
+        y = _conv(y, *folded[f"{name}-project"])
+        x = x + y if stride == 1 and cin == cout else y
+        cin = cout
+    x = _conv(x, *folded[f"backbone-block{LAST_BLOCK}-expand"], act="hard_swish")
+    return taps[13], x, taps[4]
+
+
+mobilenetv3_large_features_fused.se_blocks = 0
+mobilenetv3_large_features_fused.library_depthwise = 0
+
+# the backbones the fold takes: {name: (its features function, whether it
+# is MobileNetV2's, with the MBConv operands and the options s2d_stem and
+# quantize_pointwise)}
+FUSED_BACKBONES = {
+    "mobilenetv2": (mobilenetv2_features_fused, True),
+    "mobilenetv3_large": (mobilenetv3_large_features_fused, False),
+}
 
 
 def heads_forward_folded(cfg: ModelConfig, folded, fm1, fm2, skip, quant=None,
@@ -512,7 +604,8 @@ def fused_operands(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
     """Every tensor `fused_forward` reads, keyed by conv: the BN-folded
     backbone convs (OIHW kernel, bias), the stem with the input rescale
     folded in (under ``fold_input_rescale``, not under ``s2d_stem``), the
-    kernels' arguments of each stride-1 residual repeat, the operands of the
+    kernels' arguments of each stride-1 residual repeat (MobileNetV2), the
+    squeeze-and-excitations' convs (MobileNetV3-Large), the operands of the
     ``s2d_stem`` route (`STEM_OPERANDS`; ``"xla"``'s packed on the host from
     the f32 folds), with ``heads`` the folded head convs, and
     with ``quantize_pointwise`` the int8 tables of each QUANT_TARGETS conv
@@ -521,6 +614,7 @@ def fused_operands(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
     runs in f32; the tensors are then cast to ``compute_dtype`` on
     ``device``, each in its own allocation (the int8 tables keep their
     types)."""
+    check_fused_options(cfg, s2d_stem, quantize_pointwise)
     if quantize_pointwise and not heads:
         raise ValueError("quantize_pointwise requires fused_heads=True")
     if quantize_pointwise and calibration_images is None:
@@ -542,7 +636,7 @@ def fused_operands(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat16,
         operands[STEM_OPERANDS["xla"]] = _to_device(
             {"packed": pack_stem_block1(folded_f32)}, compute_dtype, device)["packed"]
     block = 0
-    for _, _, n_repeat, _ in _SEQUENCES:
+    for _, _, n_repeat, _ in _SEQUENCES if FUSED_BACKBONES[cfg.backbone][1] else ():
         for n in range(n_repeat):
             block += 1
             if n > 0:
@@ -565,7 +659,7 @@ def _calibrate(cfg: ModelConfig, operands, images) -> Dict[str, float]:
     calibrates, whatever the serving stem.  Outside any mesh scope: on a
     mesh every rank calibrates on the whole batch with the replicated
     weights, so every rank holds one process's tables."""
-    weight = operands["backbone-block0-project"][0]
+    weight = operands["backbone-block0-expand"][0]
     images = images if isinstance(images, torch.Tensor) else torch.from_numpy(
         np.asarray(images))
     x = images.to(weight.device).to(weight.dtype).permute(0, 3, 1, 2) / 127.5 - 1.0
@@ -598,7 +692,7 @@ def fused_forward(cfg: ModelConfig, operands: Mapping[str, Tuple[torch.Tensor, .
     this rank's rows of the mask and the whole heads' outputs."""
     halos = {16: max(cfg.segmentation_dilation_rates)}
     with spatial.row_partition(images, halos):
-        x = images.to(operands["backbone-block0-project"][0].dtype).permute(0, 3, 1, 2)
+        x = images.to(operands["backbone-block0-expand"][0].dtype).permute(0, 3, 1, 2)
         backbone = operands
         if STEM_RESCALED in operands and (
                 spatial.global_size(x) == tuple(cfg.input_image_shape[:2])):
@@ -606,7 +700,9 @@ def fused_forward(cfg: ModelConfig, operands: Mapping[str, Tuple[torch.Tensor, .
             backbone = {**operands, "backbone-block0-expand": operands[STEM_RESCALED]}
         else:
             x = x / 127.5 - 1.0
-        fm1, fm2, skip = mobilenetv2_features_fused(backbone, x, s2d_stem=s2d_stem)
+        features, mobilenetv2 = FUSED_BACKBONES[cfg.backbone]
+        fm1, fm2, skip = (features(backbone, x, s2d_stem=s2d_stem) if mobilenetv2
+                          else features(backbone, x))
         if apply_heads is not None:
             return apply_heads(fm1, fm2, skip)
         quant = {name: operands[name + INT8_SUFFIX] for name in QUANT_TARGETS
@@ -639,9 +735,7 @@ def make_fused_forward(cfg: ModelConfig, state_dict, compute_dtype=torch.bfloat1
     calibrated on ``calibration_images``, a representative batch in
     [0, 255], which is then required).  Opt-in post-training quantization;
     requires ``fused_heads``."""
-    if cfg.backbone != "mobilenetv2":
-        raise ValueError("fused inference currently supports mobilenetv2 only")
-    _check_s2d_stem(s2d_stem)
+    check_fused_options(cfg, s2d_stem, quantize_pointwise)
     device = torch.device(device)
     operands = fused_operands(cfg, state_dict, compute_dtype, device, s2d_stem,
                               fold_input_rescale, heads=fused_heads,

@@ -218,7 +218,7 @@ def load_library() -> ctypes.CDLL:
     lib.int8_pointwise_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.int8_pointwise_plan.restype = ctypes.c_int
     # (x, k, kcs, kis, kjs, bias or null, y, B, H, W, C, Ho, Wo, stride,
-    #  dilation, pad_top, pad_left, has_cap, cap, stream)
+    #  dilation, pad_top, pad_left, act, cap, stream)
     lib.depthwise3x3_launch.argtypes = (
         [ptr, ptr] + [ctypes.c_int] * 3 + [ptr, ptr] + [ctypes.c_int] * 11 + [ctypes.c_float, ptr]
     )

@@ -4,15 +4,18 @@ On the CPU, at reduced shapes on two torch threads: its plain version gives
 the bits of the route it replaced (`conv2d_same` with groups C, the bias
 inside the call, then the clamp) at every geometry the folded forward uses,
 on a row window too, and the folded forward's outputs are those of that
-route; the fake implementation, ``torch.export`` of the forward with the op
-in its graph, and the wrapper's refusals.
+route; its uncapped ReLU and h-swish against the written-out formulas; the
+fake implementation, ``torch.export`` of the forward with the op in its
+graph, and the wrapper's refusals.
 
 Marked ``card`` (skipped without a CUDA card; on the chip, from the
 repository's root: ``python -m pytest --noconftest tests/test_torch_depthwise3x3.py
 -m card``): the kernel's error against an f32 evaluation is no worse than
-the library route's at the serving path's shapes, one launch per depthwise
-conv of a default forward, and the forward's outputs within the bf16
-serving tolerance of the library route's.  This file imports no JAX."""
+the library route's at the serving path's shapes and, with the uncapped ReLU
+and the h-swish, at MobileNetV3-Large's; the clamp and the ReLU are the
+identity's output clamped, bit for bit; one launch per depthwise conv of a
+default forward, and the forward's outputs within the bf16 serving
+tolerance of the library route's.  This file imports no JAX."""
 
 import collections
 
@@ -74,16 +77,32 @@ def _operands(seed, batch, h, w, c, dtype=torch.bfloat16, device="cpu"):
     return x, weight, bias.to(device, dtype)
 
 
+def _act(relu6):
+    """`fused_inference._conv`'s name of an activation: a bool for the ReLU6
+    or not, else the name itself."""
+    if isinstance(relu6, bool):
+        return "relu6" if relu6 else None
+    return relu6
+
+
 def _route(x, weight, bias, stride, dilation, relu6):
     """The route the op replaced, `fused_inference._conv`'s library calls:
-    `conv2d_same` with groups C (the bias inside the call), then the clamp."""
+    `conv2d_same` with groups C (the bias inside the call), then the
+    activation's pass (the clamp for the ReLU6)."""
     y = conv2d_same(x, weight, bias, stride, dilation, x.shape[1])
-    return y.clamp(0.0, 6.0) if relu6 else y
+    return fused_inference.ACTIVATIONS[_act(relu6)][1](y)
 
 
 def _new(x, weight, bias, stride, dilation, relu6):
-    return fused_inference._conv(x, weight, bias, stride, depthwise=True, relu6=relu6,
+    return fused_inference._conv(x, weight, bias, stride, depthwise=True, act=_act(relu6),
                                  dilation=dilation)
+
+
+def _written_out(y, act):
+    """The activation written out from its formula, in y's dtype."""
+    if act == "relu":
+        return y.clamp_min(0.0)
+    return y * (y + 3.0).clamp(0.0, 6.0) / 6.0
 
 
 @pytest.mark.parametrize("with_bias, relu6", [(True, True), (False, False), (True, False)])
@@ -97,6 +116,28 @@ def test_plain_version_is_the_route_bit_for_bit(h, w, c, stride, dilation, with_
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert got.permute(0, 2, 3, 1).is_contiguous()  # channels-last, as the route's
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("act", ["relu", "hard_swish"])
+@pytest.mark.parametrize("h, w, c, stride, dilation", GEOMETRIES[:4] + GEOMETRIES[6:7])
+def test_plain_version_activations_against_their_formulas(h, w, c, stride, dilation, act):
+    """The uncapped ReLU and the h-swish of the plain version (the library
+    route's calls) against ``F.conv2d`` in f32 followed by the written-out
+    formula, on the same bf16 operands.  Tolerance: the route rounds twice,
+    the conv's output and the activation's, each within 2^-8 of its value in
+    bf16, and the h-swish's slope is at most 1.5 (under 2.5 x 2^-8 of the
+    conv's output); within 2^-6 of 1 + |conv output|."""
+    x, weight, bias = _operands(h * w + c + 1, 2, h, w, c)
+    x = x - 3.0  # both sides of the h-swish's knees at -3 and 3
+    nhwc = x.permute(0, 2, 3, 1).contiguous()
+    pads = (*spatial.same_pad(h, 3, stride, dilation), *spatial.same_pad(w, 3, stride, dilation))
+    got = depthwise3x3(nhwc, weight, bias, stride, dilation, pads, activation=act).float()
+    z = conv2d_same(x.float(), weight.float(), bias.float(), stride, dilation, c)
+    want = _written_out(z, act).permute(0, 2, 3, 1)
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= 2.0 ** -6 * (1.0 + z.permute(0, 2, 3, 1).abs())).all())
+    assert torch.equal(got.to(torch.bfloat16), _new(x, weight, bias, stride, dilation, act)
+                       .permute(0, 2, 3, 1))
 
 
 @pytest.mark.parametrize("stride, dilation, rows", [(1, 1, (3, 11)), (2, 1, (4, 13)),
@@ -159,12 +200,39 @@ def test_fake_op_gives_shape_and_dtype():
     assert tuple(z.shape) == (2, 11, 13, 24) and z.dtype == torch.bfloat16
 
 
+def test_fake_op_takes_an_activation():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        x = torch.empty(2, 11, 13, 24, dtype=torch.bfloat16)
+        weight = torch.empty(24, 1, 3, 3, dtype=torch.bfloat16)
+        y = depthwise3x3(x, weight, None, 2, 1, (1, 1, 1, 1), activation="hard_swish")
+    assert tuple(y.shape) == (2, 6, 7, 24) and y.dtype == torch.bfloat16
+
+
 def test_op_passes_opcheck():
     x, weight, bias = _operands(5, 2, 6, 7, 16)
     nhwc = x.permute(0, 2, 3, 1).contiguous()
     for args in ((nhwc, weight, bias, 2, 1, [0, 1, 0, 1], 6.0),
                  (nhwc, weight, None, 1, 3, [3, 3, 3, 3], None)):
         torch.library.opcheck(torch.ops.ssdseglib.depthwise3x3.default, args)
+
+
+def test_op_passes_opcheck_with_an_activation():
+    x, weight, bias = _operands(5, 2, 6, 7, 16)
+    nhwc = x.permute(0, 2, 3, 1).contiguous()
+    for args in ((nhwc, weight, bias, 2, 1, [0, 1, 0, 1], None, "relu"),
+                 (nhwc, weight, None, 1, 3, [3, 3, 3, 3], None, "hard_swish")):
+        torch.library.opcheck(torch.ops.ssdseglib.depthwise3x3.default, args)
+
+
+@pytest.mark.parametrize("relu_cap, activation", [(None, "swish"), (6.0, "relu"),
+                                                  (None, "relu6")])
+def test_wrapper_rejects_an_unknown_or_doubled_activation(relu_cap, activation):
+    x, weight, bias = _operands(6, 2, 8, 8, 16)
+    with pytest.raises(ValueError, match="activation"):
+        depthwise3x3(x.permute(0, 2, 3, 1).contiguous(), weight, bias, 1, 1, (1, 1, 1, 1),
+                     relu_cap, activation)
 
 
 def test_folded_forward_exports_with_the_op_in_its_graph(operands):
@@ -239,6 +307,53 @@ def test_kernel_error_is_no_worse_than_the_routes(card, shape, monkeypatch):
         # the kernel rounds once where the route rounds twice; beyond that, the
         # f32 sums' order (2^-20 of the largest output)
         assert kernel <= route + 2.0 ** -20 * 6.0 * 9, (relu6, kernel, route)
+
+
+# (B, H, W, C, stride) of MobileNetV3-Large's 3x3 depthwise convs at 480x640
+# (b2): blocks 1, 2, 3, 7 and 8-12
+MOBILENETV3_SHAPES = [(2, 240, 320, 16, 1), (2, 240, 320, 64, 2), (2, 120, 160, 72, 1),
+                      (2, 60, 80, 240, 2), (2, 30, 40, 200, 1), (2, 30, 40, 184, 1),
+                      (2, 30, 40, 480, 1), (2, 30, 40, 672, 1)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shape", MOBILENETV3_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_activations_at_mobilenetv3_geometries(card, shape, monkeypatch):
+    """The uncapped ReLU and the h-swish: the kernel's error against the f32
+    evaluation (the conv in f32, then the written-out formula) is no worse
+    than the library route's, which rounds twice (the conv's output, then
+    the activation's) where the kernel rounds once; beyond that, the f32
+    sums' order (2^-20 of the largest |conv output|, over nine taps)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    b, h, w, c, stride = shape
+    x, weight, bias = _operands(sum(shape), b, h, w, c, device=card)
+    x = x - 3.0  # both sides of the h-swish's knees at -3 and 3
+    z = conv2d_same(x.float(), weight.float(), bias.float(), stride, 1, c)
+    for act in ("relu", "hard_swish"):
+        want = _written_out(z, act)
+        kernel = float((_new(x, weight, bias, stride, 1, act).float() - want).abs().max())
+        route = float((_route(x, weight, bias, stride, 1, act).float() - want).abs().max())
+        assert kernel <= route + 2.0 ** -20 * float(z.abs().max()) * 9, (act, kernel, route)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shape", CARD_SHAPES[:3] + MOBILENETV3_SHAPES[:2],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel_clamp_and_relu_are_the_identity_clamped(card, shape):
+    """0 ulps: the kernel's clamp to [0, 6] and its ReLU, applied in f32
+    before the one rounding, give the bits of its identity's output clamped
+    after it (rounding is monotone, and 0 and 6 are bf16 values)."""
+    b, h, w, c, stride = shape[:5]
+    dilation = shape[5] if len(shape) > 5 else 1
+    x, weight, bias = _operands(sum(shape), b, h, w, c, device=card)
+    x = x - 3.0
+    nhwc = x.permute(0, 2, 3, 1).contiguous()
+    pads = (*spatial.same_pad(h, 3, stride, dilation), *spatial.same_pad(w, 3, stride, dilation))
+    identity = depthwise3x3(nhwc, weight, bias, stride, dilation, pads)
+    assert torch.equal(depthwise3x3(nhwc, weight, bias, stride, dilation, pads, 6.0),
+                       identity.clamp(0.0, 6.0))
+    assert torch.equal(depthwise3x3(nhwc, weight, bias, stride, dilation, pads,
+                                    activation="relu"), identity.clamp_min(0.0))
 
 
 @pytest.mark.card

@@ -25,6 +25,7 @@ SLICE_MODULES = (
     "ssdseglib_torch.data.synthetic",
     "ssdseglib_torch.models.blocks",
     "ssdseglib_torch.models.mobilenetv2",
+    "ssdseglib_torch.models.mobilenetv3",
     "ssdseglib_torch.models.heads",
     "ssdseglib_torch.models.builder",
     "ssdseglib_torch.models.fused_inference",
